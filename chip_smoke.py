@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the search stack on one CUDA card.
+"""Drive the PyTorch/CUDA port on one CUDA card: the search stack and the
+LM serving path.
 
 Run from the repository root with no arguments::
 
@@ -15,17 +16,35 @@ Phases (any failure exits non-zero before the last line is printed):
      ``rank="prox"``) plus a pooled hot top-k batch, with
      ``backend="cuda"`` and with the ``numpy`` host oracle.  Results must
      match element-wise, ``last_trace`` key for key (wall-clock keys
-     aside) and per-device ``IOStats`` to the byte; both kernels' launch
-     counters must rise during the ``cuda`` runs.  Prints qps and
+     aside) and per-device ``IOStats`` to the byte; both search kernels'
+     launch counters must rise during the ``cuda`` runs.  Prints qps and
      per-query p50/p99 latency per backend, and for each 1-shard cell
      where one cold ``cuda`` batch spends its time (device busy time
      and idle share from ``torch.profiler``, top host functions);
-  3. kernels: each kernel against its plain PyTorch version on the card,
+  3. search kernels: each against its plain PyTorch version on the card,
      bit for bit, at the largest shape the search phase gave it and at
      deployment size (2^24 postings varint-encoded; two sorted 2^24-id
      lists), timed with CUDA events beside its bound and the one-call
      PyTorch yardstick;
-  4. print the kernels line, then the result line.
+  4. serve: ``ServeEngine`` for granite-3-2b at its published widths
+     (40 layers, d_model 2048, 32 heads over 8 KV heads, vocab 49,155;
+     seeded random bf16 weights), 16 slots of 4,096 tokens in 16-token
+     pages, 32 requests of 512-1,024 prompt tokens and 64 new tokens
+     each.  Both attention kernels' counters must rise; every logit must
+     be finite.  Prints tokens/s, p50/p99 per prefill and per decode step,
+     launches, the paged-KV manager's stats, and the device's busy share
+     over one decode step of 16 active slots (``torch.profiler``);
+  5. serve parity: granite-3-2b widths at 2 layers in float32, served on
+     the card (through the kernels) and replayed on the CPU (through the
+     plain versions) with the card's tokens forced: every step's logits
+     must agree within 1e-4 and ``stats()`` must be equal;
+  6. attention kernels: each against its plain version on the card in
+     bf16 and f32, at the largest shape the serve phase gave it and at a
+     deployment shape (prefill S = 4,096; decode over 128 rows x 256
+     pages), element by element (f32 within 2e-5; bf16 within one bf16
+     rounding of each side plus that), timed beside its bound and
+     ``scaled_dot_product_attention`` on the same operands;
+  7. print the kernels line, then the result line.
 
 Exits with code 2 when no CUDA device is present.  Imports nothing of
 JAX or of the ``repro`` package.
@@ -47,16 +66,45 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the 32-bit rate
-# outside the tensor cores (used for integer compares and adds)
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the 32-bit rate
+# outside the tensor cores (integer compares and adds, and float32 math at
+# full precision), and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 WALL_CLOCK_KEYS = ("shard_fetch_s", "query_s", "busy_s")
 N_QUERIES = 256
 N_HOT_QUERIES = 64
 TOP_K = 10
 DEPLOY_N = 1 << 24
+
+# serve phase: granite-3-2b at its published widths
+SERVE_SLOTS = 16
+SERVE_S_MAX = 4096
+SERVE_PAGE = 16
+SERVE_CHAIN = 9
+SERVE_REQUESTS = 32
+SERVE_PROMPT = (512, 1024)
+SERVE_NEW = 64
+# card (kernels) against CPU (plain versions), float32 logits: the two
+# sum d_model = 2048 and d_ff = 8192 products in other orders (cuBLAS and
+# the kernels' reductions against the CPU's), which moves logits of unit
+# scale by up to about 1e-5 on an H100; 1e-4 leaves a margin and still
+# catches a wrong mask, scale or head mapping, which moves them by 1e-2
+# or more
+PARITY_TOL = 1e-4
+# attention kernel against its plain version on the same inputs, element
+# by element.  Both compute in f32 and differ only in summation order
+# (at most 1e-6 measured on an H100), held to F32_TOL.  A bf16 output is
+# that f32 value rounded once, which moves it by at most half a bf16 step,
+# 2^-8 of the rounded value; so each bf16 element is held to
+# BF16_REL * (|got| + |plain|) + F32_TOL, one rounding on each side.  A
+# fixed bf16 limit would not do: at S = 4096 the outputs themselves are
+# about 0.02 in size, and a kernel that dropped a few tokens of each row
+# would stay within any limit that large
+F32_TOL = 2e-5
+BF16_REL = 2.0 ** -8
 
 
 def log(msg: str) -> None:
@@ -469,6 +517,408 @@ def kernel_phase(largest: dict, device) -> Dict[str, dict]:
     return out
 
 
+# --------------------------------------------------------------- serve --
+def tree_leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    return [tree]
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def percentiles_ms(xs: Sequence[float]) -> Dict[str, float]:
+    return {"p50_ms": float(np.percentile(xs, 50)) * 1e3,
+            "p99_ms": float(np.percentile(xs, 99)) * 1e3,
+            "n": len(xs)}
+
+
+class StepTimer:
+    """Wraps the engine module's ``prefill`` and ``decode_step`` with
+    synchronised host-clock timers and a finiteness check of the logits,
+    for the length of a ``with`` block."""
+
+    def __init__(self, engine_mod):
+        self.mod = engine_mod
+        self.orig = (engine_mod.prefill, engine_mod.decode_step)
+        self.prefill_s: List[float] = []
+        self.decode_s: List[float] = []
+        self.finite: List[torch.Tensor] = []
+
+    def _wrap(self, fn, times):
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = fn(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            self.finite.append(torch.isfinite(logits).all())
+            return logits, cache
+        return timed
+
+    def __enter__(self):
+        self.mod.prefill = self._wrap(self.orig[0], self.prefill_s)
+        self.mod.decode_step = self._wrap(self.orig[1], self.decode_s)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.prefill, self.mod.decode_step = self.orig
+        return False
+
+
+def serve_requests(Request, vocab: int, n: int, rng) -> list:
+    return [Request(req_id=i,
+                    prompt=rng.randint(0, vocab, rng.randint(
+                        SERVE_PROMPT[0], SERVE_PROMPT[1] + 1)).astype(np.int32),
+                    max_new_tokens=SERVE_NEW)
+            for i in range(n)]
+
+
+def profile_decode_step(engine, Request, device) -> dict:
+    """Device busy share over one decode step with every slot active
+    (``torch.profiler``), then the top host functions of the next one
+    (cProfile)."""
+    import cProfile
+    import pstats
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for r in serve_requests(Request, engine.cfg.vocab, engine.slots,
+                            np.random.RandomState(12)):
+        engine.submit(r)
+    engine.step()   # admits (prefills) every slot and decodes once
+    torch.cuda.synchronize()
+    active = sum(r is not None for r in engine.slot_req)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [
+        (e.key, e.count, e.self_device_time_total)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    busy_us = sum(k[2] for k in kernels)
+    kernels.sort(key=lambda k: -k[2])
+    # the host's share: one more step under cProfile, its top functions
+    prof_host = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof_host.enable()
+    engine.step()
+    torch.cuda.synchronize()
+    prof_host.disable()
+    host_wall_s = time.perf_counter() - t0
+    stats = pstats.Stats(prof_host).stats
+    host = sorted(
+        ((f"{Path(fn[0]).name}:{fn[2]}", cc, tt)
+         for fn, (cc, nc, tt, ct, callers) in stats.items()),
+        key=lambda h: -h[2])[:10]
+    return {
+        "active_slots": active,
+        "cprofile_wall_ms": host_wall_s * 1e3,
+        "host_tottime": [{"fn": n, "calls": c, "s": t} for n, c, t in host],
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "device_kernels": [{"name": n[:60], "count": c, "ms": us / 1e3}
+                           for n, c, us in kernels[:8]],
+    }
+
+
+def serve_phase(device, kernels) -> dict:
+    """granite-3-2b at its published widths through ``ServeEngine``."""
+    from repro_torch.configs.granite_3_2b import CONFIG
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = CONFIG
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    weights = tree_leaves(params)
+    engine = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                         s_max=SERVE_S_MAX, page_size=SERVE_PAGE,
+                         chain_limit=SERVE_CHAIN, device=device)
+    # warm-up on a small engine of the same weights (cuBLAS handles, the
+    # allocator, the kernels' first launches); its launches do not count
+    warm = ServeEngine(cfg, params, batch_slots=1, s_max=128,
+                       page_size=SERVE_PAGE, device=device)
+    warm.submit(Request(req_id=0, prompt=np.arange(64, dtype=np.int32),
+                        max_new_tokens=3))
+    warm.run_until_done()
+    del warm
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reqs = serve_requests(Request, cfg.vocab, SERVE_REQUESTS,
+                          np.random.RandomState(11))
+    for r in reqs:
+        engine.submit(r)
+    log(f"serve: {cfg.name}, {cfg.params_dense:,} parameters "
+        f"({sum(t.numel() * t.element_size() for t in weights):,} B), "
+        f"KV cache {engine.cache['k'].numel() * 2 * engine.cache['k'].element_size():,} B, "
+        f"{len(reqs)} requests, set-up {setup_s:.1f} s")
+
+    for k in kernels:
+        k.launches = 0
+        k.largest = None
+    with StepTimer(engine_mod) as timer:
+        t0 = time.perf_counter()
+        done = engine.run_until_done(max_steps=100_000)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernels}
+    largest = {k.symbol: k.largest for k in kernels}
+
+    failures: List[str] = []
+    tokens = sum(len(r.out_tokens) for r in done)
+    if len(done) != len(reqs):
+        failures.append(f"serve: {len(done)} of {len(reqs)} requests done")
+    if any(len(r.out_tokens) != SERVE_NEW for r in done):
+        failures.append("serve: a request stopped short of its new tokens")
+    if any(not 0 <= t < cfg.vocab for r in done for t in r.out_tokens):
+        failures.append("serve: a token id outside the vocabulary")
+    if not all(bool(f) for f in timer.finite):
+        failures.append("serve: non-finite logits")
+    expect = {"flash_attention": cfg.n_layers * len(timer.prefill_s),
+              "paged_attention": cfg.n_layers * len(timer.decode_s)}
+    for name, n in expect.items():
+        if launches.get(name, 0) == 0:
+            failures.append(f"{name} was never launched by the serve phase")
+        elif launches[name] != n:
+            failures.append(f"{name}: {launches[name]} launches, {n} expected "
+                            "(one per layer and call)")
+    decode_tokens = tokens - len(timer.prefill_s)
+    report = {
+        "arch": cfg.name, "params": cfg.params_dense,
+        "requests": len(reqs), "slots": SERVE_SLOTS, "s_max": SERVE_S_MAX,
+        "page_size": SERVE_PAGE, "chain_limit": SERVE_CHAIN,
+        "prompt_tokens": int(sum(r.prompt.shape[0] for r in reqs)),
+        "generated_tokens": tokens, "steps": engine.steps,
+        "wall_s": wall_s, "setup_s": setup_s,
+        "tokens_per_s": tokens / wall_s,
+        "decode_tokens_per_s": decode_tokens / sum(timer.decode_s),
+        "prefill": percentiles_ms(timer.prefill_s),
+        "decode_step": percentiles_ms(timer.decode_s),
+        "prefill_s_total": sum(timer.prefill_s),
+        "decode_s_total": sum(timer.decode_s),
+        "launches": launches, "largest": largest,
+        "kv": engine.stats(),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
+    }
+    # after the launch counts are read: profiling does not count
+    report["profile"] = profile_decode_step(engine, Request, device)
+    report["failures"] = failures
+    return report
+
+
+def parity_phase(device) -> dict:
+    """granite-3-2b widths at 2 layers in float32: served on the card, then
+    replayed on the CPU with the card's tokens forced (teacher forcing);
+    every step's logits and the engines' ``stats()`` must agree."""
+    from repro_torch.configs.granite_3_2b import CONFIG
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(CONFIG, n_layers=2, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(1))
+    kw = dict(batch_slots=4, s_max=512, page_size=SERVE_PAGE, chain_limit=3)
+    rng = np.random.RandomState(13)
+    specs = [(rng.randint(0, cfg.vocab, rng.randint(40, 200)).astype(np.int32),
+              12) for _ in range(6)]
+    recorded: List[tuple] = []
+
+    class Recording(ServeEngine):
+        def _select(self, logits):
+            picks = super()._select(logits)
+            recorded.append((logits.float().cpu(), picks))
+            return picks
+
+    errs: List[float] = []
+
+    class Replaying(ServeEngine):
+        def _select(self, logits):
+            want, picks = recorded[len(errs)]
+            errs.append(float((logits.float() - want).abs().max()))
+            return picks
+
+    def serve(engine):
+        for i, (prompt, n) in enumerate(specs):
+            engine.submit(Request(req_id=i, prompt=prompt, max_new_tokens=n))
+        return engine.run_until_done(max_steps=1000), engine.stats()
+
+    t0 = time.perf_counter()
+    card_done, card_stats = serve(Recording(cfg, params, device=device, **kw))
+    cpu_done, cpu_stats = serve(Replaying(cfg, tree_to(params, "cpu"),
+                                          device="cpu", **kw))
+    failures = []
+    if len(errs) != len(recorded):
+        failures.append(f"parity: {len(errs)} CPU selections, "
+                        f"{len(recorded)} on the card")
+    if max(errs) > PARITY_TOL:
+        failures.append(f"parity: logits differ by {max(errs)} > {PARITY_TOL}")
+    if card_stats != cpu_stats:
+        failures.append(f"parity: stats differ: {card_stats} vs {cpu_stats}")
+    if [r.out_tokens for r in card_done] != [r.out_tokens for r in cpu_done]:
+        failures.append("parity: tokens differ")
+    return {"selections": len(recorded), "max_abs_logit_err": max(errs),
+            "tolerance": PARITY_TOL, "stats": card_stats,
+            "steps": card_stats["steps"], "seconds": time.perf_counter() - t0,
+            "failures": failures}
+
+
+# ----------------------------------------------------- attention kernels --
+def attention_check(got: torch.Tensor, plain: torch.Tensor) -> dict:
+    """Element-wise agreement of a kernel's output with its plain
+    version's: the largest error, its ratio to the element's limit (at
+    most 1 to pass) and the outputs' mean size beside them."""
+    g, p = got.float(), plain.float()
+    err = (g - p).abs()
+    if got.dtype == torch.bfloat16:
+        limit = BF16_REL * (g.abs() + p.abs()) + F32_TOL
+        tolerance = f"2^-8*(|got|+|plain|)+{F32_TOL}"
+    else:
+        limit = torch.full_like(err, F32_TOL)
+        tolerance = f"{F32_TOL}"
+    ratio = float((err / limit).max())
+    return {"max_abs_err": float(err.max()), "max_err_ratio": ratio,
+            "mean_abs_out": float(p.abs().mean()), "tolerance": tolerance,
+            "within_tolerance": ratio <= 1.0}
+
+
+def flash_case(B: int, H: int, Hkv: int, S: int, D: int, dtype,
+               gen: torch.Generator, device) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q = torch.randn(B, H, S, D, generator=gen, device=device).to(dtype)
+    k = torch.randn(B, Hkv, S, D, generator=gen, device=device).to(dtype)
+    v = torch.randn(B, Hkv, S, D, generator=gen, device=device).to(dtype)
+    got = flash_attention(q, k, v, True)
+    plain = flash_attention_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    check = attention_check(got, plain)
+    del got, plain
+    # the yardstick gets K/V expanded to H heads, outside its timing
+    ke = k.repeat_interleave(H // Hkv, dim=1)
+    ve = v.repeat_interleave(H // Hkv, dim=1)
+    esize = q.element_size()
+    flops = 4 * B * H * D * S * (S + 1) / 2
+    nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * esize
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else SCALAR_OPS_PER_S
+    return {
+        "shape": [B, H, Hkv, S, D], "dtype": str(dtype).split(".")[-1],
+        **check,
+        "ms": cuda_ms(lambda: flash_attention(q, k, v, True)),
+        "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, True)),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=True)),
+        "bound_ms": max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / rate >= nbytes / HBM_BYTES_PER_S
+        else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+
+
+def paged_case(R: int, G: int, D: int, page: int, max_pages: int,
+               lengths: np.ndarray, dtype, gen: torch.Generator, device,
+               shuffled: bool) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+
+    n_pages = R * max_pages
+    q = torch.randn(R, G, D, generator=gen, device=device).to(dtype)
+    kp = torch.randn(n_pages, page, D, generator=gen, device=device).to(dtype)
+    vp = torch.randn(n_pages, page, D, generator=gen, device=device).to(dtype)
+    ids = (torch.randperm(n_pages, generator=gen, device=device) if shuffled
+           else torch.arange(n_pages, device=device))
+    table = ids.to(torch.int32).reshape(R, max_pages)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    got = paged_attention(q, kp, vp, table, lens)
+    plain = paged_attention_plain(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    check = attention_check(got, plain)
+    del got, plain
+    # the yardstick reads K/V gathered through the table and a length
+    # mask, both made outside its timing
+    T = max_pages * page
+    kg = kp[table.long()].reshape(R, 1, T, D).expand(R, G, T, D)
+    vg = vp[table.long()].reshape(R, 1, T, D).expand(R, G, T, D)
+    mask = (torch.arange(T, device=device)[None, :] < lens[:, None])[:, None, None]
+    qs = q[:, :, None, :]
+    esize = q.element_size()
+    used = np.minimum(lengths, T)
+    tokens = int(used.sum())
+    nbytes = (2 * tokens * D * esize + 2 * R * G * D * esize
+              + 4 * int(np.ceil(used / page).sum()) + 4 * R)
+    flops = 4 * D * G * tokens
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else SCALAR_OPS_PER_S
+    return {
+        "shape": [R, G, D, page, max_pages], "tokens": tokens,
+        "table": "shuffled" if shuffled else "slot",
+        "dtype": str(dtype).split(".")[-1],
+        **check,
+        "ms": cuda_ms(lambda: paged_attention(q, kp, vp, table, lens)),
+        "plain_ms": cuda_ms(
+            lambda: paged_attention_plain(q, kp, vp, table, lens)),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask)),
+        "bound_ms": max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / rate >= nbytes / HBM_BYTES_PER_S
+        else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+
+
+def attention_phase(largest: dict, device) -> Dict[str, dict]:
+    """Both attention kernels against their plain versions, in bf16 (the
+    serve phase's type) and f32, at the serve phase's largest shapes and
+    at deployment shapes."""
+    from repro_torch.configs.granite_3_2b import CONFIG as cfg
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    rng = np.random.RandomState(9)
+    G = cfg.n_heads // cfg.n_kv_heads
+    out: Dict[str, dict] = {"flash_attention": {}, "paged_attention": {}}
+    # a kernel the serve phase never launched has failed already; it is
+    # still checked, at the serve configuration's shapes
+    B, H, Hkv, S, D = (largest["flash_attention"]
+                       or (1, cfg.n_heads, cfg.n_kv_heads, SERVE_PROMPT[1],
+                           cfg.d_head))
+    R, Gs, max_pages, page, Ds = (largest["paged_attention"]
+                                  or (SERVE_SLOTS * cfg.n_kv_heads, G,
+                                      SERVE_S_MAX // SERVE_PAGE, SERVE_PAGE,
+                                      cfg.d_head))
+    # the serve phase's lengths: a prompt plus the tokens decoded so far
+    serve_lens = rng.randint(SERVE_PROMPT[0], SERVE_PROMPT[1] + SERVE_NEW + 1,
+                             R // cfg.n_kv_heads).repeat(cfg.n_kv_heads)
+    deploy_pages = 256
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        out["flash_attention"][f"serve_{tag}"] = flash_case(
+            B, H, Hkv, S, D, dtype, gen, device)
+        out["flash_attention"][f"deploy_{tag}"] = flash_case(
+            1, cfg.n_heads, cfg.n_kv_heads, 4096, cfg.d_head, dtype, gen,
+            device)
+        out["paged_attention"][f"serve_{tag}"] = paged_case(
+            R, Gs, Ds, page, max_pages, serve_lens, dtype, gen, device,
+            shuffled=False)
+        out["paged_attention"][f"deploy_{tag}"] = paged_case(
+            128, G, cfg.d_head, SERVE_PAGE, deploy_pages,
+            np.full(128, deploy_pages * SERVE_PAGE), dtype, gen, device,
+            shuffled=True)
+    return out
+
+
 # ---------------------------------------------------------------- main --
 def smi_line() -> str:
     proc = subprocess.run(
@@ -493,11 +943,17 @@ def main(argv: Sequence[str] = ()) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.flash_attention.kernel import FLASH_ATTENTION
     from repro_torch.kernels.intersect.kernel import SORTED_MEMBER_MASK
+    from repro_torch.kernels.paged_attention.kernel import PAGED_ATTENTION
     from repro_torch.kernels.posting_decode.kernel import VARINT_SEGMENT_SUM
 
+    # float32 products in full float32 on the card (stated, not assumed)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     kernels = (VARINT_SEGMENT_SUM, SORTED_MEMBER_MASK)
+    serve_kernels = (FLASH_ATTENTION, PAGED_ATTENTION)
     t0 = time.perf_counter()
     lib = cuda_lib.build(verbose=True)
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
@@ -516,6 +972,26 @@ def main(argv: Sequence[str] = ()) -> int:
             if not case["bit_identical"]:
                 failures.append(f"{name} disagrees with its plain version "
                                 f"at {where} shape {case['shape']}")
+
+    t0 = time.perf_counter()
+    serve = serve_phase(device, serve_kernels)
+    log("serve: " + json.dumps({k: v for k, v in serve.items()
+                                if k != "profile"}))
+    log("serve profile: " + json.dumps(serve["profile"]))
+    failures += serve["failures"]
+    torch.cuda.empty_cache()
+    parity = parity_phase(device)
+    log("serve parity: " + json.dumps(parity))
+    failures += parity["failures"]
+    attn = attention_phase(serve["largest"], device)
+    for name, cases in attn.items():
+        for where, case in cases.items():
+            log(f"kernel {name} {where}: " + json.dumps(case))
+            if not case["within_tolerance"]:
+                failures.append(f"{name} disagrees with its plain version "
+                                f"at {where} shape {case['shape']}: error "
+                                f"{case['max_err_ratio']:.3g} times its limit")
+    log(f"serve phases: {time.perf_counter() - t0:.1f} s")
 
     line = {"kernels": [
         {
@@ -536,12 +1012,29 @@ def main(argv: Sequence[str] = ()) -> int:
             "deploy": checks[k.symbol]["deploy"],
         }
         for k in kernels
+    ] + [
+        {
+            "name": k.symbol,
+            "route": "cuda",
+            "source": k.source,
+            "replaces": k.replaces,
+            "launches": serve["launches"][k.symbol],
+            **{key: attn[k.symbol]["serve_bf16"][key]
+               for key in ("max_abs_err", "max_err_ratio", "ms",
+                           "plain_ms", "bound_ms", "bound_by", "library_ms",
+                           "shape", "dtype")},
+            "within_tolerance": all(c["within_tolerance"]
+                                    for c in attn[k.symbol].values()),
+            "deploy": attn[k.symbol]["deploy_bf16"],
+        }
+        for k in serve_kernels
     ]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"smi": smi, "search": {k: v for k, v in search.items()
                                     if k != "failures"},
+             "serve": serve, "parity": parity, "attention": attn,
              "kernels": line["kernels"], "failures": failures}, indent=1))
     if failures:
         for f in failures:

@@ -166,3 +166,22 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
         raise ValueError(f"{name} must be contiguous")
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"{name} lies on unsupported device {t.device}")
+
+
+# dtype codes of the float kernels' C entry points
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_float_operand(t: torch.Tensor, name: str, ndim: int) -> None:
+    """Validate an ``ndim``-d f32 or bf16 kernel operand whose last dim
+    is contiguous (other strides are the caller's to check)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if t.dtype not in FLOAT_CODES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-d, got {tuple(t.shape)}")
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name} must be contiguous along its last dim")
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} lies on unsupported device {t.device}")

@@ -1,0 +1,89 @@
+"""Paged decode attention: the CUDA kernel's wrapper.
+
+One query token per row attends to the first ``lengths[b]`` tokens of the
+pages ``block_table[b, :]`` of a shared (n_pages, page, D) pool; the pool
+has no head axis, so all H heads of a row read the same K/V.  m, l and the
+accumulator are f32 and the output has the input dtype, as in the Pallas
+``paged_attention_kernel`` that the CUDA kernel
+(``csrc/paged_attention.cu``) ports; the source says how and what bounds
+it.  Page ids must lie in ``[0, n_pages)``; they are not checked on the
+device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels.cuda_lib import (
+    FLOAT_CODES,
+    CudaKernel,
+    check_float_operand,
+)
+from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+
+PAGED_ATTENTION = CudaKernel(
+    "paged_attention",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float],
+    source="src/repro_torch/csrc/paged_attention.cu",
+    replaces="src/repro/kernels/paged_attention/kernel.py:75",
+)
+
+HEAD_DIMS = (8, 16, 32, 64, 128)
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, block_table: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """(B, H, D) decode attention output in ``q.dtype``.
+
+    ``q`` (B, H, D) and the pools (n_pages, page, D) share one dtype (f32
+    or bf16) and are contiguous; ``block_table`` (B, max_pages) and
+    ``lengths`` (B,) are int32; all on one device.  CUDA tensors go
+    through the kernel; CPU tensors through :func:`paged_attention_plain`."""
+    check_float_operand(q, "q", 3)
+    check_float_operand(k_pool, "k_pool", 3)
+    check_float_operand(v_pool, "v_pool", 3)
+    B, H, D = q.shape
+    if k_pool.shape != v_pool.shape or k_pool.shape[2] != D:
+        raise ValueError(f"q {tuple(q.shape)}, k_pool {tuple(k_pool.shape)}, "
+                         f"v_pool {tuple(v_pool.shape)}")
+    if not (q.dtype == k_pool.dtype == v_pool.dtype):
+        raise TypeError(
+            f"dtypes differ: {q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
+    for name, t, shape in (("block_table", block_table, None),
+                           ("lengths", lengths, (B,))):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+            raise TypeError(f"{name} must be an int32 tensor")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if block_table.dim() != 2 or block_table.shape[0] != B:
+        raise ValueError(
+            f"block_table must be ({B}, max_pages), got "
+            f"{tuple(block_table.shape)}")
+    devices = {t.device for t in (q, k_pool, v_pool, block_table, lengths)}
+    if len(devices) != 1:
+        raise ValueError(f"operands on several devices: {devices}")
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pool, v_pool, block_table, lengths)
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_table", block_table), ("lengths", lengths)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("the pools must be 16-byte aligned")
+    page, max_pages = k_pool.shape[1], block_table.shape[1]
+    out = torch.empty_like(q)
+    if B == 0 or H == 0:
+        return out
+    PAGED_ATTENTION.launch(
+        q.device, (B, H, max_pages, page, D),
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        FLOAT_CODES[q.dtype], B, H, D, page, max_pages, 1.0 / math.sqrt(D),
+    )
+    return out

@@ -1,0 +1,2 @@
+"""Models of the port: the dense decoder-only transformer's serving entry
+points (``transformer``) over the attention kernels (``attention``)."""

@@ -1,0 +1,73 @@
+"""Minimal functional NN substrate, the port of ``repro.nn.layers``.
+
+Parameters are nested dicts of tensors; initialisers draw from an explicit
+``torch.Generator`` (JAX's PRNG keys have no counterpart: the same seed
+gives other numbers, so tests hand both packages the same numpy weights).
+Norms and rotary embeddings compute in f32 and cast back, as the
+reference does.  The training helpers (``mlp_*``, ``dense``,
+``softmax_xent``) come with the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+Params = Dict[str, Any]
+
+
+# ----------------------------------------------------------------- inits ----
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               bias: bool = False, scale: Optional[float] = None) -> Params:
+    """``w`` (d_in, d_out) ~ N(0, scale^2), scale 1/sqrt(d_in) by default;
+    ``b`` zeros.  f32, on the generator's device."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": torch.randn((d_in, d_out), generator=gen, device=gen.device,
+                          dtype=torch.float32) * scale}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=gen.device)
+    return p
+
+
+def embedding_init(gen: torch.Generator, vocab: int, dim: int,
+                   scale: float = 0.02) -> Params:
+    return {"table": torch.randn((vocab, dim), generator=gen,
+                                 device=gen.device,
+                                 dtype=torch.float32) * scale}
+
+
+# ---------------------------------------------------------------- applies ----
+def rms_norm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return ((xf * scale) * g.float()).to(x.dtype)
+
+
+def rope_tables(positions: torch.Tensor, d: int, theta: float = 10000.0):
+    """(cos, sin) of the rotary angles, each (..., S, 1, d // 2) in f32:
+    computed once per forward and shared by every layer's q and k."""
+    half = d // 2
+    freqs = torch.exp(
+        -math.log(theta)
+        * torch.arange(0, half, dtype=torch.float32, device=positions.device)
+        / half
+    )
+    angles = positions[..., :, None].float() * freqs  # (..., S, half)
+    return torch.cos(angles)[..., :, None, :], torch.sin(angles)[..., :, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Half-split rotation of x (..., S, n_heads, d_head) in f32, cast back."""
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding.  x: (..., S, n_heads, d_head); positions: (..., S)."""
+    return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
