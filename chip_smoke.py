@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one CUDA card: the search stack and the
-LM serving path.
+"""Drive the PyTorch/CUDA port on one CUDA card: the search stack, the
+LM serving path and recsys serving.
 
 Run from the repository root with no arguments::
 
@@ -44,7 +44,25 @@ Phases (any failure exits non-zero before the last line is printed):
      pages), element by element (f32 within 2e-5; bf16 within one bf16
      rounding of each side plus that), timed beside its bound and
      ``scaled_dot_product_attention`` on the same operands;
-  7. print the kernels line, then the result line.
+  7. recsys serve: dlrm-mlperf at its published config (26 bf16 tables of
+     177,944,225 rows in all, 45.6 GB; seeded random weights): 200
+     ``serve_p99`` calls of 512 rows, 10 ``serve_bulk`` calls of 262,144
+     and 5 ``retrieval_cand`` calls over 1,000,000 candidates, ids drawn
+     in each table's range and dense features uniform in [0, 1).  The bag
+     kernel's counter must rise by 26 a forward; every score must be
+     finite.  Prints table bytes, peak device memory, p50/p99, samples/s,
+     and over one call of each serve cell the device's busy share, top
+     kernels and the bag kernel's share (``torch.profiler``);
+  8. recsys parity: the four recsys archs in float32, card against CPU
+     with the same weights (dlrm-mlperf at its published widths with each
+     table cut to 10,000 rows; the others at REDUCED): scores within
+     1e-4, top-100 ids equal but for adjacent pairs of scores within it;
+  9. embedding_bag kernel: against its plain version in bf16 and f32 at
+     the serve phase's largest launch (K = 1, w = 1: bit identical), over
+     t19's 48,937,457 rows (and a 20M-row f32 table) with K = 8 and ids
+     among the tables' last rows, and at DIN's D = 18, K = 100; timed
+     beside its bytes bound and ``torch.nn.functional.embedding_bag``;
+ 10. print the kernels line (five kernels), then the result line.
 
 Exits with code 2 when no CUDA device is present.  Imports nothing of
 JAX or of the ``repro`` package.
@@ -59,7 +77,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -105,6 +123,26 @@ PARITY_TOL = 1e-4
 # would stay within any limit that large
 F32_TOL = 2e-5
 BF16_REL = 2.0 ** -8
+
+# recsys phases: dlrm-mlperf at its published config
+RECSYS_P99_CALLS = 200
+RECSYS_BULK_CALLS = 10
+RECSYS_RETRIEVAL_CALLS = 5
+# card (kernel, cuBLAS) against CPU (plain versions) in float32 with TF32
+# off: the two sum the MLPs' products in other orders, which moves scores
+# by about 1e-6 of their size (0.005 to 3 here; each arch's mean size is
+# reported beside its error)
+RECSYS_PARITY_TOL = 1e-4
+RECSYS_PARITY_ROWS = 10_000
+RECSYS_PARITY_BATCH = 512
+RECSYS_PARITY_CANDIDATES = 1000
+# bag kernel against its plain version: f32 within the reference's own
+# limit (tests/test_kernels.py), bf16 within one rounding of each side
+BAG_F32_TOL = 1e-5
+BAG_F32_ROWS = 20_000_000     # 10.24 GB of f32 at D = 128: past 2^31
+BAG_DEPLOY_B, BAG_DEPLOY_K = 262_144, 8   # kernel_bench's K
+BAG_DIN_ROWS, BAG_DIN_D = 1_000_000, 18   # DIN's items and width
+BAG_DIN_B, BAG_DIN_K = 16_384, 100        # and its history length
 
 
 def log(msg: str) -> None:
@@ -250,26 +288,21 @@ def serve(substrate, queries, backend: str, device) -> dict:
     return out
 
 
-def profile_cell(substrate, queries, device) -> dict:
-    """Where one cold ``cuda`` batch spends its time: device busy time
-    against wall time from ``torch.profiler`` (the device's idle share),
-    the top device kernels, and the top host functions from cProfile."""
-    import cProfile
-    import pstats
-
+def device_profile(fn: Callable[[], object], top: int = 8,
+                   match: Optional[str] = None) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time, the
+    device's busy time summed over its kernels (the busy share is their
+    ratio), the top device kernels by time and, with ``match``, the time
+    and share of device time of the kernels whose name holds it.
+    ``captured`` says whether any device activity came back: a session
+    can, rarely, return none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.search import SearchService
 
-    def fresh():
-        return SearchService(substrate, window=3, backend="cuda",
-                             device=device)
-
-    svc = fresh()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.search_batch(queries)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [
@@ -279,26 +312,60 @@ def profile_cell(substrate, queries, device) -> dict:
     ]
     busy_us = sum(k[2] for k in kernels)
     kernels.sort(key=lambda k: -k[2])
+    out = {
+        "captured": bool(kernels),
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "device_kernels": [{"name": n[:60], "count": c, "ms": us / 1e3}
+                           for n, c, us in kernels[:top]],
+    }
+    if match is not None:
+        hit = [k for k in kernels if match in k[0]]
+        out[f"{match}_launches"] = sum(k[1] for k in hit)
+        out[f"{match}_ms"] = sum(k[2] for k in hit) / 1e3
+        out[f"{match}_share_of_device"] = (sum(k[2] for k in hit) / busy_us
+                                           if busy_us else 0.0)
+    return out
 
-    svc = fresh()
+
+def host_profile(fn: Callable[[], object], top: int = 10) -> List[dict]:
+    """The top host functions of one call of ``fn`` by own time
+    (cProfile)."""
+    import cProfile
+    import pstats
+
     prof_host = cProfile.Profile()
     prof_host.enable()
-    svc.search_batch(queries)
+    fn()
     prof_host.disable()
     stats = pstats.Stats(prof_host).stats
     host = sorted(
-        ((f"{Path(fn[0]).name}:{fn[2]}", cc, tt)
-         for fn, (cc, nc, tt, ct, callers) in stats.items()),
-        key=lambda h: -h[2])[:10]
+        ((f"{Path(fn_[0]).name}:{fn_[2]}", cc, tt)
+         for fn_, (cc, nc, tt, ct, callers) in stats.items()),
+        key=lambda h: -h[2])[:top]
+    return [{"fn": n, "calls": c, "s": t} for n, c, t in host]
+
+
+def profile_cell(substrate, queries, device) -> dict:
+    """Where one cold ``cuda`` batch spends its time: device busy time
+    against wall time from ``torch.profiler`` (the device's idle share),
+    the top device kernels, and the top host functions from cProfile."""
+    from repro_torch.search import SearchService
+
+    def fresh():
+        return SearchService(substrate, window=3, backend="cuda",
+                             device=device)
+
+    svc = fresh()
+    dev = device_profile(lambda: svc.search_batch(queries), top=6)
+    svc = fresh()
     return {
-        "wall_ms": wall_us / 1e3,
-        "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": 1.0 - busy_us / wall_us,
-        "device_kernels": [
-            {"name": n[:60], "count": c, "ms": us / 1e3}
-            for n, c, us in kernels[:6]],
-        "host_tottime": [
-            {"fn": n, "calls": c, "s": t} for n, c, t in host],
+        "wall_ms": dev["wall_ms"],
+        "device_busy_ms": dev["device_busy_ms"],
+        "device_idle_share": 1.0 - dev["device_busy_share"],
+        "device_kernels": dev["device_kernels"],
+        "host_tottime": host_profile(lambda: svc.search_batch(queries)),
     }
 
 
@@ -527,6 +594,8 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
     return tree.to(device)
 
 
@@ -581,53 +650,27 @@ def profile_decode_step(engine, Request, device) -> dict:
     """Device busy share over one decode step with every slot active
     (``torch.profiler``), then the top host functions of the next one
     (cProfile)."""
-    import cProfile
-    import pstats
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for r in serve_requests(Request, engine.cfg.vocab, engine.slots,
                             np.random.RandomState(12)):
         engine.submit(r)
     engine.step()   # admits (prefills) every slot and decodes once
     torch.cuda.synchronize()
     active = sum(r is not None for r in engine.slot_req)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    dev = device_profile(engine.step)
+    # the host's share: one more step under cProfile, its top functions
+    t0 = time.perf_counter()
+
+    def step():
         engine.step()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [
-        (e.key, e.count, e.self_device_time_total)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    busy_us = sum(k[2] for k in kernels)
-    kernels.sort(key=lambda k: -k[2])
-    # the host's share: one more step under cProfile, its top functions
-    prof_host = cProfile.Profile()
-    t0 = time.perf_counter()
-    prof_host.enable()
-    engine.step()
-    torch.cuda.synchronize()
-    prof_host.disable()
+
+    host = host_profile(step)
     host_wall_s = time.perf_counter() - t0
-    stats = pstats.Stats(prof_host).stats
-    host = sorted(
-        ((f"{Path(fn[0]).name}:{fn[2]}", cc, tt)
-         for fn, (cc, nc, tt, ct, callers) in stats.items()),
-        key=lambda h: -h[2])[:10]
     return {
         "active_slots": active,
         "cprofile_wall_ms": host_wall_s * 1e3,
-        "host_tottime": [{"fn": n, "calls": c, "s": t} for n, c, t in host],
-        "wall_ms": wall_us / 1e3,
-        "device_busy_ms": busy_us / 1e3,
-        "device_busy_share": busy_us / wall_us,
-        "device_kernels": [{"name": n[:60], "count": c, "ms": us / 1e3}
-                           for n, c, us in kernels[:8]],
+        "host_tottime": host,
+        **dev,
     }
 
 
@@ -773,22 +816,28 @@ def parity_phase(device) -> dict:
 
 
 # ----------------------------------------------------- attention kernels --
-def attention_check(got: torch.Tensor, plain: torch.Tensor) -> dict:
+def elementwise_check(got: torch.Tensor, plain: torch.Tensor,
+                      f32_tol: float) -> dict:
     """Element-wise agreement of a kernel's output with its plain
     version's: the largest error, its ratio to the element's limit (at
-    most 1 to pass) and the outputs' mean size beside them."""
+    most 1 to pass) and the outputs' mean size beside them.  f32 within
+    ``f32_tol``; bf16 within one rounding of each side plus that."""
     g, p = got.float(), plain.float()
     err = (g - p).abs()
     if got.dtype == torch.bfloat16:
-        limit = BF16_REL * (g.abs() + p.abs()) + F32_TOL
-        tolerance = f"2^-8*(|got|+|plain|)+{F32_TOL}"
+        limit = BF16_REL * (g.abs() + p.abs()) + f32_tol
+        tolerance = f"2^-8*(|got|+|plain|)+{f32_tol}"
     else:
-        limit = torch.full_like(err, F32_TOL)
-        tolerance = f"{F32_TOL}"
+        limit = torch.full_like(err, f32_tol)
+        tolerance = f"{f32_tol}"
     ratio = float((err / limit).max())
     return {"max_abs_err": float(err.max()), "max_err_ratio": ratio,
             "mean_abs_out": float(p.abs().mean()), "tolerance": tolerance,
             "within_tolerance": ratio <= 1.0}
+
+
+def attention_check(got: torch.Tensor, plain: torch.Tensor) -> dict:
+    return elementwise_check(got, plain, F32_TOL)
 
 
 def flash_case(B: int, H: int, Hkv: int, S: int, D: int, dtype,
@@ -919,6 +968,328 @@ def attention_phase(largest: dict, device) -> Dict[str, dict]:
     return out
 
 
+# -------------------------------------------------------------- recsys --
+def _ids(gen: torch.Generator, device, hi: int, *shape) -> torch.Tensor:
+    return torch.randint(0, hi, shape, generator=gen, device=device,
+                         dtype=torch.int32)
+
+
+def recsys_batch(sv, n: int, gen: torch.Generator, device) -> dict:
+    """A score batch of ``n`` rows for the arch of ``sv`` (a
+    ``RecsysServing``), drawn on ``device``: ids in each table's range,
+    dense features uniform in [0, 1), history masks about 70% set."""
+    cfg = sv.config
+
+    def ids(hi, *shape):
+        return _ids(gen, device, hi, *shape)
+
+    if sv.name == "dlrm-mlperf":
+        return {"dense": torch.rand((n, cfg.n_dense), generator=gen,
+                                    device=device),
+                "sparse": torch.stack([ids(r, n) for r in cfg.table_rows], 1)}
+    if sv.name == "din":
+        mask = (torch.rand((n, cfg.seq_len), generator=gen, device=device)
+                < 0.7).float()
+        mask[:, 0] = 1.0
+        return {"hist_items": ids(cfg.n_items, n, cfg.seq_len),
+                "hist_cates": ids(cfg.n_cates, n, cfg.seq_len),
+                "hist_mask": mask, "target_item": ids(cfg.n_items, n),
+                "target_cate": ids(cfg.n_cates, n)}
+    if sv.name == "sasrec":
+        return {"seq": ids(cfg.n_items, n, cfg.seq_len),
+                "candidates": ids(cfg.n_items, n, sv.serve_candidates)}
+    return {"user_id": ids(cfg.n_users, n), "user_ctx": ids(cfg.n_context, n),
+            "item_id": ids(cfg.n_items, n), "item_cat": ids(cfg.n_context, n)}
+
+
+def retrieval_batch(sv, n_cand: int, gen: torch.Generator, device) -> dict:
+    """One query and ``n_cand`` candidates for the arch of ``sv``."""
+    cfg = sv.config
+    if sv.name == "dlrm-mlperf":
+        return {**recsys_batch(sv, 1, gen, device),
+                "candidates": _ids(gen, device, cfg.table_rows[0], n_cand)}
+    if sv.name == "din":
+        hist = recsys_batch(sv, 1, gen, device)
+        return {**{k: v for k, v in hist.items() if k.startswith("hist")},
+                "candidates": _ids(gen, device, cfg.n_items, n_cand),
+                "candidate_cates": _ids(gen, device, cfg.n_cates, n_cand)}
+    if sv.name == "sasrec":
+        return {"seq": _ids(gen, device, cfg.n_items, 1, cfg.seq_len),
+                "candidates": _ids(gen, device, cfg.n_items, n_cand)}
+    return {"user_id": _ids(gen, device, cfg.n_users, 1),
+            "user_ctx": _ids(gen, device, cfg.n_context, 1),
+            "candidate_embs": torch.randn((n_cand, cfg.tower_mlp[-1]),
+                                          generator=gen, device=device)}
+
+
+def recsys_serve_phase(device, bag) -> tuple:
+    """dlrm-mlperf at its published config (26 bf16 tables of 177,944,225
+    rows, seeded random weights) through ``dlrm_forward`` and
+    ``dlrm_retrieval``: the ``serve_p99``, ``serve_bulk`` and
+    ``retrieval_cand`` cells.  Returns the report and the parameters
+    (the kernel phase reads two of the tables)."""
+    from repro_torch.configs.registry import get_serving
+    from repro_torch.models.recsys import DLRM_RETRIEVAL_CHUNK, top_ids
+
+    sv = get_serving("dlrm-mlperf")
+    cfg, sizes = sv.config, sv.batch_sizes
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(device)
+    params = sv.init(cfg, torch.Generator(device=device).manual_seed(0))
+    tables = [t["table"] for t in params["tables"].values()]
+    rows = sum(t.shape[0] for t in tables)
+    table_bytes = sum(t.numel() * t.element_size() for t in tables)
+    gen = torch.Generator(device=device).manual_seed(21)
+    # warm-up at both batch sizes (cuBLAS handles, the allocator, the bag
+    # kernel's first launch); its launches do not count
+    for n in (sizes["serve_p99"], sizes["serve_bulk"]):
+        sv.score(cfg, params, recsys_batch(sv, n, gen, device))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log(f"recsys: {cfg.name}, {len(tables)} tables, {rows:,} rows x "
+        f"{cfg.embed_dim} in {cfg.dtype} ({table_bytes:,} B), set-up "
+        f"{setup_s:.1f} s, device memory "
+        f"{torch.cuda.memory_allocated(device):,} B")
+
+    failures: List[str] = []
+    if rows != sum(cfg.table_rows):
+        failures.append(f"recsys: {rows} table rows, {sum(cfg.table_rows)} "
+                        "published")
+    finite: List[torch.Tensor] = []
+    lat: Dict[str, List[float]] = {"serve_p99": [], "serve_bulk": [],
+                                   "retrieval_cand": []}
+    forwards = 0
+    bag.launches = 0
+    bag.largest = None
+    for cell, calls in (("serve_p99", RECSYS_P99_CALLS),
+                        ("serve_bulk", RECSYS_BULK_CALLS)):
+        n = sizes[cell]
+        for _ in range(calls):
+            batch = recsys_batch(sv, n, gen, device)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            scores = sv.score(cfg, params, batch)
+            torch.cuda.synchronize()
+            lat[cell].append(time.perf_counter() - t1)
+            forwards += 1
+            finite.append(torch.isfinite(scores).all())
+            if tuple(scores.shape) != (n,):
+                failures.append(f"recsys {cell}: scores {tuple(scores.shape)}")
+    n_cand = sv.n_candidates
+    per_call = -(-n_cand // DLRM_RETRIEVAL_CHUNK)   # forwards a retrieval
+    for _ in range(RECSYS_RETRIEVAL_CALLS):
+        ret = retrieval_batch(sv, n_cand, gen, device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ids = sv.retrieval(cfg, params, ret)
+        torch.cuda.synchronize()
+        lat["retrieval_cand"].append(time.perf_counter() - t1)
+        forwards += per_call
+        if (tuple(ids.shape) != (100,) or ids.unique().numel() != 100
+                or not bool(((ids >= 0) & (ids < n_cand)).all())):
+            failures.append("recsys retrieval_cand: not 100 distinct "
+                            "candidate positions")
+    launches, largest = bag.launches, bag.largest
+    peak = torch.cuda.max_memory_allocated(device)
+    expect = cfg.n_sparse * forwards
+    if launches != expect:
+        failures.append(f"{bag.symbol}: {launches} launches, {expect} "
+                        f"expected ({cfg.n_sparse} a forward, {forwards} "
+                        "forwards)")
+    # after the launch count is read: checks and profiles do not count
+    scores = sv.candidate_scores(cfg, params, ret)
+    finite.append(torch.isfinite(scores).all())
+    if not torch.equal(top_ids(scores, 100), ids):
+        failures.append("recsys retrieval_cand: ids are not the top "
+                        "scores' positions")
+    if not all(bool(f) for f in finite):
+        failures.append("recsys: non-finite scores")
+    profile = {}
+    for cell in ("serve_p99", "serve_bulk"):
+        batch = recsys_batch(sv, sizes[cell], gen, device)
+        for _ in range(2):   # once more if the session came back empty
+            profile[cell] = device_profile(
+                lambda: sv.score(cfg, params, batch), match="embedding_bag")
+            if profile[cell]["captured"]:
+                break
+    bulk = sizes["serve_bulk"]
+    report = {
+        "arch": cfg.name, "tables": len(tables), "rows": rows,
+        "table_bytes": table_bytes, "dtype": str(cfg.dtype).split(".")[-1],
+        "setup_s": setup_s,
+        "serve_p99": {"batch": sizes["serve_p99"],
+                      **percentiles_ms(lat["serve_p99"])},
+        "serve_bulk": {"batch": bulk, **percentiles_ms(lat["serve_bulk"]),
+                       "samples_per_s": bulk * len(lat["serve_bulk"])
+                       / sum(lat["serve_bulk"])},
+        "retrieval_cand": {"candidates": n_cand,
+                           "forwards_per_call": per_call,
+                           **percentiles_ms(lat["retrieval_cand"])},
+        "forwards": forwards, "launches": launches,
+        "expected_launches": expect, "largest": largest,
+        "peak_mem_bytes": peak, "profile": profile, "failures": failures,
+    }
+    return report, params
+
+
+def top_swaps(card: List[int], cpu: List[int], scores: torch.Tensor,
+              tol: float) -> Optional[int]:
+    """How many adjacent pairs of equal-within-``tol`` scores the card's
+    top ids have in the other order than the CPU's (a pair at the cut may
+    bring in the next id); None when they differ in any other way."""
+    swaps, i = 0, 0
+    while i < len(card):
+        if card[i] == cpu[i]:
+            i += 1
+        elif (i + 1 < len(card) and card[i] == cpu[i + 1]
+              and card[i + 1] == cpu[i]
+              and abs(float(scores[card[i]] - scores[cpu[i]])) < tol):
+            swaps, i = swaps + 1, i + 2
+        elif (i == len(card) - 1
+              and abs(float(scores[card[i]] - scores[cpu[i]])) < tol):
+            swaps, i = swaps + 1, i + 1
+        else:
+            return None
+    return swaps
+
+
+def recsys_parity_phase(device) -> dict:
+    """The four recsys archs in float32 (TF32 off), on the card (DLRM's
+    lookups through the bag kernel) and on the CPU (through its plain
+    version), with the same weights and batches: dlrm-mlperf at its
+    published widths with each table cut to RECSYS_PARITY_ROWS rows, the
+    others at REDUCED.  Scores of a 512-row batch and of the retrieval
+    candidates within RECSYS_PARITY_TOL; top-100 ids equal but for
+    adjacent pairs whose scores differ by less than that."""
+    from repro_torch.configs.registry import RECSYS_ARCH_IDS, get_serving
+
+    t0 = time.perf_counter()
+    failures: List[str] = []
+    archs = {}
+    for arch in RECSYS_ARCH_IDS:
+        full = arch == "dlrm-mlperf"
+        sv = get_serving(arch, reduced=not full)
+        cfg = dataclasses.replace(sv.config, dtype=torch.float32)
+        if full:
+            cfg = dataclasses.replace(cfg, table_rows=tuple(
+                min(r, RECSYS_PARITY_ROWS) for r in cfg.table_rows))
+        sv = dataclasses.replace(sv, config=cfg)
+        gen = torch.Generator(device=device).manual_seed(2)
+        params = sv.init(cfg, gen)
+        host = tree_to(params, "cpu")
+        batch = recsys_batch(sv, RECSYS_PARITY_BATCH, gen, device)
+        card = sv.score(cfg, params, batch).cpu()
+        cpu = sv.score(cfg, host, tree_to(batch, "cpu"))
+        n_cand = RECSYS_PARITY_CANDIDATES if full else sv.n_candidates
+        ret = retrieval_batch(sv, n_cand, gen, device)
+        ret_cpu = tree_to(ret, "cpu")
+        card_ids = sv.retrieval(cfg, params, ret).tolist()
+        cpu_ids = sv.retrieval(cfg, host, ret_cpu).tolist()
+        card_scores = sv.candidate_scores(cfg, params, ret).cpu()
+        cpu_scores = sv.candidate_scores(cfg, host, ret_cpu)
+        swaps = top_swaps(card_ids, cpu_ids, cpu_scores, RECSYS_PARITY_TOL)
+        res = {"batch": RECSYS_PARITY_BATCH, "candidates": n_cand,
+               "max_abs_score_err": float((card - cpu).abs().max()),
+               "max_abs_candidate_score_err":
+                   float((card_scores - cpu_scores).abs().max()),
+               "mean_abs_score": float(cpu.abs().mean()),
+               "top100_equal": card_ids == cpu_ids, "swapped_pairs": swaps}
+        archs[arch] = res
+        for key in ("max_abs_score_err", "max_abs_candidate_score_err"):
+            if not res[key] <= RECSYS_PARITY_TOL:
+                failures.append(f"recsys parity {arch}: {key} {res[key]}")
+        if swaps is None:
+            failures.append(f"recsys parity {arch}: top-100 ids differ")
+    return {"archs": archs, "tolerance": RECSYS_PARITY_TOL,
+            "reduced": f"dlrm-mlperf: each table cut to "
+                       f"{RECSYS_PARITY_ROWS:,} rows, {RECSYS_PARITY_CANDIDATES:,} "
+                       "candidates; din, sasrec, two-tower-retrieval at "
+                       "REDUCED with its candidate counts",
+            "tf32": torch.backends.cuda.matmul.allow_tf32,
+            "seconds": time.perf_counter() - t0, "failures": failures}
+
+
+def bag_check(got: torch.Tensor, plain: torch.Tensor) -> dict:
+    return elementwise_check(got, plain, BAG_F32_TOL)
+
+
+def bag_ids(V: int, B: int, K: int, gen: torch.Generator,
+            device) -> torch.Tensor:
+    """(B, K) int32 ids in [0, V), the table's last 1,000 rows among
+    them: in a 128-wide table every row past 16,777,216 starts past
+    element 2^31."""
+    ids = _ids(gen, device, V, B, K)
+    tail = min(1000, V, B * K)
+    ids.view(-1)[:tail] = torch.arange(V - tail, V, device=device,
+                                       dtype=torch.int32)
+    return ids
+
+
+def bag_case(table: torch.Tensor, ids: torch.Tensor,
+             w: torch.Tensor) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_fixed
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_fixed_plain
+
+    got = embedding_bag_fixed(table, ids, w)
+    plain = embedding_bag_fixed_plain(table, ids, w)
+    torch.cuda.synchronize()
+    check = bag_check(got, plain)
+    identical = bool(torch.equal(got, plain))
+    del got, plain
+    (V, D), (B, K) = table.shape, ids.shape
+    esize = table.element_size()
+    nbytes = B * K * (D * esize + 8) + B * D * esize
+    flops = 2 * B * K * D
+    lib_w = w.to(table.dtype)
+    return {
+        "shape": [V, D, B, K], "dtype": str(table.dtype).split(".")[-1],
+        **check, "bit_identical": identical,
+        "ms": cuda_ms(lambda: embedding_bag_fixed(table, ids, w)),
+        "plain_ms": cuda_ms(lambda: embedding_bag_fixed_plain(table, ids, w)),
+        "library_ms": cuda_ms(lambda: F.embedding_bag(
+            ids, table, mode="sum", per_sample_weights=lib_w)),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                        flops / SCALAR_OPS_PER_S) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= flops / SCALAR_OPS_PER_S else "operations",
+        "bytes": nbytes,
+    }
+
+
+def bag_phase(params: dict, largest, device) -> Dict[str, dict]:
+    """The bag kernel against its plain version in bf16 and f32: at the
+    serve phase's largest launch (K = 1, w = 1; bit identical), at a
+    multi-hot deployment shape over t19's 48,937,457 rows (and a 20M-row
+    f32 table; both past 2^31 elements), and at DIN's widths (D = 18,
+    K = 100)."""
+    gen = torch.Generator(device=device).manual_seed(31)
+    B, K, D = largest or (262_144, 1, 128)
+    t0 = params["tables"]["t0"]["table"]
+    t19 = params["tables"]["t19"]["table"]
+    f32 = torch.empty((BAG_F32_ROWS, D), device=device).normal_(
+        0.0, 0.02, generator=gen)
+    ones = torch.ones((B, K), device=device)
+    out = {}
+    for tag, table in (("bf16", t0), ("f32", f32)):
+        out[f"serve_{tag}"] = bag_case(
+            table, bag_ids(table.shape[0], B, K, gen, device), ones)
+    w = torch.rand((BAG_DEPLOY_B, BAG_DEPLOY_K), generator=gen, device=device)
+    for tag, table in (("bf16", t19), ("f32", f32)):
+        out[f"deploy_{tag}"] = bag_case(
+            table, bag_ids(table.shape[0], BAG_DEPLOY_B, BAG_DEPLOY_K, gen,
+                           device), w)
+    del f32
+    w = torch.rand((BAG_DIN_B, BAG_DIN_K), generator=gen, device=device)
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        table = torch.empty((BAG_DIN_ROWS, BAG_DIN_D), dtype=dtype,
+                            device=device).normal_(0.0, 0.02, generator=gen)
+        out[f"din_{tag}"] = bag_case(
+            table, bag_ids(BAG_DIN_ROWS, BAG_DIN_B, BAG_DIN_K, gen, device), w)
+    return out
+
+
 # ---------------------------------------------------------------- main --
 def smi_line() -> str:
     proc = subprocess.run(
@@ -943,6 +1314,7 @@ def main(argv: Sequence[str] = ()) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.embedding_bag.kernel import EMBEDDING_BAG
     from repro_torch.kernels.flash_attention.kernel import FLASH_ATTENTION
     from repro_torch.kernels.intersect.kernel import SORTED_MEMBER_MASK
     from repro_torch.kernels.paged_attention.kernel import PAGED_ATTENTION
@@ -993,6 +1365,29 @@ def main(argv: Sequence[str] = ()) -> int:
                                 f"{case['max_err_ratio']:.3g} times its limit")
     log(f"serve phases: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    recsys, dlrm_params = recsys_serve_phase(device, EMBEDDING_BAG)
+    log("recsys serve: " + json.dumps({k: v for k, v in recsys.items()
+                                       if k != "profile"}))
+    log("recsys profile: " + json.dumps(recsys["profile"]))
+    failures += recsys["failures"]
+    rparity = recsys_parity_phase(device)
+    log("recsys parity: " + json.dumps(rparity))
+    failures += rparity["failures"]
+    bags = bag_phase(dlrm_params, recsys["largest"], device)
+    del dlrm_params
+    for where, case in bags.items():
+        log(f"kernel embedding_bag {where}: " + json.dumps(case))
+        if not case["within_tolerance"]:
+            failures.append(f"embedding_bag disagrees with its plain version "
+                            f"at {where} shape {case['shape']}: error "
+                            f"{case['max_err_ratio']:.3g} times its limit")
+        if where.startswith("serve") and not case["bit_identical"]:
+            failures.append(f"embedding_bag at {where} (K = 1, w = 1) is not "
+                            "bit identical to its plain version")
+    log(f"recsys phases: {time.perf_counter() - t0:.1f} s")
+
     line = {"kernels": [
         {
             "name": k.symbol,
@@ -1028,6 +1423,21 @@ def main(argv: Sequence[str] = ()) -> int:
             "deploy": attn[k.symbol]["deploy_bf16"],
         }
         for k in serve_kernels
+    ] + [
+        {
+            "name": EMBEDDING_BAG.symbol,
+            "route": "cuda",
+            "source": EMBEDDING_BAG.source,
+            "replaces": EMBEDDING_BAG.replaces,
+            "launches": recsys["launches"],
+            **{key: bags["serve_bf16"][key]
+               for key in ("max_abs_err", "max_err_ratio", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms", "shape",
+                           "dtype", "bit_identical")},
+            "within_tolerance": all(c["within_tolerance"]
+                                    for c in bags.values()),
+            "deploy": bags["deploy_bf16"],
+        }
     ]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -1035,6 +1445,8 @@ def main(argv: Sequence[str] = ()) -> int:
             {"smi": smi, "search": {k: v for k, v in search.items()
                                     if k != "failures"},
              "serve": serve, "parity": parity, "attention": attn,
+             "recsys": recsys, "recsys_parity": rparity,
+             "embedding_bag": bags,
              "kernels": line["kernels"], "failures": failures}, indent=1))
     if failures:
         for f in failures:

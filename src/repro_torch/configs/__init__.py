@@ -1,3 +1,10 @@
-"""LM configurations of the port: ``--arch <id>`` -> TransformerConfig."""
+"""Configurations of the port: ``--arch <id>`` -> LM or recsys config."""
 
-from repro_torch.configs.registry import ARCH_IDS, SERVE_ARCH_IDS, get_config  # noqa: F401
+from repro_torch.configs.registry import (  # noqa: F401
+    ARCH_IDS,
+    RECSYS_ARCH_IDS,
+    SERVE_ARCH_IDS,
+    family,
+    get_config,
+    get_serving,
+)

@@ -1,0 +1,31 @@
+"""dlrm-mlperf [arXiv:1906.00091, MLPerf]: 13 dense + 26 sparse features,
+embed_dim=128, bottom MLP 13-512-256-128, top MLP 1024-1024-512-256-1,
+dot interaction.  Table cardinalities: Criteo-1TB (MLPerf v1 setting)."""
+
+from repro_torch.configs.families import RECSYS_BATCH_SIZES, RecsysServing
+from repro_torch.models import recsys as RS
+
+# Criteo Terabyte per-feature cardinalities (MLPerf DLRM benchmark set)
+CRITEO_1TB_ROWS = (
+    45833138, 36746, 17245, 7413, 20243, 3, 7114, 1441, 62, 29275261,
+    1572176, 345138, 10, 2209, 11267, 128, 4, 974, 14, 48937457,
+    11316796, 40094537, 452104, 12606, 104, 35,
+)
+
+CONFIG = RS.DLRMConfig(table_rows=CRITEO_1TB_ROWS)
+REDUCED = RS.DLRMConfig(
+    table_rows=tuple(min(r, 1000) for r in CRITEO_1TB_ROWS),
+    bot_mlp=(64, 32, 16), top_mlp=(64, 32, 1), embed_dim=16,
+)
+
+
+def serving(reduced: bool = False) -> RecsysServing:
+    return RecsysServing(
+        name="dlrm-mlperf", config=REDUCED if reduced else CONFIG,
+        init=RS.dlrm_init, score=RS.dlrm_forward,
+        candidate_scores=RS.dlrm_candidate_scores,
+        retrieval=RS.dlrm_retrieval,
+        batch_sizes=({"train_batch": 256, "serve_p99": 64, "serve_bulk": 512}
+                     if reduced else RECSYS_BATCH_SIZES),
+        n_candidates=1000 if reduced else 1_000_000,
+    )

@@ -2,26 +2,26 @@
 
 The collection plays the part that weights play in a model port: the
 tests pull a reference world apart into numpy arrays and rebuild it here,
-so both packages index byte-identical data.  Transformer weights come
-across the same way (:func:`transformer_params_from_jax`).
+so both packages index byte-identical data.  Transformer and recsys
+weights come across the same way (:func:`transformer_params_from_jax`,
+:func:`recsys_params_from_jax`).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Tuple
+from typing import Any, Mapping, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.core.lexicon import Lexicon
 from repro_torch.data.world import World
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import (
-    NORM_KEYS,
     Params,
     TransformerConfig,
     require_dense,
 )
+from repro_torch.nn.layers import cast_params
 
 _INT_FIELDS = ("n_words", "n_lemmas", "known_cutoff")
 _ARRAY_FIELDS = ("lemma1", "lemma2", "lemma_class", "word_probs")
@@ -63,16 +63,14 @@ def transformer_params_from_jax(cfg: TransformerConfig, params_np,
     same nested dict).  Norm gains stay f32; every other weight is cast to
     ``cfg.dtype`` once, as the reference casts it at each use."""
     require_dense(cfg)
-    dev = resolve_device(device)
+    return cast_params(params_np, cfg.dtype, resolve_device(device))
 
-    def leaf(key: str, x) -> torch.Tensor:
-        t = torch.from_numpy(np.array(x, dtype=np.float32))
-        dtype = torch.float32 if key in NORM_KEYS else cfg.dtype
-        return t.to(device=dev, dtype=dtype)
 
-    def walk(key: str, tree):
-        if isinstance(tree, Mapping):
-            return {k: walk(k, v) for k, v in tree.items()}
-        return leaf(key, tree)
-
-    return walk("", params_np)
+def recsys_params_from_jax(cfg: Any, params_np,
+                           device: DeviceLike = None) -> Params:
+    """The port's parameters of a recsys arch (any of the four configs)
+    from the reference's ``*_init`` tree with every leaf turned into a
+    numpy array (the same nested dicts and lists).  Tables and dense
+    weights are cast to ``cfg.dtype`` once, as the reference casts them at
+    each use; SASRec's norm gains stay f32."""
+    return cast_params(params_np, cfg.dtype, resolve_device(device))

@@ -1,19 +1,24 @@
-"""Hand-written Hopper kernels of the search path.
+"""Hand-written Hopper kernels of the search, LM serving and recsys paths.
 
 Each kernel directory mirrors ``repro.kernels``:
 
-  ref.py    — numpy oracle of what the kernel computes
-  kernel.py — the wrapper of the CUDA kernel (``csrc/*.cu``) and, in the
-              same module, its plain PyTorch version; the wrapper takes the
-              plain version only for CPU tensors and launches the kernel
-              (or raises) for CUDA tensors
-  ops.py    — host-callable dispatch used by the search stack
+  ref.py    — the search kernels' numpy oracles; for the other kernels,
+              the plain PyTorch version of what the kernel computes
+  kernel.py — the wrapper of the CUDA kernel (``csrc/*.cu``), beside the
+              search kernels' plain PyTorch versions; the wrapper takes
+              the plain version only for CPU tensors and launches the
+              kernel (or raises) for CUDA tensors
+  ops.py    — the dispatch the port's callers import
 
 Kernels:
-  posting_decode — ``varint_segment_sum``: step 3 of the byte-parallel
-                   LEB128 decode, a warp-segmented sum into int64 slots
-  intersect      — ``sorted_member_mask``: doc-id membership of one sorted
-                   list in another, one binary search per element
+  posting_decode  — ``varint_segment_sum``: step 3 of the byte-parallel
+                    LEB128 decode, a warp-segmented sum into int64 slots
+  intersect       — ``sorted_member_mask``: doc-id membership of one
+                    sorted list in another, one binary search per element
+  flash_attention — causal online-softmax attention of LM prefill
+  paged_attention — one-token attention over a paged KV pool (LM decode)
+  embedding_bag   — fixed-size weighted bags of table rows, summed in
+                    f32 (DLRM's 26 lookups)
 
 ``cuda_lib`` builds ``csrc/`` into one shared library at first use and
 binds its C entry points through ctypes.

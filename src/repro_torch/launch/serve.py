@@ -5,8 +5,9 @@ the CUDA card by default.
         --requests 16 --slots 4 [--device cpu]
 
 Serves the arch's reduced configuration with seeded random weights, as
-the reference launcher (``repro.launch.serve``) does.  An arch the port
-does not serve yet (MoE, GNN, recsys) raises ``NotImplementedError``
+the reference launcher (``repro.launch.serve``) does.  A recsys or GNN
+id exits with "<arch> is not an LM arch", as the reference's does; an LM
+arch the port does not serve yet (MoE) raises ``NotImplementedError``
 naming its ROADMAP.md item.
 """
 
@@ -19,7 +20,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.registry import ARCH_IDS, get_config
+from repro_torch.configs.registry import ARCH_IDS, family, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import init_params
 from repro_torch.serve.engine import Request, ServeEngine
@@ -37,6 +38,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
+    if family(args.arch) != "lm":
+        raise SystemExit(f"{args.arch} is not an LM arch")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=True)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0))

@@ -1,2 +1,3 @@
 """Models of the port: the dense decoder-only transformer's serving entry
-points (``transformer``) over the attention kernels (``attention``)."""
+points (``transformer``) over the attention kernels (``attention``), and
+the recsys archs' serving entry points (``recsys``)."""

@@ -53,7 +53,6 @@ from repro_torch.nn.layers import (
 Params = Dict[str, Any]
 
 DEFAULT_PAGE = 16
-NORM_KEYS = ("ln1", "ln2", "ln_f")   # held in f32; every other weight in cfg.dtype
 
 
 @dataclasses.dataclass(frozen=True)

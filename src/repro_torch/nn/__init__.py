@@ -1,1 +1,2 @@
-"""Functional layers of the LM serving path (the port of ``repro.nn``)."""
+"""Functional layers of the LM and recsys serving paths (the port of
+``repro.nn``)."""

@@ -4,18 +4,34 @@ Parameters are nested dicts of tensors; initialisers draw from an explicit
 ``torch.Generator`` (JAX's PRNG keys have no counterpart: the same seed
 gives other numbers, so tests hand both packages the same numpy weights).
 Norms and rotary embeddings compute in f32 and cast back, as the
-reference does.  The training helpers (``mlp_*``, ``dense``,
-``softmax_xent``) come with the training slice.
+reference does; ``dense`` and ``mlp_apply`` take their products in the
+compute dtype.  ``softmax_xent`` comes with the training slice.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 Params = Dict[str, Any]
+NORM_KEYS = ("ln1", "ln2", "ln_f")   # norm gains: held in f32
+
+
+def cast_params(tree, dtype: torch.dtype, device=None, key: str = ""):
+    """Every leaf of a parameter tree (nested dicts and lists of tensors
+    or arrays) as a tensor of ``dtype`` on ``device`` (None: where it
+    is); norm gains (``NORM_KEYS``) in f32."""
+    if isinstance(tree, Mapping):
+        return {k: cast_params(v, dtype, device, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [cast_params(v, dtype, device, key) for v in tree]
+    if not isinstance(tree, torch.Tensor):
+        tree = torch.from_numpy(np.array(tree, dtype=np.float32))
+    return tree.to(device=device,
+                   dtype=torch.float32 if key in NORM_KEYS else dtype)
 
 
 # ----------------------------------------------------------------- inits ----
@@ -38,7 +54,40 @@ def embedding_init(gen: torch.Generator, vocab: int, dim: int,
                                  dtype=torch.float32) * scale}
 
 
+def mlp_init(gen: torch.Generator, dims: Sequence[int],
+             bias: bool = True) -> Params:
+    """``fc0 .. fc{n-2}``: one ``dense_init`` per pair of widths."""
+    return {
+        f"fc{i}": dense_init(gen, dims[i], dims[i + 1], bias=bias)
+        for i in range(len(dims) - 1)
+    }
+
+
 # ---------------------------------------------------------------- applies ----
+def dense(p: Params, x: torch.Tensor,
+          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``x @ w (+ b)`` with x, w and b cast to ``dtype`` and the product
+    and the bias add taken in ``dtype``, as the reference's einsum does."""
+    y = x.to(dtype) @ p["w"].to(dtype)
+    if "b" in p:
+        y = y + p["b"].to(dtype)
+    return y
+
+
+def mlp_apply(p: Params, x: torch.Tensor,
+              act: Callable[[torch.Tensor], torch.Tensor] = torch.relu,
+              dtype: torch.dtype = torch.bfloat16,
+              final_act: bool = False) -> torch.Tensor:
+    """``dense`` layers in order, ``act`` between them and, with
+    ``final_act``, after the last one."""
+    n = len(p)
+    for i in range(n):
+        x = dense(p[f"fc{i}"], x, dtype=dtype)
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x
+
+
 def rms_norm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)

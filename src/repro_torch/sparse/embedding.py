@@ -1,0 +1,72 @@
+"""Sparse embedding ops, the port of ``repro.sparse.embedding``.
+
+The reference builds them from ``jnp.take`` and ``jax.ops.segment_*``;
+here they are ``index_select``, ``index_add_`` and ``scatter_reduce``.
+None of them is a Pallas kernel in the reference, so plain PyTorch is
+their port.  The fused fixed-size bag that DLRM's lookups go through is
+``repro_torch.kernels.embedding_bag``.
+
+Ids must lie in ``[0, vocab)``: PyTorch raises on an id outside the
+table on the CPU and does not check it on the card, where JAX would
+clamp or fill.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
+                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain row gather: ``(...)`` ids -> ``(..., dim)`` in ``dtype``."""
+    rows = table.index_select(0, ids.reshape(-1))
+    return rows.reshape(*ids.shape, table.shape[1]).to(dtype)
+
+
+def embedding_bag(
+    table: torch.Tensor,        # (vocab, dim)
+    ids: torch.Tensor,          # (n_ids,) flat indices
+    segment_ids: torch.Tensor,  # (n_ids,) output row per id, any order
+    num_segments: int,
+    weights: Optional[torch.Tensor] = None,
+    mode: str = "sum",
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """EmbeddingBag over ragged bags given by explicit segment ids: rows
+    are cast to ``dtype`` before the weights, as in the reference, and
+    summed into their segment in ``dtype``; ``mean`` divides by the bag's
+    size (at least 1, so an empty bag stays zero)."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(mode)
+    rows = embedding_lookup(table, ids, dtype)
+    if weights is not None:
+        rows = rows * weights[:, None].to(dtype)
+    seg = segment_ids.long()
+    out = torch.zeros((num_segments, table.shape[1]), dtype=dtype,
+                      device=table.device).index_add_(0, seg, rows)
+    if mode == "mean":
+        cnt = torch.zeros(num_segments, dtype=dtype, device=table.device)
+        cnt.index_add_(0, seg, torch.ones_like(seg, dtype=dtype))
+        out = out / cnt.clamp(min=1)[:, None]
+    return out
+
+
+def segment_softmax(
+    logits: torch.Tensor,       # (n,) or (n, h)
+    segment_ids: torch.Tensor,  # (n,)
+    num_segments: int,
+) -> torch.Tensor:
+    """Softmax within segments (GAT-style attention over ragged
+    neighbours), with a floor of 1e-20 on each denominator."""
+    seg = segment_ids.long()
+    idx = seg.reshape(-1, *([1] * (logits.dim() - 1))).expand_as(logits)
+    shape = (num_segments, *logits.shape[1:])
+    mx = torch.full(shape, float("-inf"), dtype=logits.dtype,
+                    device=logits.device)
+    mx = mx.scatter_reduce(0, idx, logits, "amax", include_self=True)
+    z = torch.exp(logits - mx[seg])
+    denom = torch.zeros(shape, dtype=z.dtype, device=z.device)
+    denom = denom.index_add_(0, seg, z)
+    return z / torch.clamp(denom[seg], min=1e-20)

@@ -26,7 +26,12 @@ from repro.models import transformer as ref_tf
 from repro.serve.engine import Request as RefRequest
 from repro.serve.engine import ServeEngine as RefServeEngine
 
-from repro_torch.configs.registry import ARCH_IDS, SERVE_ARCH_IDS, get_config
+from repro_torch.configs.registry import (
+    ARCH_IDS,
+    RECSYS_ARCH_IDS,
+    SERVE_ARCH_IDS,
+    get_config,
+)
 from repro_torch.convert import transformer_params_from_jax
 from repro_torch.core.paged_kv import PagedKVManager
 from repro_torch.launch import serve as port_launch
@@ -272,7 +277,7 @@ def test_configs_equal_reference(arch, reduced):
 
 def test_unported_archs_raise():
     assert set(SERVE_ARCH_IDS) < set(ARCH_IDS)
-    for arch in set(ARCH_IDS) - set(SERVE_ARCH_IDS):
+    for arch in set(ARCH_IDS) - set(SERVE_ARCH_IDS) - set(RECSYS_ARCH_IDS):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_config(arch)
     with pytest.raises(KeyError):
