@@ -30,20 +30,30 @@ Phases (any failure exits non-zero before the last line is printed):
      (40 layers, d_model 2048, 32 heads over 8 KV heads, vocab 49,155;
      seeded random bf16 weights), 16 slots of 4,096 tokens in 16-token
      pages, 32 requests of 512-1,024 prompt tokens and 64 new tokens
-     each.  Both attention kernels' counters must rise; every logit must
-     be finite.  Prints tokens/s, p50/p99 per prefill and per decode step,
+     each.  Prefill (bf16, D 64) must launch the wgmma flash kernel once
+     per layer and prefill and the scalar flash kernel never; decode the
+     paged kernel once per layer and step; every logit must be finite.  Prints tokens/s, p50/p99 per prefill and per decode step,
      launches, the paged-KV manager's stats, and the device's busy share
-     over one decode step of 16 active slots (``torch.profiler``);
+     over one decode step of 16 active slots and over one prefill of
+     1,024 tokens, with the flash kernels' share (``torch.profiler``);
   5. serve parity: granite-3-2b widths at 2 layers in float32, served on
      the card (through the kernels) and replayed on the CPU (through the
      plain versions) with the card's tokens forced: every step's logits
-     must agree within 1e-4 and ``stats()`` must be equal;
-  6. attention kernels: each against its plain version on the card in
-     bf16 and f32, at the largest shape the serve phase gave it and at a
-     deployment shape (prefill S = 4,096; decode over 128 rows x 256
-     pages), element by element (f32 within 2e-5; bf16 within one bf16
-     rounding of each side plus that), timed beside its bound and
-     ``scaled_dot_product_attention`` on the same operands;
+     must agree within 1e-4 and ``stats()`` must be equal.  f32 prefill
+     is the scalar flash kernel's path: it must launch once per layer and
+     prompt on the card, the wgmma kernel never;
+  6. attention kernels: each against its plain version on the card,
+     element by element (f32 within 2e-5; bf16 within one bf16 rounding
+     of each side plus that), timed beside its bound and
+     ``scaled_dot_product_attention`` on the same operands.  The wgmma
+     flash kernel in bf16 at the serve phase's largest shape, at
+     deployment (S 4,096), at S 1, 37 and 129, non-causal, at D 128
+     (qwen1.5-4b: 20 heads over 20, S 2,048) and on (B, S, H, D) views
+     as ``models.attention.attention`` passes them; the scalar flash
+     kernel in f32 at the serve and deployment shapes, and in bf16 on the
+     wgmma kernel's serve and deployment operands (the old/new ratio on
+     one card); the paged kernel in bf16 and f32 at the serve phase's
+     largest shape and at deployment (128 rows x 256 pages);
   7. recsys serve: dlrm-mlperf at its published config (26 bf16 tables of
      177,944,225 rows in all, 45.6 GB; seeded random weights): 200
      ``serve_p99`` calls of 512 rows, 10 ``serve_bulk`` calls of 262,144
@@ -62,7 +72,8 @@ Phases (any failure exits non-zero before the last line is printed):
      t19's 48,937,457 rows (and a 20M-row f32 table) with K = 8 and ids
      among the tables' last rows, and at DIN's D = 18, K = 100; timed
      beside its bytes bound and ``torch.nn.functional.embedding_bag``;
- 10. print the kernels line (five kernels), then the result line.
+ 10. print the kernels line (six kernels: both flash routes), then the
+     result line.
 
 Exits with code 2 when no CUDA device is present.  Imports nothing of
 JAX or of the ``repro`` package.
@@ -674,6 +685,17 @@ def profile_decode_step(engine, Request, device) -> dict:
     }
 
 
+def profile_prefill(engine_mod, cfg, params, device) -> dict:
+    """Device busy share over one prefill of the longest serve prompt
+    (``torch.profiler``), with the flash kernels' time in it."""
+    prompt = torch.as_tensor(
+        np.random.RandomState(14).randint(0, cfg.vocab, SERVE_PROMPT[1]),
+        device=device)[None, :]
+    return {"prompt_tokens": SERVE_PROMPT[1],
+            **device_profile(lambda: engine_mod.prefill(cfg, params, prompt),
+                             match="flash_attention")}
+
+
 def serve_phase(device, kernels) -> dict:
     """granite-3-2b at its published widths through ``ServeEngine``."""
     from repro_torch.configs.granite_3_2b import CONFIG
@@ -728,7 +750,9 @@ def serve_phase(device, kernels) -> dict:
         failures.append("serve: a token id outside the vocabulary")
     if not all(bool(f) for f in timer.finite):
         failures.append("serve: non-finite logits")
-    expect = {"flash_attention": cfg.n_layers * len(timer.prefill_s),
+    # bf16 prefill at D 64 takes the wgmma route only: the scalar flash
+    # kernel must not launch at all
+    expect = {"flash_attention_wgmma": cfg.n_layers * len(timer.prefill_s),
               "paged_attention": cfg.n_layers * len(timer.decode_s)}
     for name, n in expect.items():
         if launches.get(name, 0) == 0:
@@ -736,6 +760,9 @@ def serve_phase(device, kernels) -> dict:
         elif launches[name] != n:
             failures.append(f"{name}: {launches[name]} launches, {n} expected "
                             "(one per layer and call)")
+    if launches.get("flash_attention", 0) != 0:
+        failures.append(f"flash_attention (scalar) launched "
+                        f"{launches['flash_attention']} times in bf16 serving")
     decode_tokens = tokens - len(timer.prefill_s)
     report = {
         "arch": cfg.name, "params": cfg.params_dense,
@@ -756,14 +783,19 @@ def serve_phase(device, kernels) -> dict:
     }
     # after the launch counts are read: profiling does not count
     report["profile"] = profile_decode_step(engine, Request, device)
+    report["prefill_profile"] = profile_prefill(engine_mod, cfg, params,
+                                                device)
     report["failures"] = failures
     return report
 
 
-def parity_phase(device) -> dict:
+def parity_phase(device, kernels) -> dict:
     """granite-3-2b widths at 2 layers in float32: served on the card, then
     replayed on the CPU with the card's tokens forced (teacher forcing);
-    every step's logits and the engines' ``stats()`` must agree."""
+    every step's logits and the engines' ``stats()`` must agree.  f32
+    prefill is the scalar flash kernel's path: ``kernels``' counts are
+    read over the card's run, and the scalar kernel must launch once per
+    layer and prompt, the wgmma kernel never."""
     from repro_torch.configs.granite_3_2b import CONFIG
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.engine import Request, ServeEngine
@@ -796,7 +828,10 @@ def parity_phase(device) -> dict:
         return engine.run_until_done(max_steps=1000), engine.stats()
 
     t0 = time.perf_counter()
+    for k in kernels:
+        k.launches = 0
     card_done, card_stats = serve(Recording(cfg, params, device=device, **kw))
+    launches = {k.symbol: k.launches for k in kernels}
     cpu_done, cpu_stats = serve(Replaying(cfg, tree_to(params, "cpu"),
                                           device="cpu", **kw))
     failures = []
@@ -809,7 +844,14 @@ def parity_phase(device) -> dict:
         failures.append(f"parity: stats differ: {card_stats} vs {cpu_stats}")
     if [r.out_tokens for r in card_done] != [r.out_tokens for r in cpu_done]:
         failures.append("parity: tokens differ")
+    expect = {"flash_attention": cfg.n_layers * len(specs),
+              "flash_attention_wgmma": 0}
+    for name, n in expect.items():
+        if launches.get(name) != n:
+            failures.append(f"parity: {name} launched {launches.get(name)} "
+                            f"times in f32 serving, {n} expected")
     return {"selections": len(recorded), "max_abs_logit_err": max(errs),
+            "launches": launches,
             "tolerance": PARITY_TOL, "stats": card_stats,
             "steps": card_stats["steps"], "seconds": time.perf_counter() - t0,
             "failures": failures}
@@ -840,18 +882,33 @@ def attention_check(got: torch.Tensor, plain: torch.Tensor) -> dict:
     return elementwise_check(got, plain, F32_TOL)
 
 
-def flash_case(B: int, H: int, Hkv: int, S: int, D: int, dtype,
-               gen: torch.Generator, device) -> dict:
+def flash_inputs(B: int, H: int, Hkv: int, S: int, D: int, dtype,
+                 gen: torch.Generator, device, views: bool = False):
+    """Seeded q (B, H, S, D) and k, v (B, Hkv, S, D).  ``views``: made
+    (B, S, heads, D) and transposed, as ``models.attention.attention``
+    passes the projections to the kernel."""
+    def draw(heads):
+        if views:
+            return torch.randn(B, S, heads, D, generator=gen,
+                               device=device).to(dtype).transpose(1, 2)
+        return torch.randn(B, heads, S, D, generator=gen,
+                           device=device).to(dtype)
+    return draw(H), draw(Hkv), draw(Hkv)
+
+
+def flash_case(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, kernel) -> dict:
+    """``kernel`` (either flash route, through ``run_kernel``) against the
+    plain version on the same operands, timed beside its bound and SDPA."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import run_kernel
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
-    q = torch.randn(B, H, S, D, generator=gen, device=device).to(dtype)
-    k = torch.randn(B, Hkv, S, D, generator=gen, device=device).to(dtype)
-    v = torch.randn(B, Hkv, S, D, generator=gen, device=device).to(dtype)
-    got = flash_attention(q, k, v, True)
-    plain = flash_attention_plain(q, k, v, True)
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    got = run_kernel(kernel, q, k, v, causal)
+    plain = flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
     check = attention_check(got, plain)
     del got, plain
@@ -859,19 +916,24 @@ def flash_case(B: int, H: int, Hkv: int, S: int, D: int, dtype,
     ke = k.repeat_interleave(H // Hkv, dim=1)
     ve = v.repeat_interleave(H // Hkv, dim=1)
     esize = q.element_size()
-    flops = 4 * B * H * D * S * (S + 1) / 2
+    pairs = S * (S + 1) / 2 if causal else S * S
+    flops = 4 * B * H * D * pairs
     nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * esize
-    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else SCALAR_OPS_PER_S
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else SCALAR_OPS_PER_S
+    ms = cuda_ms(lambda: run_kernel(kernel, q, k, v, causal))
     return {
-        "shape": [B, H, Hkv, S, D], "dtype": str(dtype).split(".")[-1],
+        "kernel": kernel.symbol,
+        "shape": [B, H, Hkv, S, D], "dtype": str(q.dtype).split(".")[-1],
+        "causal": causal, "strides": [list(t.stride()) for t in (q, k, v)],
         **check,
-        "ms": cuda_ms(lambda: flash_attention(q, k, v, True)),
-        "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, True)),
+        "ms": ms,
+        "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, causal)),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, ke, ve, is_causal=True)),
+            q, ke, ve, is_causal=causal)),
         "bound_ms": max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3,
         "bound_by": "operations" if flops / rate >= nbytes / HBM_BYTES_PER_S
         else "bytes",
+        "tflops": flops / ms / 1e9,
         "flops": flops, "bytes": nbytes,
     }
 
@@ -929,35 +991,65 @@ def paged_case(R: int, G: int, D: int, page: int, max_pages: int,
 
 
 def attention_phase(largest: dict, device) -> Dict[str, dict]:
-    """Both attention kernels against their plain versions, in bf16 (the
-    serve phase's type) and f32, at the serve phase's largest shapes and
-    at deployment shapes."""
+    """The attention kernels against their plain versions, at the serve
+    phase's largest shapes and at deployment shapes: the wgmma flash
+    kernel in bf16 (with the ragged, non-causal, D 128 and strided-view
+    cases), the scalar flash kernel in f32 and, for the old/new ratio, in
+    bf16 on the wgmma kernel's serve and deploy operands; the paged kernel
+    in bf16 and f32."""
     from repro_torch.configs.granite_3_2b import CONFIG as cfg
+    from repro_torch.configs.qwen1_5_4b import CONFIG as qwen
+    from repro_torch.kernels.flash_attention.kernel import (
+        FLASH_ATTENTION,
+        FLASH_ATTENTION_WGMMA,
+    )
 
     gen = torch.Generator(device=device).manual_seed(7)
     rng = np.random.RandomState(9)
     G = cfg.n_heads // cfg.n_kv_heads
-    out: Dict[str, dict] = {"flash_attention": {}, "paged_attention": {}}
+    out: Dict[str, dict] = {"flash_attention_wgmma": {},
+                            "flash_attention": {}, "paged_attention": {}}
     # a kernel the serve phase never launched has failed already; it is
     # still checked, at the serve configuration's shapes
-    B, H, Hkv, S, D = (largest["flash_attention"]
+    B, H, Hkv, S, D = (largest["flash_attention_wgmma"]
                        or (1, cfg.n_heads, cfg.n_kv_heads, SERVE_PROMPT[1],
                            cfg.d_head))
     R, Gs, max_pages, page, Ds = (largest["paged_attention"]
                                   or (SERVE_SLOTS * cfg.n_kv_heads, G,
                                       SERVE_S_MAX // SERVE_PAGE, SERVE_PAGE,
                                       cfg.d_head))
+    granite = (1, cfg.n_heads, cfg.n_kv_heads)
+    flash = {  # name: ((B, H, Hkv, S, D), causal, views)
+        "serve": ((B, H, Hkv, S, D), True, False),
+        "deploy": ((*granite, 4096, cfg.d_head), True, False),
+        "s1": ((*granite, 1, cfg.d_head), True, False),
+        "s37": ((*granite, 37, cfg.d_head), True, False),
+        "s129": ((*granite, 129, cfg.d_head), True, False),
+        "noncausal": ((*granite, 1024, cfg.d_head), False, False),
+        "d128": ((1, qwen.n_heads, qwen.n_kv_heads, 2048, qwen.d_head),
+                 True, False),
+        "views": ((2, *granite[1:], 1024, cfg.d_head), True, True),
+    }
+    for name, (shape, causal, views) in flash.items():
+        q, k, v = flash_inputs(*shape, torch.bfloat16, gen, device, views)
+        out["flash_attention_wgmma"][f"{name}_bf16"] = flash_case(
+            q, k, v, causal, FLASH_ATTENTION_WGMMA)
+        if name in ("serve", "deploy"):
+            out["flash_attention"][f"{name}_bf16"] = flash_case(
+                q, k, v, causal, FLASH_ATTENTION)
+        del q, k, v
+    for name in ("serve", "deploy"):
+        shape, causal, _ = flash[name]
+        q, k, v = flash_inputs(*shape, torch.float32, gen, device)
+        out["flash_attention"][f"{name}_f32"] = flash_case(
+            q, k, v, causal, FLASH_ATTENTION)
+        del q, k, v
     # the serve phase's lengths: a prompt plus the tokens decoded so far
     serve_lens = rng.randint(SERVE_PROMPT[0], SERVE_PROMPT[1] + SERVE_NEW + 1,
                              R // cfg.n_kv_heads).repeat(cfg.n_kv_heads)
     deploy_pages = 256
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        out["flash_attention"][f"serve_{tag}"] = flash_case(
-            B, H, Hkv, S, D, dtype, gen, device)
-        out["flash_attention"][f"deploy_{tag}"] = flash_case(
-            1, cfg.n_heads, cfg.n_kv_heads, 4096, cfg.d_head, dtype, gen,
-            device)
         out["paged_attention"][f"serve_{tag}"] = paged_case(
             R, Gs, Ds, page, max_pages, serve_lens, dtype, gen, device,
             shuffled=False)
@@ -968,7 +1060,6 @@ def attention_phase(largest: dict, device) -> Dict[str, dict]:
     return out
 
 
-# -------------------------------------------------------------- recsys --
 def _ids(gen: torch.Generator, device, hi: int, *shape) -> torch.Tensor:
     return torch.randint(0, hi, shape, generator=gen, device=device,
                          dtype=torch.int32)
@@ -1315,7 +1406,10 @@ def main(argv: Sequence[str] = ()) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.embedding_bag.kernel import EMBEDDING_BAG
-    from repro_torch.kernels.flash_attention.kernel import FLASH_ATTENTION
+    from repro_torch.kernels.flash_attention.kernel import (
+        FLASH_ATTENTION,
+        FLASH_ATTENTION_WGMMA,
+    )
     from repro_torch.kernels.intersect.kernel import SORTED_MEMBER_MASK
     from repro_torch.kernels.paged_attention.kernel import PAGED_ATTENTION
     from repro_torch.kernels.posting_decode.kernel import VARINT_SEGMENT_SUM
@@ -1325,7 +1419,12 @@ def main(argv: Sequence[str] = ()) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     kernels = (VARINT_SEGMENT_SUM, SORTED_MEMBER_MASK)
-    serve_kernels = (FLASH_ATTENTION, PAGED_ATTENTION)
+    serve_kernels = (FLASH_ATTENTION_WGMMA, FLASH_ATTENTION, PAGED_ATTENTION)
+    # the case each serve kernel's row of the kernels line shows: the
+    # scalar flash kernel serves f32 (the parity phase), the others bf16
+    row_dtype = {FLASH_ATTENTION_WGMMA.symbol: "bf16",
+                 FLASH_ATTENTION.symbol: "f32",
+                 PAGED_ATTENTION.symbol: "bf16"}
     t0 = time.perf_counter()
     lib = cuda_lib.build(verbose=True)
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
@@ -1348,11 +1447,12 @@ def main(argv: Sequence[str] = ()) -> int:
     t0 = time.perf_counter()
     serve = serve_phase(device, serve_kernels)
     log("serve: " + json.dumps({k: v for k, v in serve.items()
-                                if k != "profile"}))
+                                if not k.endswith("profile")}))
     log("serve profile: " + json.dumps(serve["profile"]))
+    log("prefill profile: " + json.dumps(serve["prefill_profile"]))
     failures += serve["failures"]
     torch.cuda.empty_cache()
-    parity = parity_phase(device)
+    parity = parity_phase(device, serve_kernels)
     log("serve parity: " + json.dumps(parity))
     failures += parity["failures"]
     attn = attention_phase(serve["largest"], device)
@@ -1388,6 +1488,11 @@ def main(argv: Sequence[str] = ()) -> int:
                             "bit identical to its plain version")
     log(f"recsys phases: {time.perf_counter() - t0:.1f} s")
 
+    # each serve kernel's launches come from its own path: bf16 serving,
+    # or the f32 parity engine for the scalar flash kernel
+    row_path = {FLASH_ATTENTION_WGMMA.symbol: serve,
+                FLASH_ATTENTION.symbol: parity,
+                PAGED_ATTENTION.symbol: serve}
     line = {"kernels": [
         {
             "name": k.symbol,
@@ -1413,14 +1518,14 @@ def main(argv: Sequence[str] = ()) -> int:
             "route": "cuda",
             "source": k.source,
             "replaces": k.replaces,
-            "launches": serve["launches"][k.symbol],
-            **{key: attn[k.symbol]["serve_bf16"][key]
+            "launches": row_path[k.symbol]["launches"][k.symbol],
+            **{key: attn[k.symbol][f"serve_{row_dtype[k.symbol]}"][key]
                for key in ("max_abs_err", "max_err_ratio", "ms",
                            "plain_ms", "bound_ms", "bound_by", "library_ms",
                            "shape", "dtype")},
             "within_tolerance": all(c["within_tolerance"]
                                     for c in attn[k.symbol].values()),
-            "deploy": attn[k.symbol]["deploy_bf16"],
+            "deploy": attn[k.symbol][f"deploy_{row_dtype[k.symbol]}"],
         }
         for k in serve_kernels
     ] + [

@@ -15,7 +15,11 @@ Kernels:
                     LEB128 decode, a warp-segmented sum into int64 slots
   intersect       — ``sorted_member_mask``: doc-id membership of one
                     sorted list in another, one binary search per element
-  flash_attention — causal online-softmax attention of LM prefill
+  flash_attention — causal online-softmax attention of LM prefill, two
+                    CUDA routes chosen by ``flash_route``: bf16 at D 64
+                    or 128 on the tensor cores (``wgmma`` fed by TMA,
+                    ``csrc/flash_attention_wgmma.cu``), anything else on
+                    scalar f32 FMAs (``csrc/flash_attention.cu``)
   paged_attention — one-token attention over a paged KV pool (LM decode)
   embedding_bag   — fixed-size weighted bags of table rows, summed in
                     f32 (DLRM's 26 lookups)

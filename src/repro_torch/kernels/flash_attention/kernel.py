@@ -1,18 +1,32 @@
-"""Flash attention: the CUDA kernel's wrapper.
+"""Flash attention: the wrapper of its two CUDA kernels.
 
 Online-softmax attention over (B, H, S, D) queries and (B, Hkv, S, D) keys
 and values, causal or not; query head ``h`` reads KV head ``h // (H //
 Hkv)`` (GQA without expanding K/V).  m, l and the accumulator are f32 and
 the output has the input dtype, as in the Pallas ``flash_attention_kernel``
-that the CUDA kernel (``csrc/flash_attention.cu``) ports; the source says
-how and what bounds it.  Any S: the kernel masks the ragged edge itself,
-so there is no ``S % bq`` condition.
+that both CUDA kernels port; each source says how and what bounds it.  Any
+S: the kernels mask the ragged edge themselves, so there is no ``S % bq``
+condition.
+
+Two routes, chosen by :func:`flash_route` from the dtype and D alone:
+
+  * bf16 at D 64 or 128 -> ``FLASH_ATTENTION_WGMMA``
+    (``csrc/flash_attention_wgmma.cu``): TMA-fed ``wgmma`` on the tensor
+    cores.  TMA reads its operands, so each of q, k and v must pass
+    :func:`tma_problem` (16-byte aligned base, strides of 16 bytes, D
+    contiguous); one that does not raises.
+  * everything else (f32 at any D; bf16 at D 8, 16, 32) ->
+    ``FLASH_ATTENTION`` (``csrc/flash_attention.cu``): scalar f32 FMAs.
+
+It is a choice between two hand-written kernels, each with its own launch
+count, never a retry: a CUDA error from either raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -31,7 +45,45 @@ FLASH_ATTENTION = CudaKernel(
     replaces="src/repro/kernels/flash_attention/kernel.py:73",
 )
 
+FLASH_ATTENTION_WGMMA = CudaKernel(
+    "flash_attention_wgmma",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+    + [ctypes.c_int, ctypes.c_float],
+    source="src/repro_torch/csrc/flash_attention_wgmma.cu",
+    replaces="src/repro/kernels/flash_attention/kernel.py:73",
+)
+
 HEAD_DIMS = (8, 16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
+TMA_ALIGN = 16       # bytes: TMA's base and stride unit
+TMA_MAX_STRIDE = 1 << 40
+
+
+def flash_route(dtype: torch.dtype, head_dim: int) -> CudaKernel:
+    """The kernel a CUDA call of ``dtype`` and head dim ``head_dim`` takes:
+    the wgmma kernel for bf16 at D 64 or 128, the scalar one otherwise."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return FLASH_ATTENTION_WGMMA
+    return FLASH_ATTENTION
+
+
+def tma_problem(t: torch.Tensor) -> Optional[str]:
+    """Why a (B, heads, S, D) operand cannot be read through a TMA tensor
+    map, or None when it can: its base must be 16-byte aligned, its last
+    dim contiguous, and the (batch, head, seq) strides of the dims longer
+    than 1 multiples of 16 bytes below 2^40 (a dim of size 1 is never
+    stepped, so its stride is free)."""
+    esize = t.element_size()
+    if t.data_ptr() % TMA_ALIGN:
+        return f"base address {t.data_ptr():#x} is not {TMA_ALIGN}-byte aligned"
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        return "last dim is not contiguous"
+    for dim in range(3):
+        n, stride = t.shape[dim], t.stride(dim) * esize
+        if n > 1 and (stride % TMA_ALIGN or not 0 < stride < TMA_MAX_STRIDE):
+            return (f"dim {dim} stride of {stride} bytes is not a positive "
+                    f"multiple of {TMA_ALIGN} below 2^40")
+    return None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -40,8 +92,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``q`` is (B, H, S, D); ``k`` and ``v`` are (B, Hkv, S, D) with ``H %
     Hkv == 0``, all of one dtype (f32 or bf16) on one device, each with a
-    contiguous last dim (other strides are free).  CUDA tensors go through
-    the kernel; CPU tensors through :func:`flash_attention_plain`."""
+    contiguous last dim (other strides are free, but for the wgmma route's
+    16-byte conditions).  CUDA tensors go through the kernel that
+    :func:`flash_route` names; CPU tensors through
+    :func:`flash_attention_plain`."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_float_operand(t, name, 4)
     B, H, S, D = q.shape
@@ -60,13 +114,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal)
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    return run_kernel(flash_route(q.dtype, D), q, k, v, causal)
+
+
+def run_kernel(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """Launch ``kernel`` (either route) on CUDA operands that
+    :func:`flash_attention` has validated, and return its output.  The
+    wrapper calls it with :func:`flash_route`'s choice; the card's checks
+    call it to time the scalar kernel on bf16 operands too."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    FLASH_ATTENTION.launch(
+    if kernel is FLASH_ATTENTION_WGMMA:
+        if q.dtype != torch.bfloat16 or D not in WGMMA_HEAD_DIMS:
+            raise ValueError(f"the wgmma kernel takes bf16 at D in "
+                             f"{WGMMA_HEAD_DIMS}, not {q.dtype} at D {D}")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            problem = tma_problem(t)
+            if problem:
+                raise ValueError(f"{name} cannot be read by TMA: {problem}")
+        dtype_code = ()    # bf16 only
+    else:
+        dtype_code = (FLOAT_CODES[q.dtype],)
+    kernel.launch(
         q.device, (B, H, Hkv, S, D),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        FLOAT_CODES[q.dtype], B, H, Hkv, S, D,
+        *dtype_code, B, H, Hkv, S, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(causal), 1.0 / math.sqrt(D),
     )
