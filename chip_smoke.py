@@ -25,7 +25,14 @@ Phases (any failure exits non-zero before the last line is printed):
      bit for bit, at the largest shape the search phase gave it and at
      deployment size (2^24 postings varint-encoded; two sorted 2^24-id
      lists), timed with CUDA events beside its bound and the one-call
-     PyTorch yardstick;
+     PyTorch yardstick.  ``varint_decode`` also over 1.5 MB of 5- to
+     10-byte varints (at an aligned and an unaligned base), one byte and
+     an empty buffer; at the search shape beside its device time from
+     ``torch.profiler``, the same launch inside a ``torch.cuda.device``
+     context, and the host time of ``unpack_varints`` under the ``cuda``
+     backend (raw bytes to the kernel) and the ``torch`` one (host byte
+     prep, two int64 copies, ``index_add_``).  The hot cells must launch
+     ``varint_decode``;
   4. serve: ``ServeEngine`` for granite-3-2b at its published widths
      (40 layers, d_model 2048, 32 heads over 8 KV heads, vocab 49,155;
      seeded random bf16 weights), 16 slots of 4,096 tokens in 16-token
@@ -53,7 +60,10 @@ Phases (any failure exits non-zero before the last line is printed):
      kernel in f32 at the serve and deployment shapes, and in bf16 on the
      wgmma kernel's serve and deployment operands (the old/new ratio on
      one card); the paged kernel in bf16 and f32 at the serve phase's
-     largest shape and at deployment (128 rows x 256 pages);
+     largest shape (also timed cold, over pool copies that exceed the
+     L2), at deployment (128 rows x 256 pages) and at the split's edges
+     (lengths 1, page and split edges, splits wholly past the length,
+     empty rows);
   7. recsys serve: dlrm-mlperf at its published config (26 bf16 tables of
      177,944,225 rows in all, 45.6 GB; seeded random weights): 200
      ``serve_p99`` calls of 512 rows, 10 ``serve_bulk`` calls of 262,144
@@ -101,12 +111,14 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+L2_BYTES = 50 * 2 ** 20    # L2 cache of an H100 SXM
 
 WALL_CLOCK_KEYS = ("shard_fetch_s", "query_s", "busy_s")
 N_QUERIES = 256
 N_HOT_QUERIES = 64
 TOP_K = 10
 DEPLOY_N = 1 << 24
+STRADDLE_VALUES = 200_000   # about 1.5 MB of 5- to 10-byte varints
 
 # serve phase: granite-3-2b at its published widths
 SERVE_SLOTS = 16
@@ -415,7 +427,10 @@ def search_phase(scale: float, device, kernels) -> dict:
         for name, sub, qs in (("standard", std, std_q), ("hot", hs, hot_q)):
             if n_shards == 1:
                 single[name] = (sub, qs)
+            before = {k.symbol: k.launches for k in kernels}
             runs = {b: serve(sub, qs, b, device) for b in ("numpy", "cuda")}
+            launched = {k.symbol: k.launches - before[k.symbol]
+                        for k in kernels}
             ref, got = runs["numpy"], runs["cuda"]
             routes = sorted({r.route for r in ref["results"]})
             bad = same_results(ref["results"], got["results"])
@@ -423,11 +438,15 @@ def search_phase(scale: float, device, kernels) -> dict:
                 bad.append("last_trace differs")
             if ref["io"] != got["io"]:
                 bad.append("per-device IOStats differ")
+            # the hot cell's pooled top-k streams decode on the device
+            if name == "hot" and launched["varint_decode"] == 0:
+                bad.append("varint_decode was never launched")
             read_bytes = sum(d["read_bytes"] for shard in got["io"]
                              for d in shard.values())
             cell = {"world": name, "shards": n_shards, "queries": len(qs),
                     "routes": routes, "build_s": build_s,
-                    "read_bytes": read_bytes, "match": not bad}
+                    "read_bytes": read_bytes, "match": not bad,
+                    "launches": launched}
             for b, r in runs.items():
                 cell[b] = {k: r[k] for k in ("qps", "p50_ms", "p99_ms")}
             report["cells"].append(cell)
@@ -466,20 +485,36 @@ def cuda_ms(fn: Callable[[], object], reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def encode_varints(values: torch.Tensor):
-    """Byte-parallel form of the LEB128 encoding of ``values`` (int64 >= 0)
-    on their device: per-byte sorted value ids and shifted payloads, as
-    ``byte_prep`` yields them from the bytes."""
-    widths = torch.ones_like(values)
-    for k in range(1, 9):
-        widths += (values >= (1 << (7 * k))).to(torch.int64)
-    vid = torch.repeat_interleave(
-        torch.arange(values.numel(), device=values.device), widths)
-    starts = torch.cumsum(widths, 0) - widths
-    rank = torch.arange(vid.numel(), device=values.device) - starts[vid]
-    shift = 7 * rank
-    contrib = ((values[vid] >> shift) & 0x7F) << shift
-    return vid, contrib
+def profiler_ms(fn: Callable[[], object], match: Optional[str] = None,
+                reps: int = 20) -> Optional[float]:
+    """The mean device time of the kernels named ``match`` (of all its
+    kernels, without one) over ``reps`` calls of ``fn``
+    (``torch.profiler``): the kernel's own time, where CUDA events over
+    calls that the host cannot issue as fast as the device runs them read
+    the host's time.  A session that returns no device activity is run
+    again, up to three times; then None."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        prof = device_profile(lambda: [fn() for _ in range(reps)],
+                              match=match)
+        if prof["captured"]:
+            key = f"{match}_ms" if match else "device_busy_ms"
+            return prof[key] / reps
+    return None
+
+
+def leb128_bytes(values: np.ndarray) -> np.ndarray:
+    """The LEB128 encoding of uint64 ``values``, as one uint8 stream."""
+    v = np.asarray(values, dtype=np.uint64)
+    widths = np.ones(v.size, dtype=np.int64)
+    for k in range(1, 10):
+        widths += v >= (np.uint64(1) << np.uint64(7 * k))
+    vid = np.repeat(np.arange(v.size), widths)
+    rank = np.arange(vid.size) - (np.cumsum(widths) - widths)[vid]
+    payload = (v[vid] >> (7 * rank).astype(np.uint64)) & np.uint64(0x7F)
+    more = (rank < widths[vid] - 1).astype(np.uint64) << np.uint64(7)
+    return (payload | more).astype(np.uint8)
 
 
 def widths_for(n_bytes: int, n_values: int, rng) -> np.ndarray:
@@ -495,37 +530,79 @@ def widths_for(n_bytes: int, n_values: int, rng) -> np.ndarray:
     return widths
 
 
-def values_with_widths(widths: np.ndarray, rng) -> np.ndarray:
-    lo = np.where(widths == 1, 0, 1 << (7 * (widths - 1)))
-    hi = 1 << (7 * widths)
-    return lo + (rng.random_sample(widths.shape[0]) * (hi - lo)).astype(np.int64)
+def values_of_widths(widths: np.ndarray, rng) -> np.ndarray:
+    """uint64 values whose LEB128 encodings are ``widths`` (1..10) bytes:
+    random low bits under the top bit of the last 7-bit group."""
+    w = np.asarray(widths, dtype=np.uint64)
+    bits = np.frombuffer(rng.bytes(8 * w.size), dtype=np.uint64)
+    span = np.minimum(7 * w, 64)
+    mask = np.where(span == 64, ~np.uint64(0),
+                    (np.uint64(1) << (span % np.uint64(64))) - np.uint64(1))
+    top = np.where(w > 1, np.uint64(1) << (7 * (w - np.uint64(1))),
+                   np.uint64(0))
+    return (bits & mask) | top
 
 
-def segment_sum_case(vid, contrib, n_values, expect=None) -> dict:
+def decode_case(raw: np.ndarray, device, expect: Optional[np.ndarray] = None,
+                offset: int = 0, host: bool = False,
+                n_values: Optional[int] = None) -> dict:
+    """``varint_decode`` against its plain version on the card, bit for
+    bit (and against ``expect``), timed with CUDA events beside its bound,
+    the plain version and ``index_add_`` over the host's prepared payloads
+    (step 3 only, into an output made outside its timing); the kernel's
+    own device time comes from ``torch.profiler``.  ``offset`` places the
+    stream that many bytes into its allocation (an unaligned base);
+    ``n_values`` (default: the stream's count of values) may exceed that
+    count, leaving the ids past it 0.  ``host`` adds the host time of
+    ``unpack_varints`` under the ``cuda`` backend (one raw-byte copy and
+    launch) and the ``torch`` backend (the old path: host byte prep, two
+    int64 copies, ``index_add_``)."""
     from repro_torch.kernels.posting_decode.kernel import (
-        varint_segment_sum, varint_segment_sum_plain,
+        varint_decode, varint_decode_plain,
     )
+    from repro_torch.kernels.posting_decode.ops import unpack_varints
+    from repro_torch.kernels.posting_decode.ref import byte_prep
 
-    got = varint_segment_sum(vid, contrib, n_values)
-    plain = varint_segment_sum_plain(vid, contrib, n_values)
+    n, count = raw.size, int(np.count_nonzero(raw < 0x80))
+    n_values = count if n_values is None else n_values
+    store = torch.empty(n + offset, dtype=torch.uint8, device=device)
+    buf = store[offset:]
+    buf.copy_(torch.from_numpy(raw.copy()))
+    got = varint_decode(buf, n_values)
+    plain = varint_decode_plain(buf, n_values)
     torch.cuda.synchronize()
     ok = bool(torch.equal(got, plain))
     if expect is not None:
-        ok = ok and bool(torch.equal(got, expect))
-    m = vid.numel()
-    lib_out = torch.zeros(n_values, dtype=torch.int64, device=vid.device)
-    return {
-        "shape": [m, n_values],
+        ok = ok and np.array_equal(got.cpu().numpy(), expect)
+    contrib, vid, _ = byte_prep(raw)
+    vid_t = torch.from_numpy(vid).to(device)
+    contrib_t = torch.from_numpy(contrib).to(device)
+    lib_out = torch.zeros(count, dtype=torch.int64, device=device)
+    case = {
+        "shape": [n, n_values], "base_offset": offset,
         "bit_identical": ok,
         "max_abs_err": int((got - plain).abs().max()) if n_values else 0,
-        "ms": cuda_ms(lambda: varint_segment_sum(vid, contrib, n_values)),
-        "plain_ms": cuda_ms(
-            lambda: varint_segment_sum_plain(vid, contrib, n_values)),
-        "library_ms": cuda_ms(lambda: lib_out.index_add_(0, vid, contrib)),
-        "bound_ms": max((16 * m + 8 * n_values) / HBM_BYTES_PER_S,
-                        m / SCALAR_OPS_PER_S) * 1e3,
+        "ms": cuda_ms(lambda: varint_decode(buf, n_values)),
+        "plain_ms": cuda_ms(lambda: varint_decode_plain(buf, n_values)),
+        "library_ms": cuda_ms(lambda: lib_out.index_add_(0, vid_t, contrib_t)),
+        "library": "index_add_ of the host-prepared payloads: step 3 only",
+        "bound_ms": max((n + 8 * n_values) / HBM_BYTES_PER_S,
+                        n / SCALAR_OPS_PER_S) * 1e3,
         "bound_by": "bytes",
     }
+    if n:
+        case["profiler_kernel_ms"] = profiler_ms(
+            lambda: varint_decode(buf, n_values), "varint_decode")
+    if host:
+        for backend in ("cuda", "torch"):
+            unpack_varints(raw, backend=backend, device=device)
+            times = []
+            for _ in range(50):
+                t0 = time.perf_counter()
+                unpack_varints(raw, backend=backend, device=device)
+                times.append(time.perf_counter() - t0)
+            case[f"unpack_{backend}_host_ms"] = float(np.median(times)) * 1e3
+    return case
 
 
 def member_mask_case(a, b) -> dict:
@@ -565,23 +642,35 @@ def kernel_phase(largest: dict, device) -> Dict[str, dict]:
     gen = torch.Generator().manual_seed(5)
     out: Dict[str, dict] = {}
 
-    # varint_segment_sum at the largest search shape, then 2^24 postings
-    # a kernel the search never launched has failed already; it is
-    # still checked, at a small shape
-    m, n_values = largest["varint_segment_sum"] or (4096, 2048)
-    values = values_with_widths(widths_for(m, n_values, rng), rng)
-    vid, contrib = encode_varints(torch.tensor(values, device=device))
-    assert vid.numel() == m, (vid.numel(), m)
-    search = segment_sum_case(vid, contrib, n_values,
-                              expect=torch.tensor(values, device=device))
-    docs_delta = torch.tensor(rng.geometric(0.5, DEPLOY_N) - 1, device=device)
-    pos = torch.tensor(rng.randint(0, 4096, DEPLOY_N), device=device)
-    vals = torch.stack([docs_delta, pos], dim=1).reshape(-1)
-    vid, contrib = encode_varints(vals)
-    deploy = segment_sum_case(vid, contrib, vals.numel(), expect=vals)
-    deploy["stream_bytes"] = vid.numel()
-    out["varint_segment_sum"] = {"search": search, "deploy": deploy}
-    del vid, contrib, vals
+    # varint_decode at the largest search shape, 2^24 postings, a stream
+    # of 5- to 10-byte varints over many tiles (aligned and not, and with
+    # 100 ids asked for past its last value), one byte and nothing.  A
+    # kernel the search never launched has failed
+    # already; it is still checked, at a small shape
+    n, n_values = largest["varint_decode"] or (4096, 2048)
+    values = values_of_widths(widths_for(n, n_values, rng), rng)
+    raw = leb128_bytes(values)
+    assert raw.size == n, (raw.size, n)
+    cases = {"search": decode_case(raw, device, values.view(np.int64),
+                                   host=True)}
+    docs_delta = rng.geometric(0.5, DEPLOY_N) - 1
+    pos = rng.randint(0, 4096, DEPLOY_N)
+    vals = np.stack([docs_delta, pos], axis=1).reshape(-1)
+    cases["deploy"] = decode_case(leb128_bytes(vals), device, vals)
+    del docs_delta, pos, vals
+    values = values_of_widths(rng.randint(5, 11, STRADDLE_VALUES), rng)
+    raw = leb128_bytes(values)
+    cases["straddle"] = decode_case(raw, device, values.view(np.int64))
+    cases["straddle_unaligned"] = decode_case(raw, device,
+                                              values.view(np.int64), offset=3)
+    past = np.concatenate([values.view(np.int64), np.zeros(100, np.int64)])
+    cases["past_the_stream"] = decode_case(raw, device, past,
+                                           n_values=past.size)
+    cases["one_byte"] = decode_case(np.array([0x55], np.uint8), device,
+                                    np.array([0x55]))
+    cases["empty"] = decode_case(np.zeros(0, np.uint8), device,
+                                 np.zeros(0, np.int64))
+    out["varint_decode"] = cases
 
     # sorted_member_mask at the largest search shape, then 2^24 x 2^24
     n, m = largest["sorted_member_mask"] or (4096, 4096)
@@ -940,10 +1029,17 @@ def flash_case(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def paged_case(R: int, G: int, D: int, page: int, max_pages: int,
                lengths: np.ndarray, dtype, gen: torch.Generator, device,
-               shuffled: bool) -> dict:
+               shuffled: bool, cold: bool = False) -> dict:
+    """The paged kernel against its plain version, timed beside its
+    bound and SDPA on K/V gathered outside its timing.  ``cold`` also
+    times it over copies of the pools, taken in turn, whose K/V read sets
+    total more than twice the 50 MB L2, so each call finds its K/V cold
+    as a decode step does (each layer reads its own cache)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention, paged_split,
+    )
     from repro_torch.kernels.paged_attention.ref import paged_attention_plain
 
     n_pages = R * max_pages
@@ -973,8 +1069,9 @@ def paged_case(R: int, G: int, D: int, page: int, max_pages: int,
               + 4 * int(np.ceil(used / page).sum()) + 4 * R)
     flops = 4 * D * G * tokens
     rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else SCALAR_OPS_PER_S
-    return {
+    case = {
         "shape": [R, G, D, page, max_pages], "tokens": tokens,
+        "split_pages": paged_split(R, G, max_pages, page),
         "table": "shuffled" if shuffled else "slot",
         "dtype": str(dtype).split(".")[-1],
         **check,
@@ -988,6 +1085,23 @@ def paged_case(R: int, G: int, D: int, page: int, max_pages: int,
         else "bytes",
         "flops": flops, "bytes": nbytes,
     }
+    case["profiler_kernel_ms"] = profiler_ms(
+        lambda: paged_attention(q, kp, vp, table, lens), "paged_attention")
+    if cold:
+        n = max(2, -(-2 * L2_BYTES // (2 * tokens * D * esize)))
+        pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(n - 1)]
+        turn = iter(range(1 << 30))
+
+        def next_pool():
+            k, v = pools[next(turn) % n]
+            return paged_attention(q, k, v, table, lens)
+
+        case["cold_copies"] = n
+        case["ms_cold"] = cuda_ms(next_pool)
+        case["profiler_kernel_ms_cold"] = profiler_ms(next_pool,
+                                                      "paged_attention")
+        del pools
+    return case
 
 
 def attention_phase(largest: dict, device) -> Dict[str, dict]:
@@ -1048,15 +1162,23 @@ def attention_phase(largest: dict, device) -> Dict[str, dict]:
     serve_lens = rng.randint(SERVE_PROMPT[0], SERVE_PROMPT[1] + SERVE_NEW + 1,
                              R // cfg.n_kv_heads).repeat(cfg.n_kv_heads)
     deploy_pages = 256
+    # the split's edges at the deployment launch's split (16 pages of 16):
+    # length 1, page and split edges, rows whose later splits lie wholly
+    # past the length, full and empty rows
+    edge_lens = np.resize([1, 15, 16, 17, 255, 256, 257, 512, 2000, 4096, 0],
+                          128)
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         out["paged_attention"][f"serve_{tag}"] = paged_case(
             R, Gs, Ds, page, max_pages, serve_lens, dtype, gen, device,
-            shuffled=False)
+            shuffled=False, cold=True)
         out["paged_attention"][f"deploy_{tag}"] = paged_case(
             128, G, cfg.d_head, SERVE_PAGE, deploy_pages,
             np.full(128, deploy_pages * SERVE_PAGE), dtype, gen, device,
             shuffled=True)
+        out["paged_attention"][f"edges_{tag}"] = paged_case(
+            128, G, cfg.d_head, SERVE_PAGE, deploy_pages, edge_lens, dtype,
+            gen, device, shuffled=True)
     return out
 
 
@@ -1412,13 +1534,13 @@ def main(argv: Sequence[str] = ()) -> int:
     )
     from repro_torch.kernels.intersect.kernel import SORTED_MEMBER_MASK
     from repro_torch.kernels.paged_attention.kernel import PAGED_ATTENTION
-    from repro_torch.kernels.posting_decode.kernel import VARINT_SEGMENT_SUM
+    from repro_torch.kernels.posting_decode.kernel import VARINT_DECODE
 
     # float32 products in full float32 on the card (stated, not assumed)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    kernels = (VARINT_SEGMENT_SUM, SORTED_MEMBER_MASK)
+    kernels = (VARINT_DECODE, SORTED_MEMBER_MASK)
     serve_kernels = (FLASH_ATTENTION_WGMMA, FLASH_ATTENTION, PAGED_ATTENTION)
     # the case each serve kernel's row of the kernels line shows: the
     # scalar flash kernel serves f32 (the parity phase), the others bf16
@@ -1549,6 +1671,7 @@ def main(argv: Sequence[str] = ()) -> int:
         Path(args.out).write_text(json.dumps(
             {"smi": smi, "search": {k: v for k, v in search.items()
                                     if k != "failures"},
+             "search_kernels": checks,
              "serve": serve, "parity": parity, "attention": attn,
              "recsys": recsys, "recsys_parity": rparity,
              "embedding_bag": bags,

@@ -11,8 +11,9 @@ Each kernel directory mirrors ``repro.kernels``:
   ops.py    — the dispatch the port's callers import
 
 Kernels:
-  posting_decode  — ``varint_segment_sum``: step 3 of the byte-parallel
-                    LEB128 decode, a warp-segmented sum into int64 slots
+  posting_decode  — ``varint_decode``: raw LEB128 bytes to int64 values
+                    in one launch (flags, a block scan with a decoupled
+                    look-back across blocks for the value ids, assembly)
   intersect       — ``sorted_member_mask``: doc-id membership of one
                     sorted list in another, one binary search per element
   flash_attention — causal online-softmax attention of LM prefill, two

@@ -113,6 +113,15 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def stream_handle(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream.  PyTorch's own
+    raw getter (the one its compiled kernels launch with) skips building a
+    ``torch.cuda.Stream`` object on every launch."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 class CudaKernel:
     """One C entry point of the kernel library and its launch count.
 
@@ -139,13 +148,18 @@ class CudaKernel:
         return self._fn
 
     def launch(self, device: torch.device, sizes: Tuple[int, ...],
-               *args) -> None:
-        """Launch on ``device``'s current stream; raise on a CUDA error.
-        ``sizes`` are the operand lengths, kept for the largest launch."""
+               *args, stream: Optional[int] = None) -> None:
+        """Launch on ``device``'s current stream (or on ``stream``, a
+        handle of it the caller holds); raise on a CUDA error.  ``sizes``
+        are the operand lengths, kept for the largest launch.  The device
+        is made current only when it is not already."""
+        if device.index not in (None, torch.cuda.current_device()):
+            with torch.cuda.device(device):
+                return self.launch(device, sizes, *args, stream=stream)
         fn = self._bind()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = fn(*args, ctypes.c_void_p(stream))
+        if stream is None:
+            stream = stream_handle(device)
+        err = fn(*args, stream)
         if err != 0:
             msg = library().repro_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")

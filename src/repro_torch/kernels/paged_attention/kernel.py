@@ -1,4 +1,4 @@
-"""Paged decode attention: the CUDA kernel's wrapper.
+"""Paged decode attention: the CUDA kernel's wrapper and its split rule.
 
 One query token per row attends to the first ``lengths[b]`` tokens of the
 pages ``block_table[b, :]`` of a shared (n_pages, page, D) pool; the pool
@@ -8,12 +8,18 @@ accumulator are f32 and the output has the input dtype, as in the Pallas
 (``csrc/paged_attention.cu``) ports; the source says how and what bounds
 it.  Page ids must lie in ``[0, n_pages)``; they are not checked on the
 device.
+
+The kernel splits each row's tokens over several blocks;
+:func:`paged_split` sets the pages a split covers from static shapes
+only (it never reads ``lengths``, which would wait for the device).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from functools import lru_cache
+from typing import Dict, Tuple
 
 import torch
 
@@ -21,15 +27,64 @@ from repro_torch.kernels.cuda_lib import (
     FLOAT_CODES,
     CudaKernel,
     check_float_operand,
+    stream_handle,
 )
 from repro_torch.kernels.paged_attention.ref import paged_attention_plain
 
 PAGED_ATTENTION = CudaKernel(
     "paged_attention",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float],
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float],
     source="src/repro_torch/csrc/paged_attention.cu",
     replaces="src/repro/kernels/paged_attention/kernel.py:75",
 )
+
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+BLOCKS_PER_SM = 16        # blocks a full-length launch asks for, per SM
+MIN_SPLIT_TOKENS = 128    # below this a split's fill and combine dominate
+MAX_SPLIT_PAGES = 256     # the table slice a block stages (kMaxSplitPages)
+
+
+def head_group(H: int) -> int:
+    """Heads of one block: 1, 2, 4 or 8, the least that is >= min(H, 8)."""
+    return next(g for g in (1, 2, 4, 8) if g >= min(H, 8))
+
+
+@lru_cache(maxsize=256)
+def paged_split(B: int, H: int, max_pages: int, page: int) -> int:
+    """Table entries (pages) one block covers: enough splits of each row
+    that a full-length launch of ``B`` rows asks for ``BLOCKS_PER_SM``
+    blocks on each SM, splits of at least ``MIN_SPLIT_TOKENS`` tokens and
+    at most ``MAX_SPLIT_PAGES`` pages, and one split when a row fits in
+    it.  The launch has ``ceil(max_pages / pages)`` splits a row."""
+    groups = B * -(-H // head_group(H))
+    splits = -(-BLOCKS_PER_SM * SMS // groups)
+    pages = max(-(-max_pages // splits), -(-MIN_SPLIT_TOKENS // page))
+    return min(pages, max_pages, MAX_SPLIT_PAGES)
+
+
+class _Combine:
+    """The split partials and tickets of the launches on one stream; the
+    tickets are zeroed when allocated and every launch leaves them zero."""
+
+    def __init__(self, n_part: int, n_tickets: int, device: torch.device):
+        self.part = torch.empty(n_part, dtype=torch.float32, device=device)
+        self.tickets = torch.zeros(n_tickets, dtype=torch.int32,
+                                   device=device)
+
+
+_scratch: Dict[Tuple[torch.device, int], _Combine] = {}
+
+
+def _combine_scratch(device: torch.device, stream: int, n_part: int,
+                     n_tickets: int) -> _Combine:
+    sc = _scratch.get((device, stream))
+    if (sc is None or sc.part.numel() < n_part
+            or sc.tickets.numel() < n_tickets):
+        grow = (sc.part.numel(), sc.tickets.numel()) if sc else (0, 0)
+        sc = _scratch[(device, stream)] = _Combine(
+            max(n_part, grow[0]), max(n_tickets, grow[1]), device)
+    return sc
+
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
 
@@ -80,10 +135,22 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or H == 0:
         return out
+    pages = paged_split(B, H, max_pages, page)
+    part = tickets = None
+    stream = None
+    if pages < max_pages:
+        hg = head_group(H)
+        n_groups = B * -(-H // hg)
+        stream = stream_handle(q.device)
+        sc = _combine_scratch(q.device, stream,
+                              n_groups * -(-max_pages // pages) * hg * (D + 2),
+                              n_groups)
+        part, tickets = sc.part.data_ptr(), sc.tickets.data_ptr()
     PAGED_ATTENTION.launch(
         q.device, (B, H, max_pages, page, D),
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        FLOAT_CODES[q.dtype], B, H, D, page, max_pages, 1.0 / math.sqrt(D),
+        block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), part,
+        tickets, FLOAT_CODES[q.dtype], B, H, D, page, max_pages, pages,
+        1.0 / math.sqrt(D), stream=stream,
     )
     return out

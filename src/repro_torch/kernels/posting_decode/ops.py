@@ -1,20 +1,20 @@
 """Dispatch wrappers: backend-selected varint posting decode.
 
-``unpack_varints`` runs step 3 of the byte-parallel decode (see
-``ref.py``) on the chosen backend; ``DeviceDecoder`` wraps it behind the
-exact ``feed``/state surface of the host
-:class:`~repro_torch.core.postings.PostingDecoder`, so the lazy cursor
-path can swap decoders without changing semantics;
+``unpack_varints`` decodes a terminator-aligned byte buffer on the chosen
+backend; ``DeviceDecoder`` wraps it behind the exact ``feed``/state
+surface of the host :class:`~repro_torch.core.postings.PostingDecoder`,
+so the lazy cursor path can swap decoders without changing semantics;
 ``decode_member_prefilter`` is the fused decode→intersect entry point
 (decode a chunk AND mask its rows against another list's doc ids).
 
-Backends: ``numpy`` (the host oracle), ``torch`` (the segment sum as
-``index_add_`` on the device) and ``cuda`` (the hand-written
-``varint_segment_sum`` kernel).  The device sums are int64, so every
-varint width decodes on the device and every chunk a ``cuda`` decoder is
-fed goes through the kernel; there is neither a width gate nor a size
-threshold.  Steps 1-2 (``byte_prep``) and the delta expansion stay exact
-host int64.
+Backends: ``numpy`` (the host oracle), ``torch`` (the host ``byte_prep``,
+then the segment sum as ``index_add_`` on the device) and ``cuda`` (the
+raw bytes go to the device and one ``varint_decode`` launch does steps
+1-3; the host only counts the terminator bytes, to size the output).  The
+device values are int64, so every varint width decodes on the device and
+every chunk a ``cuda`` decoder is fed goes through the kernel; there is
+neither a width gate nor a size threshold.  The delta expansion stays
+exact host int64.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from repro_torch.kernels.intersect.kernel import (
     sorted_member_mask_plain,
 )
 from repro_torch.kernels.posting_decode.kernel import (
-    varint_segment_sum,
+    varint_decode,
     varint_segment_sum_plain,
 )
 from repro_torch.kernels.posting_decode.ref import (
@@ -56,20 +56,22 @@ def unpack_varints(buf, backend: str = "cuda",
                    device: DeviceLike = None) -> np.ndarray:
     """Decode a terminator-aligned byte buffer's varints as (N,) int64.
 
-    ``backend`` picks where the segmented sum runs; the byte prep (flag
-    scan, ranks, shifts) is host work either way."""
+    ``backend`` picks where the decode runs: under ``cuda`` the raw bytes
+    go to the device, under ``torch`` the host's byte prep does."""
     _check_backend(backend)
     buf = as_byte_array(buf)
     if backend == "numpy" or buf.size == 0:
         return unpack_varints_np(buf)
     dev = resolve_device(device)
-    contrib, vid, n_vals = byte_prep(buf)
-    vid_t = to_device(vid, dev)
-    contrib_t = to_device(contrib, dev)
-    if backend == "torch":
-        values = varint_segment_sum_plain(vid_t, contrib_t, n_vals)
+    if backend == "cuda":
+        if buf[-1] >= 0x80:
+            raise ValueError("buffer must end on a varint terminator")
+        n_vals = int(np.count_nonzero(buf < 0x80))
+        values = varint_decode(to_device(buf, dev, dtype=np.uint8), n_vals)
     else:
-        values = varint_segment_sum(vid_t, contrib_t, n_vals)
+        contrib, vid, n_vals = byte_prep(buf)
+        values = varint_segment_sum_plain(
+            to_device(vid, dev), to_device(contrib, dev), n_vals)
     return values.cpu().numpy()
 
 

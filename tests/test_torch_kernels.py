@@ -34,7 +34,7 @@ from repro_torch.kernels.intersect.kernel import (
 )
 from repro_torch.kernels.intersect.ops import doc_member_mask, intersect_sorted
 from repro_torch.kernels.posting_decode.kernel import (
-    varint_segment_sum,
+    varint_decode,
     varint_segment_sum_plain,
 )
 from repro_torch.kernels.posting_decode.ops import (
@@ -82,17 +82,21 @@ def _tensors(*arrays):
 def test_segment_sum_matches_pallas_kernel(width):
     """Varints of up to 4 bytes: the reference routes them through the
     Pallas ``varint_unpack_kernel`` (interpret mode); the port's segment
-    sum over the same byte prep must give the same values."""
+    sum over the same byte prep, and its fused decode of the same bytes,
+    must give the same values."""
     rng = np.random.RandomState(100 + width)
     vals = rng.randint(0, 1 << (7 * width), size=rng.randint(50, 300))
     buf = _varint_buf(vals)
     ref = ref_unpack_varints(buf, backend="pallas")
     contrib, vid, n = byte_prep(as_byte_array(buf))
     vid_t, contrib_t = _tensors(vid, contrib)
-    got = varint_segment_sum(vid_t, contrib_t, n)
+    got = varint_segment_sum_plain(vid_t, contrib_t, n)
     assert got.dtype == torch.int64
     assert np.array_equal(got.numpy(), ref)
     assert np.array_equal(ref, vals)
+    fused = varint_decode(torch.tensor(as_byte_array(buf)), n)
+    assert fused.dtype == torch.int64
+    assert np.array_equal(fused.numpy(), ref)
 
 
 @pytest.mark.parametrize("backend", DECODE_BACKENDS)
@@ -113,18 +117,26 @@ def test_unpack_varints_matches_oracle_all_widths(backend):
 
 
 def test_segment_sum_plain_equals_wrapper_and_validates():
+    """The fused decode's wrapper equals step 3 over the host byte prep,
+    and takes only a 1-d contiguous uint8 tensor on the CPU or the card,
+    with a count of values that the bytes can hold."""
     rng = np.random.RandomState(5)
-    contrib, vid, n = byte_prep(as_byte_array(_varint_buf(
-        rng.randint(0, 1 << 35, 500))))
+    raw = as_byte_array(_varint_buf(rng.randint(0, 1 << 35, 500)))
+    contrib, vid, n = byte_prep(raw)
     vid_t, contrib_t = _tensors(vid, contrib)
-    assert torch.equal(varint_segment_sum(vid_t, contrib_t, n),
+    buf_t = torch.tensor(raw)
+    assert torch.equal(varint_decode(buf_t, n),
                        varint_segment_sum_plain(vid_t, contrib_t, n))
     with pytest.raises(TypeError):
-        varint_segment_sum(vid_t.to(torch.int32), contrib_t, n)
+        varint_decode(buf_t.to(torch.int32), n)
     with pytest.raises(ValueError):
-        varint_segment_sum(vid_t[:-1], contrib_t, n)
+        varint_decode(buf_t[None, :], n)
     with pytest.raises(ValueError):
-        varint_segment_sum(vid_t.to("meta"), contrib_t.to("meta"), n)
+        varint_decode(buf_t[::2], n)
+    with pytest.raises(ValueError):
+        varint_decode(buf_t.to("meta"), n)
+    with pytest.raises(ValueError):
+        varint_decode(buf_t, buf_t.numel() + 1)
 
 
 # ------------------------------------------------- sorted member mask --
@@ -313,7 +325,7 @@ def test_kernel_sources_and_flags():
     """Every kernel's wrapper names a CUDA source that exists and is built
     for sm_90a."""
     names = {s.name for s in cuda_lib.sources()}
-    assert {"varint_segment_sum.cu", "sorted_member_mask.cu"} <= names
+    assert {"varint_decode.cu", "sorted_member_mask.cu"} <= names
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
     for src in cuda_lib.sources():
         text = src.read_text()

@@ -1,0 +1,191 @@
+"""The paged kernel's split-KV design, on the CPU.
+
+``paged_split`` picks the pages a block covers from static shapes; the
+CUDA kernel (``csrc/paged_attention.cu``) computes each split's softmax
+state (m, l, acc) in f32 and the last block of a row combines them in
+split order.  That arithmetic is emulated here in f32 and held against
+the plain version (the card's element-wise check) and against the
+reference's Pallas kernel (interpret mode) and oracle, on the same inputs
+made from a seed with numpy, at the tolerances of
+``tests/test_torch_attention.py``."""
+
+import importlib.util
+import math
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels.paged_attention.ops import paged_attention as ref_paged
+from repro.kernels.paged_attention.ref import paged_attention_ref as ref_oracle
+
+from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+from repro_torch.kernels.paged_attention.kernel import (
+    BLOCKS_PER_SM,
+    MAX_SPLIT_PAGES,
+    MIN_SPLIT_TOKENS,
+    SMS,
+    head_group,
+    paged_split,
+)
+
+DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pair(x: np.ndarray, dtype: str):
+    jd, td, _ = DTYPES[dtype]
+    j = jnp.asarray(x, jd)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(td)
+
+
+def _err(j, t) -> float:
+    return float(np.abs(np.asarray(j.astype(jnp.float32))
+                        - t.float().numpy()).max())
+
+
+# ------------------------------------------------------------ split rule --
+def test_split_rule_at_serve_and_deployment_shapes():
+    """granite-3-2b's decode launch: 16 slots x 8 KV heads = 128 rows of
+    4 query heads over 256 pages of 16 tokens (the serve phase's and the
+    deployment check's static shapes are the same)."""
+    pages = paged_split(128, 4, 256, 16)
+    splits = -(-256 // pages)
+    blocks = 128 * -(-4 // head_group(4)) * splits
+    assert pages * 16 >= MIN_SPLIT_TOKENS
+    assert blocks >= 4 * SMS          # several blocks resident on each SM
+    assert blocks <= 2 * BLOCKS_PER_SM * SMS
+    assert (pages, splits) == (16, 16)
+
+
+@pytest.mark.parametrize("B,H,max_pages,page", [
+    (2 * 8, 4, 4, 16),      # reduced granite: 2 slots, S_max 64
+    (3 * 2, 4, 3, 16),      # a reduced config with 2 KV heads
+    (1, 32, 512, 16),       # one slot of 8,192 tokens, 32 heads over one
+    (4, 1, 1, 16),          # one page a row
+    (64, 8, 2048, 1),       # pages of one token (gcd of S_max and 16)
+])
+def test_split_rule_at_reduced_shapes(B, H, max_pages, page):
+    pages = paged_split(B, H, max_pages, page)
+    assert 1 <= pages <= min(max_pages, MAX_SPLIT_PAGES)
+    assert pages == max_pages or pages * page >= MIN_SPLIT_TOKENS
+    if max_pages * page <= MIN_SPLIT_TOKENS:
+        assert pages == max_pages    # a short row is one split
+    assert head_group(H) in (1, 2, 4, 8) and head_group(H) >= min(H, 8)
+
+
+# -------------------------------------------------- split and combine --
+def _emulate(q, kp, vp, table, lengths, pages):
+    """The kernel's arithmetic in f32: per split of ``pages`` pages the
+    state (m, l, acc) over its tokens below the length; a row of one
+    split divides; several are merged into a running state in split
+    order, as the last block merges them; an empty row yields zeros."""
+    B, H, D = q.shape
+    page, max_pages = kp.shape[1], table.shape[1]
+    out = torch.zeros(B, H, D, dtype=torch.float32)
+    span = pages * page
+    for b in range(B):
+        n = max(0, min(int(lengths[b]), max_pages * page))
+        active = -(-n // span)
+        states = []
+        for s in range(active):
+            t = torch.arange(s * span, min(n, (s + 1) * span))
+            ids = table[b, t // page].long()
+            k = kp[ids, t % page].float()
+            v = vp[ids, t % page].float()
+            sc = (q[b].float() @ k.T) * (1.0 / math.sqrt(D))
+            m = sc.max(dim=1).values
+            p = torch.exp(sc - m[:, None])
+            states.append((m, p.sum(dim=1), p @ v))
+        if active == 1:
+            m, l, acc = states[0]
+            out[b] = acc / l.clamp_min(1e-30)[:, None]
+        elif active > 1:
+            mx = torch.full((H,), -1e30)
+            num = torch.zeros(H, D)
+            den = torch.zeros(H)
+            for m, l, acc in states:       # merged in split order
+                mn = torch.maximum(mx, m)
+                a, w = torch.exp(mx - mn), torch.exp(m - mn)
+                den = den * a + l * w
+                num = num * a[:, None] + acc * w[:, None]
+                mx = mn
+            out[b] = num / den.clamp_min(1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+def _case(rng, B, H, D, page, max_pages, lens, dtype, table=None):
+    n_pages = B * max_pages
+    (qj, qt) = _pair(rng.randn(B, H, D), dtype)
+    (kj, kt), (vj, vt) = (_pair(rng.randn(n_pages, page, D), dtype)
+                          for _ in range(2))
+    bt = (rng.permutation(n_pages).reshape(B, max_pages) if table is None
+          else table).astype(np.int32)
+    ln = np.asarray(lens, np.int32)
+    ref_args = (qj, kj, vj, jnp.asarray(bt), jnp.asarray(ln))
+    port_args = (qt, kt, vt, torch.from_numpy(bt), torch.from_numpy(ln))
+    return ref_args, port_args
+
+
+def _check(ref_args, port_args, dtype, pages):
+    got = _emulate(*port_args, pages)
+    plain = paged_attention_plain(*port_args)
+    assert torch.equal(paged_attention(*port_args), plain)
+    check = _chip_smoke().attention_check(got, plain)
+    assert check["within_tolerance"], check
+    tol = DTYPES[dtype][2]
+    assert _err(ref_paged(*ref_args), got) < tol
+    # the jnp oracle averages a row of length 0; both kernels write zeros
+    rows = np.flatnonzero(np.asarray(ref_args[4]) > 0)
+    assert _err(ref_oracle(*ref_args)[rows], got[rows]) < tol
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("G", [1, 4, 8, 32])
+def test_split_combine_edges(G, dtype):
+    """Rows of length 1, at a page edge, at a split edge and one past it,
+    at two split edges, full, empty, and rows whose later splits lie
+    wholly past the length; ``max_pages`` (40) is no multiple of the
+    split (16 pages)."""
+    B, D, page, max_pages = 9, 16, 8, 40
+    pages = paged_split(B, G, max_pages, page)
+    span = pages * page
+    assert max_pages % pages and -(-max_pages // pages) == 3
+    lens = [1, page, 3 * page, span, span + 1, 2 * span, max_pages * page,
+            0, span - 1]
+    rng = np.random.RandomState(G * 10 + len(dtype))
+    _check(*_case(rng, B, G, D, page, max_pages, lens, dtype), dtype, pages)
+
+
+@pytest.mark.parametrize("max_pages", [2, 5, 9, 17])
+def test_split_combine_chain_limit(max_pages):
+    """The chain-limit case of the reference's tests (each row's pages in
+    order, full lengths), at table widths of one and of several splits."""
+    rng = np.random.RandomState(max_pages)
+    B, H, D, page = 2, 2, 32, 16
+    table = np.arange(B * max_pages).reshape(B, max_pages)
+    pages = paged_split(B, H, max_pages, page)
+    _check(*_case(rng, B, H, D, page, max_pages, [max_pages * page] * B,
+                  "f32", table=table), "f32", pages)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_split_combine_ragged_lengths(dtype):
+    """Random lengths over a 64-page table of pages of 4 tokens (2 splits
+    of 32 pages), D 64 as granite-3-2b's heads."""
+    rng = np.random.RandomState(77)
+    B, H, D, page, max_pages = 4, 4, 64, 4, 64
+    pages = paged_split(B, H, max_pages, page)
+    lens = rng.randint(1, max_pages * page + 1, B)
+    _check(*_case(rng, B, H, D, page, max_pages, lens, dtype), dtype, pages)
