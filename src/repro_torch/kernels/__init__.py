@@ -14,8 +14,11 @@ Kernels:
   posting_decode  — ``varint_decode``: raw LEB128 bytes to int64 values
                     in one launch (flags, a block scan with a decoupled
                     look-back across blocks for the value ids, assembly)
-  intersect       — ``sorted_member_mask``: doc-id membership of one
-                    sorted list in another, one binary search per element
+  intersect       — ``sorted_member_mask``: doc-id membership of sorted
+                    lists in sorted lists, many segments a launch; a
+                    merge path (a partition pass, then tiles staged by
+                    bulk copies) or, where b is much the longer, a
+                    windowed search, chosen by ``member_route``
   flash_attention — causal online-softmax attention of LM prefill, two
                     CUDA routes chosen by ``flash_route``: bf16 at D 64
                     or 128 on the tensor cores (``wgmma`` fed by TMA,

@@ -22,8 +22,10 @@ def doc_member_mask(
 ) -> np.ndarray:
     """Host mask[i] = a_docs[i] occurs in b_docs, via the membership kernel.
 
-    The doc-level prefilter of the ``cuda`` window join
-    (:func:`repro_torch.search.join.cuda_window_join`).  ``a_docs`` must be
+    The doc-level prefilter of one pair, the counterpart of the
+    reference's ``doc_member_mask`` (the ``cuda`` window join prefilters
+    a whole round of pairs in one launch:
+    :func:`repro_torch.search.join.cuda_join_many`).  ``a_docs`` must be
     sorted; ``b_docs`` is deduplicated here.  Keys are int64 on the
     device, so every doc id fits: there is no host fallback."""
     if a_docs.size == 0 or b_docs.size == 0:

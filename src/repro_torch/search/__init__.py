@@ -16,6 +16,7 @@
 
 from repro_torch.search.join import (
     JOIN_BACKENDS,
+    cuda_join_many,
     cuda_window_join,
     numpy_phrase_join,
     numpy_window_join,
@@ -63,6 +64,7 @@ from repro_torch.search.service import (
 
 __all__ = [
     "JOIN_BACKENDS",
+    "cuda_join_many",
     "cuda_window_join",
     "numpy_phrase_join",
     "numpy_window_join",

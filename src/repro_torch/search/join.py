@@ -12,7 +12,8 @@ Three interchangeable backends:
     padded power-of-two shape with ONE batched searchsorted per bucket,
   * ``cuda_window_join``   — doc-level prefilter through the hand-written
     membership kernel (``sorted_member_mask``), then the exact host
-    window join over the surviving rows.
+    window join over the surviving rows; ``cuda_join_many`` prefilters
+    a whole join round of pairs, one segment each, in one launch.
 
 Key packing is explicit everywhere: ``pos_scale`` picks the smallest
 power of two that can hold ``max_pos + window + 1``, so ``doc * scale +
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device, to_device
-from repro_torch.kernels.intersect.ops import doc_member_mask
+from repro_torch.kernels.intersect.kernel import sorted_member_mask_segments
 
 _EMPTY = np.zeros((0, 2), dtype=np.int64)
 
@@ -143,21 +144,44 @@ def torch_window_join(a: np.ndarray, b: np.ndarray, window: int,
 
 
 # ----------------------------------------------------------- cuda backend --
+def cuda_join_many(
+    pairs: List[Tuple[np.ndarray, np.ndarray, int]],
+    device: DeviceLike = None,
+) -> List[np.ndarray]:
+    """Window-join many ``(a, b, window)`` pairs: a doc-level prefilter of
+    all of them in one membership launch, then each pair's exact finish.
+
+    The non-empty pairs become the segments of one launch: ``a``'s doc
+    ids as they stand, ``b``'s deduplicated, each side concatenated with
+    its offsets on the host, copied to the device once and the mask back
+    once.  Only rows in common docs reach the exact host window join,
+    which on real queries is a small fraction of the input."""
+    out: List[np.ndarray] = [_EMPTY] * len(pairs)
+    live = [k for k, (a, b, _) in enumerate(pairs) if a.size and b.size]
+    if not live:
+        return out
+    dev = resolve_device(device)
+    a_docs = [pairs[k][0][:, 0] for k in live]
+    b_docs = [np.unique(pairs[k][1][:, 0]) for k in live]
+    a_off = np.cumsum([0] + [x.size for x in a_docs], dtype=np.int64)
+    b_off = np.cumsum([0] + [y.size for y in b_docs], dtype=np.int64)
+    mask = sorted_member_mask_segments(
+        to_device(np.concatenate(a_docs), dev), a_off,
+        to_device(np.concatenate(b_docs), dev), b_off,
+    ).cpu().numpy()
+    for k, lo, hi in zip(live, a_off[:-1], a_off[1:]):
+        a, b, w = pairs[k]
+        a_hit = a[mask[lo:hi]]
+        if a_hit.size:
+            b_hit = b[np.isin(b[:, 0], np.unique(a_hit[:, 0]))]
+            out[k] = numpy_window_join(a_hit, b_hit, w)
+    return out
+
+
 def cuda_window_join(a: np.ndarray, b: np.ndarray, window: int,
                      device: DeviceLike = None) -> np.ndarray:
-    """Doc-level prefilter with the membership kernel, exact finish.
-
-    The kernel computes membership of ``a``'s doc ids in ``b``'s doc ids;
-    only rows in common docs reach the exact host window join, which on
-    real queries is a small fraction of the input."""
-    if a.size == 0 or b.size == 0:
-        return np.zeros((0, 2), dtype=np.int64)
-    mask = doc_member_mask(a[:, 0], b[:, 0], device=device)
-    a_hit = a[mask]
-    if a_hit.size == 0:
-        return np.zeros((0, 2), dtype=np.int64)
-    b_hit = b[np.isin(b[:, 0], np.unique(a_hit[:, 0]))]
-    return numpy_window_join(a_hit, b_hit, window)
+    """One window join through the membership prefilter (a round of one)."""
+    return cuda_join_many([(a, b, window)], device=device)[0]
 
 
 # every backend takes (a, b, window); the device ones also device=

@@ -46,6 +46,7 @@ from repro_torch.core.sharded_set import merge_shard_chunks, merge_shard_posting
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.search.join import (
     JOIN_BACKENDS,
+    cuda_join_many,
     numpy_phrase_join,
     numpy_window_join,
     torch_join_many,
@@ -477,8 +478,8 @@ class SearchService:
             # one batched searchsorted per power-of-two bucket
             return torch_join_many(pairs, device=self.device)
         if self.backend == "cuda":
-            join = JOIN_BACKENDS["cuda"]
-            return [join(a, b, w, device=self.device) for a, b, w in pairs]
+            # the round's doc prefilter in one membership launch
+            return cuda_join_many(pairs, device=self.device)
         return [numpy_window_join(a, b, w) for a, b, w in pairs]
 
     # ------------------------------- streaming top-k stage (lazy cursors) --
