@@ -24,7 +24,26 @@ Phases (any failure exits non-zero before the last line is printed):
      1-shard cell
      where one cold ``cuda`` batch spends its time (device busy time
      and idle share from ``torch.profiler``, top host functions);
-  3. search kernels: each against its plain PyTorch version on the card,
+  3. search replica: the same world and 256 queries through the port's
+     durable store and replica fabric.  A ``DurableIndexStore`` primary of
+     2 shards (fsync on) in a temporary directory takes ``parts[0]``,
+     compacts and checkpoints; ``open_replica`` reopens it at the
+     primary's generation vector, and a ``ReplicaSetReader`` of 2
+     replicas a shard per backend (``numpy`` and ``cuda``) serves three
+     cold batches: with ``s0r0`` dying mid-batch after a fixed number of
+     serves, after the primary applies ``parts[1]`` and the replica store
+     polls the WAL, and after ``s0r0`` is revived.  The two fabrics must
+     agree in results, traces (the ``replicas`` block included) and
+     per-replica ``IOStats`` at every step, with a failover in the first
+     batch and equal catch-up ledgers (``replica_check``); after the poll
+     and the revive both must serve what a ``numpy`` service over the
+     primary serves.
+     ``varint_decode`` must launch and ``sorted_member_mask`` once per
+     join round the ``numpy`` run forms.  Prints qps and p50/p99 per
+     backend, failovers, catch-up modes, read bytes per replica, WAL
+     bytes, recovery info, the store's step times and the device's idle
+     share over one cold ``cuda`` fabric batch;
+  4. search kernels: each against its plain PyTorch version on the card,
      bit for bit, at the largest shape the search phase gave it and at
      deployment size (2^24 postings varint-encoded; two sorted 2^24-id
      lists), timed with CUDA events beside its bound and the one-call
@@ -47,7 +66,7 @@ Phases (any failure exits non-zero before the last line is printed):
      backend (raw bytes to the kernel) and the ``torch`` one (host byte
      prep, two int64 copies, ``index_add_``).  The hot cells must launch
      ``varint_decode``;
-  4. serve: ``ServeEngine`` for granite-3-2b at its published widths
+  5. serve: ``ServeEngine`` for granite-3-2b at its published widths
      (40 layers, d_model 2048, 32 heads over 8 KV heads, vocab 49,155;
      seeded random bf16 weights), 16 slots of 4,096 tokens in 16-token
      pages, 32 requests of 512-1,024 prompt tokens and 64 new tokens
@@ -57,13 +76,13 @@ Phases (any failure exits non-zero before the last line is printed):
      launches, the paged-KV manager's stats, and the device's busy share
      over one decode step of 16 active slots and over one prefill of
      1,024 tokens, with the flash kernels' share (``torch.profiler``);
-  5. serve parity: granite-3-2b widths at 2 layers in float32, served on
+  6. serve parity: granite-3-2b widths at 2 layers in float32, served on
      the card (through the kernels) and replayed on the CPU (through the
      plain versions) with the card's tokens forced: every step's logits
      must agree within 1e-4 and ``stats()`` must be equal.  f32 prefill
      is the scalar flash kernel's path: it must launch once per layer and
      prompt on the card, the wgmma kernel never;
-  6. attention kernels: each against its plain version on the card,
+  7. attention kernels: each against its plain version on the card,
      element by element (f32 within 2e-5; bf16 within one bf16 rounding
      of each side plus that), timed beside its bound and
      ``scaled_dot_product_attention`` on the same operands.  The wgmma
@@ -78,7 +97,7 @@ Phases (any failure exits non-zero before the last line is printed):
      L2), at deployment (128 rows x 256 pages) and at the split's edges
      (lengths 1, page and split edges, splits wholly past the length,
      empty rows);
-  7. recsys serve: dlrm-mlperf at its published config (26 bf16 tables of
+  8. recsys serve: dlrm-mlperf at its published config (26 bf16 tables of
      177,944,225 rows in all, 45.6 GB; seeded random weights): 200
      ``serve_p99`` calls of 512 rows, 10 ``serve_bulk`` calls of 262,144
      and 5 ``retrieval_cand`` calls over 1,000,000 candidates, ids drawn
@@ -87,17 +106,18 @@ Phases (any failure exits non-zero before the last line is printed):
      finite.  Prints table bytes, peak device memory, p50/p99, samples/s,
      and over one call of each serve cell the device's busy share, top
      kernels and the bag kernel's share (``torch.profiler``);
-  8. recsys parity: the four recsys archs in float32, card against CPU
+  9. recsys parity: the four recsys archs in float32, card against CPU
      with the same weights (dlrm-mlperf at its published widths with each
      table cut to 10,000 rows; the others at REDUCED): scores within
      1e-4, top-100 ids equal but for adjacent pairs of scores within it;
-  9. embedding_bag kernel: against its plain version in bf16 and f32 at
+ 10. embedding_bag kernel: against its plain version in bf16 and f32 at
      the serve phase's largest launch (K = 1, w = 1: bit identical), over
      t19's 48,937,457 rows (and a 20M-row f32 table) with K = 8 and ids
      among the tables' last rows, and at DIN's D = 18, K = 100; timed
      beside its bytes bound and ``torch.nn.functional.embedding_bag``;
- 10. print the kernels line (six kernels: both flash routes), then the
-     result line.
+ 11. print the kernels line (six kernels: both flash routes; the search
+     kernels' launches summed over the search and replica phases), then
+     the result line.
 
 Exits with code 2 when no CUDA device is present.  Imports nothing of
 JAX or of the ``repro`` package.
@@ -106,10 +126,12 @@ JAX or of the ``repro`` package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
@@ -130,6 +152,7 @@ L2_BYTES = 50 * 2 ** 20    # L2 cache of an H100 SXM
 WALL_CLOCK_KEYS = ("shard_fetch_s", "query_s", "busy_s")
 N_QUERIES = 256
 N_HOT_QUERIES = 64
+REPLICA_KILL_AFTER = 25     # serves of s0r0 before its injected death
 TOP_K = 10
 DEPLOY_N = 1 << 24
 STRADDLE_VALUES = 200_000   # about 1.5 MB of 5- to 10-byte varints
@@ -276,14 +299,18 @@ def strip_wall_clock(trace):
     return trace
 
 
-def same_results(ref, got) -> List[str]:
+def same_results(ref, got, queries=None) -> List[str]:
+    """Element-wise result identity.  With ``queries``, the scanned count
+    of a top-k query is not compared: a warm cache serves a whole list as
+    one chunk, so early termination skips other amounts."""
     bad = []
     for i, (r, g) in enumerate(zip(ref, got)):
+        scanned = queries is not None and queries[i].top_k is not None
         ok = (r.route == g.route
               and np.array_equal(r.docs, g.docs)
               and np.array_equal(r.witnesses, g.witnesses)
               and r.lookups == g.lookups
-              and r.postings_scanned == g.postings_scanned
+              and (scanned or r.postings_scanned == g.postings_scanned)
               and (r.scores is None) == (g.scores is None)
               and (r.scores is None or np.array_equal(r.scores, g.scores)))
         if not ok:
@@ -307,6 +334,13 @@ def serve(substrate, queries, backend: str, device) -> dict:
     res = svc.search_batch(queries)
     out = {"results": res, "trace": strip_wall_clock(svc.last_trace),
            "io": io_delta(io0, device_io(substrate))}
+    out.update(time_service(svc, queries, device))
+    return out
+
+
+def time_service(svc, queries, device) -> Dict[str, float]:
+    """Warm passes of the batch (qps: the median of 3) and each query as
+    a batch of its own (per-query p50/p99), on the host clock."""
     if device.type == "cuda":
         torch.cuda.synchronize()
     warm = []
@@ -319,10 +353,9 @@ def serve(substrate, queries, backend: str, device) -> dict:
         t0 = time.perf_counter()
         svc.search_batch([q])
         lat.append(time.perf_counter() - t0)
-    out["qps"] = len(queries) / float(np.median(warm))
-    out["p50_ms"] = float(np.percentile(lat, 50)) * 1e3
-    out["p99_ms"] = float(np.percentile(lat, 99)) * 1e3
-    return out
+    return {"qps": len(queries) / float(np.median(warm)),
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3}
 
 
 def device_profile(fn: Callable[[], object], top: int = 8,
@@ -384,14 +417,15 @@ def host_profile(fn: Callable[[], object], top: int = 10) -> List[dict]:
     return [{"fn": n, "calls": c, "s": t} for n, c, t in host]
 
 
-def profile_cell(substrate, queries, device) -> dict:
+def profile_cell(make_source: Callable[[], object], queries, device) -> dict:
     """Where one cold ``cuda`` batch spends its time: device busy time
     against wall time from ``torch.profiler`` (the device's idle share),
-    the top device kernels, and the top host functions from cProfile."""
+    the top device kernels, and the top host functions from cProfile.
+    ``make_source`` gives each service its substrate or a fresh fabric."""
     from repro_torch.search import SearchService
 
     def fresh():
-        return SearchService(substrate, window=3, backend="cuda",
+        return SearchService(make_source(), window=3, backend="cuda",
                              device=device)
 
     svc = fresh()
@@ -535,7 +569,8 @@ def search_phase(scale: float, device, kernels) -> dict:
     # after the launch counts are read: profiling runs do not count
     report["profile"] = {}
     for name, (sub, qs) in single.items():
-        report["profile"][name] = profile_cell(sub, qs, device)
+        report["profile"][name] = profile_cell(lambda sub=sub: sub, qs,
+                                               device)
         log(f"profile {name}: " + json.dumps(report["profile"][name]))
     for k in kernels:
         if k.launches == 0:
@@ -543,6 +578,221 @@ def search_phase(scale: float, device, kernels) -> dict:
     if not any(set(c["routes"]) >= {"ordinary", "stopseq", "wv", "multi"}
                for c in report["cells"]):
         failures.append("no batch covered all four routes")
+    report["failures"] = failures
+    # the replica cell's inputs; main takes them out of the report
+    report["world"], report["queries"] = world, std_q
+    return report
+
+
+# ------------------------------------------------------ search replica --
+def kill_after(n: int, error):
+    """A one-shot injected fault: the replica serves ``n`` more ops, then
+    dies mid-batch (``tests/test_replica.py::_kill_after``)."""
+    served = [0]
+
+    def fault(rep, op):
+        served[0] += 1
+        if served[0] > n:
+            raise error(f"injected after {n} serves ({op})")
+
+    return fault
+
+
+def replica_io(fab) -> List[List[Dict[str, Dict[str, int]]]]:
+    """``fab.io_stats_per_replica()`` as plain values, replica by replica."""
+    return [[{name: dataclasses.asdict(st) for name, st in rep.items()}
+             for rep in row] for row in fab.io_stats_per_replica()]
+
+
+def replica_runs(world, queries, device, root: Path,
+                 stack: contextlib.ExitStack,
+                 backends: Sequence[str] = ("numpy", "cuda")) -> tuple:
+    """The "search replica" cell: a durable primary of 2 shards (``set2``,
+    every ordinary index, the store's fsync kept) holds ``world.parts[0]``,
+    then one compaction cycle and one checkpoint; a replica store opens
+    its directory, and one fabric of 2 replicas a shard per backend
+    serves ``queries`` three times: with ``s0r0`` dying mid-batch after
+    ``REPLICA_KILL_AFTER`` serves (the same point in every fabric), after
+    the primary applies ``world.parts[1]`` and the replica store polls
+    its WAL, and after ``s0r0`` is revived.  The stores live in ``root``
+    and close with ``stack``.  Returns ``(runs, info)``: per backend each
+    batch's results, trace (wall clock aside) and per-replica ``IOStats``
+    and the catch-up ledgers; ``info`` holds the stores, fabrics and
+    services, the store's numbers and the failures of the steps between
+    batches."""
+    from repro_torch.data.world import bench_index_config
+    from repro_torch.search import (
+        ReplicaDeadError, ReplicaSetReader, SearchService,
+    )
+    from repro_torch.store import DurableIndexStore
+
+    cfg = bench_index_config("set2", build_ordinary_all=True)
+    lex, failures = world.lexicon, []
+    ts = [time.perf_counter()]
+    primary = stack.enter_context(
+        DurableIndexStore(root / "store", cfg, lex, n_shards=2))
+    (toks, offs), doc0 = world.parts[0], world.doc_starts[0]
+    primary.add_documents(toks, offs, doc0)
+    ts.append(time.perf_counter())
+    # one checkpoint, after the cycle (compact() alone would publish one
+    # before it as well, since a part is pending)
+    primary.compact(checkpoint=False)
+    ts.append(time.perf_counter())
+    primary.checkpoint()
+    ts.append(time.perf_counter())
+    replica = stack.enter_context(DurableIndexStore.open_replica(
+        root / "store", cfg, lex, n_shards=2))
+    ts.append(time.perf_counter())
+    info = {"primary": primary, "replica": replica,
+            **{f"{step}_s": b - a for step, a, b in zip(
+                ("primary_part", "compact", "checkpoint", "replica_open"),
+                ts, ts[1:])},
+            "replica_recovery": dict(replica.recovery_info),
+            "failures": failures}
+    if replica.generation_vector() != primary.generation_vector():
+        failures.append(f"replica store opened at "
+                        f"{replica.generation_vector()}, primary at "
+                        f"{primary.generation_vector()}")
+    fabs = {b: ReplicaSetReader(replica, n_replicas=2) for b in backends}
+    svcs = {b: SearchService(fabs[b], window=3, backend=b, device=device,
+                             device_decode=True) for b in backends}
+    info["fabrics"], info["services"] = fabs, svcs
+    runs = {b: {"batches": []} for b in backends}
+
+    def batch(stage: str) -> None:
+        for b in backends:
+            res = svcs[b].search_batch(queries)
+            runs[b]["batches"].append({
+                "stage": stage, "results": res,
+                "trace": strip_wall_clock(svcs[b].last_trace),
+                "io": replica_io(fabs[b])})
+
+    for fab in fabs.values():
+        fab.replicas[0][0].fault = kill_after(REPLICA_KILL_AFTER,
+                                              ReplicaDeadError)
+    batch("failover")
+    (toks, offs), doc0 = world.parts[1], world.doc_starts[1]
+    t0 = time.perf_counter()
+    primary.add_documents(toks, offs, doc0)
+    t1 = time.perf_counter()
+    info["polled"] = replica.poll()
+    info["second_part_s"] = t1 - t0
+    info["poll_s"] = time.perf_counter() - t1
+    if info["polled"] <= 0:
+        failures.append("the replica store polled no WAL record")
+    if replica.generation_vector() != primary.generation_vector():
+        failures.append(f"after the poll the replica store is at "
+                        f"{replica.generation_vector()}, the primary at "
+                        f"{primary.generation_vector()}")
+    batch("poll")
+    for b, fab in fabs.items():
+        info[f"revive_modes_{b}"] = fab.replicas[0][0].revive()
+        if fab.replicas[0][0].lag() != 0:
+            failures.append(f"{b}: s0r0 lags {fab.replicas[0][0].lag()} "
+                            f"generations after its revive")
+    batch("revive")
+    for b, fab in fabs.items():
+        runs[b]["catch_ups"] = [[dict(rep.catch_ups) for rep in row]
+                                for row in fab.replicas]
+        idle = [f"s{s}r{r}" for s, row in enumerate(fab.replicas)
+                for r, rep in enumerate(row) if rep.waves_served == 0]
+        if idle:
+            failures.append(f"{b}: replicas {idle} served no wave")
+    info["store_stats"] = primary.stats()
+    return runs, info
+
+
+def replica_check(ref: dict, got: dict) -> List[str]:
+    """Hold one fabric's run of the replica cell against another's: per
+    batch equal results, traces key for key (the ``replicas`` block, whose
+    staleness bound each service checked as it served, included) and
+    per-replica ``IOStats``; a failover in the first batch of each; equal
+    catch-up ledgers."""
+    bad = []
+    if len(ref["batches"]) != len(got["batches"]):
+        bad.append(f"{len(ref['batches'])} vs {len(got['batches'])} batches")
+    for r, g in zip(ref["batches"], got["batches"]):
+        stage = r["stage"]
+        bad += [f"{stage}: {m}" for m in same_results(r["results"],
+                                                       g["results"])]
+        if r["trace"] != g["trace"]:
+            bad.append(f"{stage}: last_trace differs")
+        if r["io"] != g["io"]:
+            bad.append(f"{stage}: per-replica IOStats differ")
+    for run in (ref, got):
+        if run["batches"][0]["trace"]["replicas"]["failovers_batch"] < 1:
+            bad.append("the first batch failed over no replica")
+    if ref["catch_ups"] != got["catch_ups"]:
+        bad.append(f"catch-up ledgers differ: {ref['catch_ups']} vs "
+                   f"{got['catch_ups']}")
+    return bad
+
+
+def replica_phase(world, queries, device, kernels) -> dict:
+    """The "search replica" cell on the card: ``replica_runs`` with the
+    ``numpy`` and ``cuda`` fabrics, each held against the other
+    (``replica_check``) and, after the WAL poll and the revive, against a
+    ``numpy`` service over the primary; both search kernels must launch,
+    ``sorted_member_mask`` once per join round the ``numpy`` run forms."""
+    from repro_torch.search import ReplicaSetReader, SearchService
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="replica-store-") as tmp, \
+            contextlib.ExitStack() as stack:
+        for k in kernels:
+            k.launches = 0
+        joins = JoinRoundLog(SearchService)
+        with joins:
+            runs, info = replica_runs(world, queries, device, Path(tmp),
+                                      stack)
+            timing = {b: time_service(svc, queries, device)
+                      for b, svc in info["services"].items()}
+        launched = {k.symbol: k.launches for k in kernels}
+        failures = replica_check(runs["numpy"], runs["cuda"])
+        failures += info["failures"]
+        primary, replica = info["primary"], info["replica"]
+        # the acknowledged part is read back from the replica tier
+        ref = SearchService(primary, window=3, backend="numpy",
+                            device=device).search_batch(queries)
+        for b, run in runs.items():
+            for bt in run["batches"][1:]:
+                failures += [f"{b} {bt['stage']} vs the primary: {m}"
+                             for m in same_results(ref, bt["results"],
+                                                   queries)]
+        rounds = joins.rounds.get("numpy", 0)
+        if joins.rounds.get("cuda", 0) != rounds:
+            failures.append(f"join rounds differ: {joins.rounds}")
+        if launched["varint_decode"] == 0:
+            failures.append("varint_decode was never launched")
+        if launched["sorted_member_mask"] != rounds:
+            failures.append(f"{launched['sorted_member_mask']} "
+                            f"sorted_member_mask launches for {rounds} join "
+                            f"rounds with a non-empty pair")
+        fabs = info["fabrics"]
+        last = runs["cuda"]["batches"][-1]["trace"]["replicas"]
+        report = {
+            "shards": 2, "replicas": 2, "queries": len(queries),
+            "launches": launched, "join_rounds": rounds,
+            "join_pairs": joins.pairs.get("numpy", 0),
+            "timing": timing,
+            "failovers_batch": [
+                run["batches"][0]["trace"]["replicas"]["failovers_batch"]
+                for run in runs.values()],
+            "catch_ups": runs["cuda"]["catch_ups"],
+            "revive_modes": info["revive_modes_cuda"],
+            "waves": last["waves"],
+            "read_bytes": {b: fab.read_bytes_per_replica()
+                           for b, fab in fabs.items()},
+            "store": {k: info[k] for k in (
+                "primary_part_s", "compact_s", "checkpoint_s",
+                "replica_open_s", "second_part_s", "poll_s", "polled",
+                "replica_recovery", "store_stats")},
+            "match": not failures,
+        }
+        # after the launch counts are read: profiling does not count
+        report["profile"] = profile_cell(
+            lambda: ReplicaSetReader(replica, n_replicas=2), queries, device)
+    report["seconds"] = time.perf_counter() - t0
     report["failures"] = failures
     return report
 
@@ -1772,8 +2022,14 @@ def main(argv: Sequence[str] = ()) -> int:
 
     search = search_phase(args.scale, device, kernels)
     log(f"search: {search['seconds']:.1f} s, launches {search['launches']}")
+    world, std_q = search.pop("world"), search.pop("queries")
+    replica = replica_phase(world, std_q, device, kernels)
+    del world
+    log("search replica: " + json.dumps(
+        {k: v for k, v in replica.items() if k != "profile"}))
+    log("profile search replica: " + json.dumps(replica["profile"]))
     checks = kernel_phase(search, device)
-    failures = list(search["failures"])
+    failures = list(search["failures"]) + replica["failures"]
     for name, cases in checks.items():
         for where, case in cases.items():
             log(f"kernel {name} {where}: " + json.dumps(case))
@@ -1839,7 +2095,11 @@ def main(argv: Sequence[str] = ()) -> int:
             "route": "cuda",
             "source": k.source,
             "replaces": k.replaces,
-            "launches": search["launches"][k.symbol],
+            "launches": (search["launches"][k.symbol]
+                         + replica["launches"][k.symbol]),
+            "launches_by_path": {"search": search["launches"][k.symbol],
+                                 "search_replica":
+                                     replica["launches"][k.symbol]},
             **{key: checks[k.symbol][search_case[k.symbol]][key]
                for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                            "bound_by", "library_ms", "shape")},
@@ -1885,6 +2145,8 @@ def main(argv: Sequence[str] = ()) -> int:
         Path(args.out).write_text(json.dumps(
             {"smi": smi, "search": {k: v for k, v in search.items()
                                     if k != "failures"},
+             "search_replica": {k: v for k, v in replica.items()
+                                if k != "failures"},
              "search_kernels": checks,
              "serve": serve, "parity": parity, "attention": attn,
              "recsys": recsys, "recsys_parity": rparity,

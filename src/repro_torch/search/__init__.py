@@ -8,6 +8,9 @@
   * :mod:`repro_torch.search.service` — ``SearchService.search_batch``: the
     plan → scatter-fetch → join → gather pipeline with the streaming
     top-k stage,
+  * :mod:`repro_torch.search.replica` — the replica read fabric: N replica
+    readers per shard subscribing to the writer's touched-key digest
+    stream, with least-loaded wave routing and mid-batch failover,
   * :mod:`repro_torch.search.pool`    — the cross-query chunk pool,
   * :mod:`repro_torch.search.join`    — the interchangeable join backends
     (numpy oracle, torch, cuda),
@@ -56,6 +59,12 @@ from repro_torch.search.reader import (
     ReaderCursor,
     ShardedIndexSetReader,
 )
+from repro_torch.search.replica import (
+    AllReplicasDeadError,
+    ReplicaDeadError,
+    ReplicaReader,
+    ReplicaSetReader,
+)
 from repro_torch.search.service import (
     SearchService,
     SnapshotViolationError,
@@ -97,6 +106,10 @@ __all__ = [
     "PostingCache",
     "ReaderCursor",
     "ShardedIndexSetReader",
+    "AllReplicasDeadError",
+    "ReplicaDeadError",
+    "ReplicaReader",
+    "ReplicaSetReader",
     "SearchService",
     "SnapshotViolationError",
     "TraceIncompleteError",

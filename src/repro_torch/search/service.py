@@ -67,6 +67,7 @@ from repro_torch.core.inverted_index import PostingCursor
 from repro_torch.kernels.posting_decode.ops import DECODE_BACKENDS, DeviceDecoder
 from repro_torch.search.pool import ChunkPool
 from repro_torch.search.reader import IndexSetReader, ShardedIndexSetReader
+from repro_torch.search.replica import ReplicaSetReader
 from repro_torch.search.schema import validate_trace
 from repro_torch.search.scoring import (
     doc_counts,
@@ -150,10 +151,15 @@ class SearchService:
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
-        if isinstance(source, (IndexSetReader, ShardedIndexSetReader)):
+        if isinstance(
+            source, (IndexSetReader, ShardedIndexSetReader, ReplicaSetReader)
+        ):
             self.reader = source
         else:
             self.reader = source.reader(cache_bytes=cache_bytes)
+        # replica-fabric failover counter at the last trace cut, so
+        # last_trace['replicas'] can report the PER-BATCH delta
+        self._failovers_seen = 0
         self.index_set = self.reader.index_set
         self.lexicon = self.reader.lexicon
         self.window = min(window, self.index_set.cfg.max_distance)
@@ -285,6 +291,11 @@ class SearchService:
                 f"shard generations moved {snapshot} -> {now} while the "
                 f"batch executed against its pinned snapshot"
             )
+        if getattr(self.reader, "is_replica_fabric", False):
+            rt = self.reader.route_trace()
+            rt["failovers_batch"] = rt["failovers"] - self._failovers_seen
+            self._failovers_seen = rt["failovers"]
+            self.last_trace["replicas"] = rt
         self.check_trace_complete(plan)
         # serving-health counters: cumulative posting-cache stats (the
         # full_drops count is THE regression signal for targeted
@@ -353,17 +364,28 @@ class SearchService:
             trace["lookups_fetched"] += len(keep)
             waves.append(keep)
 
+        # replica fabrics pin one replica per shard per fetch wave: the
+        # in-flight-wave counter is the load signal routing balances on
+        begin_wave = getattr(self.reader, "begin_wave", None)
+        end_wave = getattr(self.reader, "end_wave", None)
+
         def fetch_wave(wave: List[KeyLookup]) -> List[Tuple[Tuple[str, int], ShardPosts]]:
             out = []
-            for lk in wave:
-                per_shard: ShardPosts = []
-                for s in range(S):
-                    t0 = time.perf_counter()
-                    per_shard.append(
-                        self.reader.lookup_shard(s, lk.index, lk.key)
-                    )
-                    shard_s[s] += time.perf_counter() - t0
-                out.append(((lk.index, lk.key), per_shard))
+            if begin_wave is not None:
+                begin_wave()
+            try:
+                for lk in wave:
+                    per_shard: ShardPosts = []
+                    for s in range(S):
+                        t0 = time.perf_counter()
+                        per_shard.append(
+                            self.reader.lookup_shard(s, lk.index, lk.key)
+                        )
+                        shard_s[s] += time.perf_counter() - t0
+                    out.append(((lk.index, lk.key), per_shard))
+            finally:
+                if end_wave is not None:
+                    end_wave()
             return out
 
         def land(fetched, overlapping: bool) -> None:
@@ -868,6 +890,28 @@ class SearchService:
                 f"trace covers {tr.get('lookups_planned')} lookups, plan "
                 f"has {plan.n_unique_lookups}"
             )
+        rb = tr.get("replicas")
+        if rb is not None:
+            # per-replica staleness bound against the batch's pinned
+            # snapshot: no replica may have consumed the digest stream
+            # PAST the snapshot (it would have served a newer collection
+            # state into this batch), and every LIVE replica must sit
+            # exactly AT it (refresh() catches live replicas up before
+            # the snapshot is pinned; dead replicas may lag — they serve
+            # nothing until revived)
+            snap = tr["snapshot"]
+            for s, row in enumerate(rb["snapshot"]):
+                for r, gv in enumerate(row):
+                    if any(g > w for g, w in zip(gv, snap[s])):
+                        raise TraceIncompleteError(
+                            f"replica s{s}r{r} generation vector {gv} runs "
+                            f"AHEAD of the pinned snapshot {list(snap[s])}"
+                        )
+                    if rb["live"][s][r] and list(gv) != list(snap[s]):
+                        raise TraceIncompleteError(
+                            f"live replica s{s}r{r} at {gv} is stale "
+                            f"against the pinned snapshot {list(snap[s])}"
+                        )
         tk = tr.get("topk")
         if tk is not None:
             # per-query stop partition: every streaming query ended

@@ -78,6 +78,7 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.core.proximity import ProximityEngine
     from repro_torch.kernels.intersect.ops import doc_member_mask
     from repro_torch.kernels.posting_decode.ops import DeviceDecoder
     from repro_torch.search.join import torch_window_join
@@ -93,6 +94,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         torch_window_join(a, a, 1)
     with pytest.raises(RuntimeError):
         SearchService(object())
+    with pytest.raises(RuntimeError):
+        ProximityEngine(object())
 
 
 def test_chip_smoke_fails_without_the_repo(tmp_path):
