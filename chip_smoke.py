@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: the search stack, the
-LM serving path and recsys serving.
+LM serving path, recsys serving and recsys training.
 
 Run from the repository root with no arguments::
 
@@ -115,9 +115,27 @@ Phases (any failure exits non-zero before the last line is printed):
      t19's 48,937,457 rows (and a 20M-row f32 table) with K = 8 and ids
      among the tables' last rows, and at DIN's D = 18, K = 100; timed
      beside its bytes bound and ``torch.nn.functional.embedding_bag``;
- 11. print the kernels line (six kernels: both flash routes; the search
-     kernels' launches summed over the search and replica phases), then
-     the result line.
+ 11. recsys train: dlrm-mlperf at its published widths with each table
+     capped at 2^22 rows (5 of 26 cut: 23,458,556 rows, 3.0G parameters;
+     the cut is printed as ``reduced``), f32 masters drawn on the card,
+     trained through ``Trainer`` with the recsys bundle's AdamW on
+     batches of 65,536 drawn on the card per data cursor.  First one
+     batch's loss and table gradients through the kernel (the bag's
+     ``autograd.Function``) and through its plain version under
+     autograd: equal losses, and every table's gradient within the
+     f32 bound of ``table_grad_check`` of the exact sum and non-zero on
+     the rows the batch touched; then 3 warm-up and 10 timed steps (the
+     bag kernel must launch 26 times a step), one profiled step (device
+     busy share, top ops, the bag forward, the bag backward and AdamW
+     apart), AdamW and the bag's backward timed alone (beside its bound
+     and ``F.embedding``'s backward); REDUCED in f32, 3 steps card
+     against CPU and 6 steps straight against 3, an async checkpoint, a
+     fresh ``Trainer.try_resume`` and 3 more; and a CUDA attention call
+     whose ``q`` requires grad must raise.  Prints step p50/p99,
+     samples/s, peak memory and the profile;
+ 12. print the kernels line (six kernels: both flash routes; the search
+     kernels' launches summed over the search and replica phases, the
+     bag's over recsys serving and training), then the result line.
 
 Exits with code 2 when no CUDA device is present.  Imports nothing of
 JAX or of the ``repro`` package.
@@ -203,6 +221,28 @@ BAG_F32_ROWS = 20_000_000     # 10.24 GB of f32 at D = 128: past 2^31
 BAG_DEPLOY_B, BAG_DEPLOY_K = 262_144, 8   # kernel_bench's K
 BAG_DIN_ROWS, BAG_DIN_D = 1_000_000, 18   # DIN's items and width
 BAG_DIN_B, BAG_DIN_K = 16_384, 100        # and its history length
+# recsys train: dlrm-mlperf at its published widths; at 16 B a parameter
+# (f32 masters, gradients, mu, nu) its 177,944,225 rows need 364 GB, so
+# each table is capped at 2^22 rows (23,458,556 rows, 48.0 GB of state)
+TRAIN_ROW_CAP = 1 << 22
+TRAIN_CTR = 0.5              # labels Bernoulli(TRAIN_CTR)
+TRAIN_SEED = 1000            # batch of data cursor c: seed TRAIN_SEED + c
+TRAIN_WARMUP_STEPS = 3
+TRAIN_TIMED_STEPS = 10
+TRAIN_FREE_BYTES = 4 << 30   # left allocated by the earlier phases, at most
+TRAIN_PARITY_STEPS = 3       # REDUCED, card against CPU
+TRAIN_RESUME_STEPS = 6       # REDUCED, straight against resumed
+TRAIN_RESUME_SPLIT = 3
+# REDUCED in f32, card against CPU and resumed against straight: losses
+# within 1e-5 relative (measured on the CPU against the reference: 2e-7).
+# Parameters and optimizer state within 1e-5: the two sides' f32
+# gradients differ by summation order, about 1e-9 here, and Adam's step
+# turns a gradient difference dg near zero into at most lr * dg / eps,
+# 1e-6 a step at the warm-up lr of these steps (1e-5 per step number);
+# a missing or wrong gradient moves a parameter by lr a step, 6e-5 over
+# three steps
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1968,6 +2008,470 @@ def bag_phase(params: dict, largest, device) -> Dict[str, dict]:
     return out
 
 
+# -------------------------------------------------------- recsys train --
+def capped_rows(rows: Sequence[int], cap: int) -> tuple:
+    """Each table's rows capped at ``cap``, and the cuts it made, as
+    ``t<i>: <published> -> <cap>``."""
+    return (tuple(min(r, cap) for r in rows),
+            [f"t{i}: {r:,} -> {cap:,}" for i, r in enumerate(rows) if r > cap])
+
+
+def train_batch(cfg, n: int, seed: int, device) -> dict:
+    """A ``train_batch`` of ``n`` rows drawn on ``device`` from ``seed``:
+    ids in each table's range, dense features uniform in [0, 1), labels
+    Bernoulli(TRAIN_CTR)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {"dense": torch.rand((n, cfg.n_dense), generator=gen,
+                                device=device),
+            "sparse": torch.stack([_ids(gen, device, r, n)
+                                   for r in cfg.table_rows], 1),
+            "label": (torch.rand(n, generator=gen, device=device)
+                      < TRAIN_CTR).float()}
+
+
+def numpy_train_batch(cfg, n: int, seed: int) -> dict:
+    """The same kind of batch drawn on the host with numpy."""
+    rng = np.random.RandomState(seed)
+    return {"dense": rng.rand(n, cfg.n_dense).astype(np.float32),
+            "sparse": np.stack([rng.randint(0, r, n) for r in cfg.table_rows],
+                               1).astype(np.int32),
+            "label": (rng.rand(n) < TRAIN_CTR).astype(np.float32)}
+
+
+def route_grads(cfg, params: dict, batch: dict, bag: Callable) -> dict:
+    """One forward and backward of ``dlrm_loss`` with its table lookups
+    through ``bag`` (the kernel's ``embedding_bag_fixed``, or its plain
+    version under autograd): the loss, each table's gradient, and each
+    table's ids and the cotangent of its bag output (the K = 1, w = 1
+    bags of DLRM's path)."""
+    from repro_torch.models import recsys as RS
+
+    names = [f"t{i}" for i in range(cfg.n_sparse)]
+    tables = {n: params["tables"][n]["table"].detach().requires_grad_(True)
+              for n in names}
+    outs = []
+
+    def recording(table, ids, w):
+        out = bag(table, ids, w)
+        outs.append((ids, out))
+        return out
+
+    p = {**params, "tables": {n: {"table": t} for n, t in tables.items()}}
+    orig, RS.embedding_bag_fixed = RS.embedding_bag_fixed, recording
+    try:
+        loss = RS.dlrm_loss(cfg, p, batch)
+    finally:
+        RS.embedding_bag_fixed = orig
+    grads = torch.autograd.grad(
+        loss, [tables[n] for n in names] + [out for _, out in outs])
+    n = len(names)
+    return {"loss": loss.detach(),
+            "grads": dict(zip(names, grads[:n])),
+            "ids": {name: ids.reshape(-1) for name, (ids, _) in zip(names, outs)},
+            "cots": dict(zip(names, grads[n:]))}
+
+
+def table_grad_check(grad: torch.Tensor, ids: torch.Tensor,
+                     cot: torch.Tensor) -> dict:
+    """One table's f32 gradient against the sum of its rows'
+    contributions (``cot[b]`` to row ``ids[b]``) taken in float64.  Any
+    order of n f32 additions lies within gamma(n - 1) * sum|x| of the
+    exact sum (gamma(m) = m u / (1 - m u), u = 2^-24), so each touched
+    row is held to that bound (a row touched once must be exact) and
+    every untouched row to 0."""
+    rows, inv = torch.unique(ids.long(), return_inverse=True)
+    D = grad.shape[1]
+    exact = torch.zeros((rows.numel(), D), dtype=torch.float64,
+                        device=grad.device).index_add_(0, inv, cot.double())
+    absum = torch.zeros_like(exact).index_add_(0, inv, cot.double().abs())
+    m = (torch.bincount(inv, minlength=rows.numel()) - 1).double()[:, None]
+    bound = m * 2.0 ** -24 / (1 - m * 2.0 ** -24) * absum
+    err = (grad[rows].double() - exact).abs()
+    stray = grad.any(dim=1)
+    stray[rows] = False          # rows the batch did not touch, not zero
+    positive = bound > 0
+    return {"touched_rows": rows.numel(),
+            "max_abs_err": float(err.max()),
+            "max_err_ratio": float((err[positive] / bound[positive]).max())
+            if bool(positive.any()) else 0.0,
+            "within_tolerance": not bool((err > bound).any())
+            and not bool(stray.any()),
+            "nonzero": bool(grad[rows].any())}
+
+
+def grad_failures(kernel: dict, plain: dict) -> tuple:
+    """The kernel route's and the plain route's results of
+    :func:`route_grads` on one batch: the losses must be equal (the K = 1
+    forward is bit identical), and every table's gradient on each route
+    within :func:`table_grad_check`'s bound and non-zero."""
+    failures: List[str] = []
+    if not torch.equal(kernel["loss"], plain["loss"]):
+        failures.append(f"recsys train: kernel route loss "
+                        f"{float(kernel['loss'])!r}, plain route "
+                        f"{float(plain['loss'])!r}")
+    tables = {}
+    for name in kernel["grads"]:
+        per = {}
+        for route, res in (("kernel", kernel), ("plain", plain)):
+            grad = res["grads"][name]
+            if grad is None:
+                failures.append(f"recsys train: {route} route left {name} "
+                                "without a gradient")
+                continue
+            c = table_grad_check(grad, res["ids"][name], res["cots"][name])
+            per[route] = c
+            if not c["within_tolerance"]:
+                failures.append(f"recsys train: {route} route gradient of "
+                                f"{name} off by {c['max_abs_err']:.3g} "
+                                f"({c['max_err_ratio']:.3g} times its bound)")
+            if not c["nonzero"]:
+                failures.append(f"recsys train: {route} route gradient of "
+                                f"{name} is zero on the rows the batch touched")
+        if len(per) == 2:
+            per["max_abs_diff"] = float(
+                (kernel["grads"][name] - plain["grads"][name]).abs().max())
+        tables[name] = per
+    return tables, failures
+
+
+def bag_backward_case(V: int, D: int, B: int, gen: torch.Generator,
+                      device) -> dict:
+    """The bag's plain backward at DLRM's training launch (a table of
+    ``V`` rows, K = 1, w = 1), against ``F.embedding``'s autograd
+    backward on the same ids and gradient, beside its bytes bound: the
+    (V, D) f32 gradient written once (its zero fill) and the (B, D)
+    gradient, ids and weights read once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag.kernel import (
+        embedding_bag_fixed_backward,
+    )
+
+    ids = _ids(gen, device, V, B, 1)
+    w = torch.ones((B, 1), device=device)
+    grad_out = torch.randn((B, D), generator=gen, device=device)
+    got, _ = embedding_bag_fixed_backward(grad_out, ids, w, (V, D),
+                                          torch.float32)
+    table = torch.zeros((V, D), device=device, requires_grad=True)
+    out = F.embedding(ids.reshape(-1).long(), table)
+    (lib,) = torch.autograd.grad(out, table, grad_out, retain_graph=True)
+    err = float((got - lib).abs().max())
+    del got, lib
+    nbytes = V * D * 4 + B * (D * 4 + 8)
+    flops = 2 * B * D
+    return {
+        "shape": [V, D, B, 1], "dtype": "float32", "max_abs_err": err,
+        "ms": cuda_ms(lambda: embedding_bag_fixed_backward(
+            grad_out, ids, w, (V, D), torch.float32), reps=10),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            out, table, grad_out, retain_graph=True), reps=10),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                        flops / SCALAR_OPS_PER_S) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= flops / SCALAR_OPS_PER_S else "operations",
+        "bytes": nbytes,
+    }
+
+
+def profile_train_step(trainer, batches: Callable[[int], dict]) -> dict:
+    """One training step under ``torch.profiler``: the device's busy
+    share, the top ops by the device time of the kernels they launched,
+    the top kernels, and the device time of the bag forward (the
+    kernel), of the bag backward and of AdamW, each of the last two read
+    from a ``record_function`` range around its call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    from repro_torch.kernels.embedding_bag import kernel as bag_mod
+    from repro_torch.train import trainer as trainer_mod
+
+    def ranged(mod, attr, label):
+        fn = getattr(mod, attr)
+
+        def wrapped(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return fn, wrapped
+
+    ranges = {"bag_backward": (bag_mod, "embedding_bag_fixed_backward"),
+              "adamw_update": (trainer_mod, "adamw_update")}
+    saved = {}
+    for label, (mod, attr) in ranges.items():
+        saved[label], wrapped = ranged(mod, attr, label)
+        setattr(mod, attr, wrapped)
+    range_ms = {}
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        for _ in range(2):   # once more if the session came back empty
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                trainer.fit(batches, trainer.step_num + 1)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            events = prof.key_averages()
+            # a range also shows on the device's timeline: not a kernel
+            kernels = sorted(
+                ((e.key, e.count, e.self_device_time_total) for e in events
+                 if e.device_type == DeviceType.CUDA
+                 and e.self_device_time_total > 0 and e.key not in ranges),
+                key=lambda k: -k[2])
+            if kernels:
+                break
+        host_ops = [e for e in events if e.device_type == DeviceType.CPU]
+        for label in ranges:
+            range_ms[f"{label}_ms"] = sum(
+                e.device_time_total for e in host_ops if e.key == label) / 1e3
+        ops = sorted(((e.key, e.count, e.self_device_time_total)
+                      for e in host_ops if e.self_device_time_total > 0),
+                     key=lambda k: -k[2])
+    finally:
+        for label, (mod, attr) in ranges.items():
+            setattr(mod, attr, saved[label])
+    busy_us = sum(k[2] for k in kernels)
+    bag = [k for k in kernels if "embedding_bag" in k[0]]
+    return {
+        "captured": bool(kernels),
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "device_ops": [{"op": n[:60], "count": c, "ms": us / 1e3}
+                       for n, c, us in ops[:12]],
+        "device_kernels": [{"name": n[:100], "count": c, "ms": us / 1e3}
+                           for n, c, us in kernels[:8]],
+        "bag_forward_launches": sum(k[1] for k in bag),
+        "bag_forward_ms": sum(k[2] for k in bag) / 1e3,
+        **range_ms,
+    }
+
+
+def attention_grad_guard(device) -> List[str]:
+    """Both attention kernels have no backward: a CUDA call whose ``q``
+    requires grad, under grad mode, must raise (it returned an output
+    with no ``grad_fn`` before the guard)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+
+    gen = torch.Generator(device=device).manual_seed(41)
+
+    def q_of(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.bfloat16).requires_grad_(True)
+
+    kv = torch.randn((1, 2, 16, 64), generator=gen, device=device,
+                     dtype=torch.bfloat16)
+    pool = torch.randn((2, 16, 64), generator=gen, device=device,
+                       dtype=torch.bfloat16)
+    calls = {
+        "flash_attention": lambda: flash_attention(q_of(1, 2, 16, 64), kv, kv),
+        "paged_attention": lambda: paged_attention(
+            q_of(1, 2, 64), pool, pool,
+            torch.arange(2, dtype=torch.int32, device=device)[None],
+            torch.full((1,), 20, dtype=torch.int32, device=device)),
+    }
+    failures = []
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                failures.append(f"{name} with a q that requires grad: {e}")
+        else:
+            failures.append(f"{name} on CUDA with a q that requires grad "
+                            "did not raise")
+    return failures
+
+
+def reduced_train_checks(device) -> dict:
+    """REDUCED dlrm-mlperf in f32 from the same seeded parameters and
+    numpy batches: TRAIN_PARITY_STEPS steps on the card against the CPU;
+    then, on the card, TRAIN_RESUME_STEPS steps straight against a run
+    checkpointed (async, through ``CheckpointManager``) at
+    TRAIN_RESUME_SPLIT and resumed by a fresh ``Trainer.try_resume``.
+    Per-step losses within TRAIN_LOSS_RTOL, parameters and optimizer
+    state within TRAIN_PARAM_TOL."""
+    from repro_torch.configs.registry import get_training
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+
+    tr = get_training("dlrm-mlperf", reduced=True)
+    cfg = dataclasses.replace(tr.config, dtype=torch.float32)
+    params = tr.init(cfg, torch.Generator().manual_seed(43), masters=True)
+
+    def loss_fn(p, b):
+        return tr.loss(cfg, p, b)
+
+    def batches(cursor):
+        return numpy_train_batch(cfg, tr.batch_size, TRAIN_SEED + cursor)
+
+    def trainer(where, ckpt_dir=None):
+        return Trainer(loss_fn, params, TrainerConfig(
+            opt=tr.opt, ckpt_dir=ckpt_dir, ckpt_every=TRAIN_RESUME_SPLIT,
+            log_every=1), device=where)
+
+    def compare(what, a, b, failures):
+        la = {h["step"]: h["loss"] for h in a.history}
+        lb = {h["step"]: h["loss"] for h in b.history}
+        steps = sorted(la.keys() & lb.keys())
+        loss_err = max(abs(la[s] - lb[s]) / abs(lb[s]) for s in steps)
+        state_err = max(
+            float((x.cpu() - y.cpu()).abs().max()) for x, y in
+            zip(leaves(a.params) + leaves(a.opt_state["mu"])
+                + leaves(a.opt_state["nu"]),
+                leaves(b.params) + leaves(b.opt_state["mu"])
+                + leaves(b.opt_state["nu"])))
+        if not loss_err <= TRAIN_LOSS_RTOL:
+            failures.append(f"recsys train {what}: losses differ by "
+                            f"{loss_err:.3g} relative")
+        if not state_err <= TRAIN_PARAM_TOL:
+            failures.append(f"recsys train {what}: parameters or optimizer "
+                            f"state differ by {state_err:.3g}")
+        if a.step_num != b.step_num or a.data_cursor != b.data_cursor:
+            failures.append(f"recsys train {what}: at step {a.step_num} and "
+                            f"{b.step_num}")
+        return {"steps": steps, "max_loss_rel_err": loss_err,
+                "max_state_abs_err": state_err,
+                "losses": [la[s] for s in steps]}
+
+    failures: List[str] = []
+    card, host = trainer(device), trainer("cpu")
+    card.fit(batches, TRAIN_PARITY_STEPS)
+    host.fit(batches, TRAIN_PARITY_STEPS)
+    out = {"arch": f"{cfg.name} REDUCED (f32)", "batch": tr.batch_size,
+           "card_vs_cpu": compare("card against CPU", card, host, failures)}
+    with tempfile.TemporaryDirectory() as tmp:
+        straight = trainer(device, str(Path(tmp) / "straight"))
+        straight.fit(batches, TRAIN_RESUME_STEPS)
+        first = trainer(device, str(Path(tmp) / "split"))
+        first.fit(batches, TRAIN_RESUME_SPLIT)
+        resumed = trainer(device, str(Path(tmp) / "split"))
+        if not resumed.try_resume() or resumed.step_num != TRAIN_RESUME_SPLIT:
+            failures.append("recsys train: no checkpoint to resume from at "
+                            f"step {TRAIN_RESUME_SPLIT}")
+        resumed.fit(batches, TRAIN_RESUME_STEPS)
+        out["resume"] = compare("resumed against straight", resumed,
+                                straight, failures)
+    out["failures"] = failures
+    return out
+
+
+def recsys_train_phase(device, bag) -> dict:
+    """dlrm-mlperf at its published widths with each table capped at
+    TRAIN_ROW_CAP rows, f32 masters drawn on the card, trained through
+    ``Trainer`` with the recsys bundle's optimizer on batches of
+    ``train_batch`` rows: the kernel route's table gradients against the
+    plain route's on one batch, TRAIN_WARMUP_STEPS warm-up steps and
+    TRAIN_TIMED_STEPS timed ones (the bag kernel must launch once a table
+    and step), one profiled step, AdamW and the bag's backward timed
+    alone, then the REDUCED checks and the attention kernels' grad
+    guard."""
+    from repro_torch.configs.registry import get_training
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_fixed
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_fixed_plain
+    from repro_torch.train.optim import adamw_update
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves, tree_map
+
+    t0 = time.perf_counter()
+    failures: List[str] = []
+    held = torch.cuda.memory_allocated(device)
+    if held > TRAIN_FREE_BYTES:
+        failures.append(f"recsys train: {held:,} B still allocated before "
+                        "the phase")
+    torch.cuda.reset_peak_memory_stats(device)
+    tr = get_training("dlrm-mlperf")
+    rows, cuts = capped_rows(tr.config.table_rows, TRAIN_ROW_CAP)
+    cfg = dataclasses.replace(tr.config, table_rows=rows)
+    B = tr.batch_size
+    params = tr.init(cfg, torch.Generator(device=device).manual_seed(0),
+                     masters=True)
+    n_params = sum(t.numel() for t in leaves(params))
+    if not all(t.dtype == torch.float32 for t in leaves(params)):
+        failures.append("recsys train: masters are not all f32")
+
+    def loss_fn(p, b):
+        return tr.loss(cfg, p, b)
+
+    # the gradient is real: kernel route against plain route, one batch
+    gbatch = train_batch(cfg, B, TRAIN_SEED - 1, device)
+    kern = route_grads(cfg, params, gbatch, embedding_bag_fixed)
+    plain = route_grads(cfg, params, gbatch, embedding_bag_fixed_plain)
+    tables, fails = grad_failures(kern, plain)
+    failures += fails
+    grad_loss = float(kern["loss"])
+    del kern, plain, gbatch
+    log(f"recsys train: gradient check done, device memory "
+        f"{torch.cuda.memory_allocated(device):,} B")
+
+    trainer = Trainer(loss_fn, params, TrainerConfig(opt=tr.opt, log_every=1),
+                      device=device)
+    del params
+    n_steps = TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS
+    batches = {c: train_batch(cfg, B, TRAIN_SEED + c, device)
+               for c in range(n_steps + 1)}    # one more for the profile
+    get = batches.__getitem__
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log(f"recsys train: {cfg.name}, {sum(rows):,} rows ({', '.join(cuts)}), "
+        f"{n_params:,} f32 parameters, set-up {setup_s:.1f} s, device memory "
+        f"{torch.cuda.memory_allocated(device):,} B")
+
+    bag.launches = 0
+    for _ in range(TRAIN_WARMUP_STEPS):
+        trainer.fit(get, trainer.step_num + 1)
+        log(f"recsys train: step {trainer.step_num}, device memory "
+            f"{torch.cuda.memory_allocated(device):,} B, peak "
+            f"{torch.cuda.max_memory_allocated(device):,} B")
+    step_s = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.fit(get, trainer.step_num + 1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    launches = bag.launches
+    expect = cfg.n_sparse * n_steps
+    if launches != expect:
+        failures.append(f"{bag.symbol}: {launches} launches in training, "
+                        f"{expect} expected ({cfg.n_sparse} a step, "
+                        f"{n_steps} steps)")
+    losses = [h["loss"] for h in trainer.history]
+    if not all(np.isfinite(losses)) or len(losses) != n_steps:
+        failures.append(f"recsys train: losses {losses}")
+    peak = torch.cuda.max_memory_allocated(device)
+    profile = profile_train_step(trainer, get)
+    grads = tree_map(torch.zeros_like, trainer.params)
+    adamw_ms = cuda_ms(lambda: adamw_update(tr.opt, grads, trainer.opt_state,
+                                            trainer.params, donate=True),
+                       reps=3)
+    del grads, trainer, batches
+    torch.cuda.empty_cache()
+    backward = bag_backward_case(TRAIN_ROW_CAP, cfg.embed_dim, B,
+                                 torch.Generator(device=device).manual_seed(47),
+                                 device)
+    if not backward["max_abs_err"] <= BAG_F32_TOL:
+        failures.append(f"embedding_bag backward differs from F.embedding's "
+                        f"by {backward['max_abs_err']:.3g}")
+    checks = reduced_train_checks(device)
+    failures += checks.pop("failures")
+    failures += attention_grad_guard(device)
+    return {
+        "arch": cfg.name, "published_rows": sum(tr.config.table_rows),
+        "rows": sum(rows), "reduced": f"each table capped at "
+        f"{TRAIN_ROW_CAP:,} rows: " + "; ".join(cuts),
+        "parameters": n_params, "state_bytes": 16 * n_params, "batch": B,
+        "opt": dataclasses.asdict(tr.opt), "setup_s": setup_s,
+        "step": percentiles_ms(step_s),
+        "samples_per_s": B * len(step_s) / sum(step_s),
+        "losses": losses, "launches": launches, "expected_launches": expect,
+        "peak_mem_bytes": peak, "profile": profile, "adamw_ms": adamw_ms,
+        "backward": backward,
+        "grad_check": {"loss": grad_loss, "tables": tables},
+        "reduced_checks": checks, "seconds": time.perf_counter() - t0,
+        "failures": failures,
+    }
+
+
 # ---------------------------------------------------------------- main --
 def smi_line() -> str:
     proc = subprocess.run(
@@ -2081,6 +2585,21 @@ def main(argv: Sequence[str] = ()) -> int:
                             "bit identical to its plain version")
     log(f"recsys phases: {time.perf_counter() - t0:.1f} s")
 
+    torch.cuda.empty_cache()
+    train = recsys_train_phase(device, EMBEDDING_BAG)
+    log("recsys train: " + json.dumps(
+        {k: v for k, v in train.items() if k not in ("profile", "grad_check")}))
+    log("recsys train profile: " + json.dumps(train["profile"]))
+    log("recsys train gradients: " + json.dumps({
+        "loss": train["grad_check"]["loss"],
+        **{f"{route}_max_err_ratio": max(
+            t[route]["max_err_ratio"] for t in train["grad_check"]["tables"].values())
+           for route in ("kernel", "plain")},
+        "max_abs_diff": max(t["max_abs_diff"]
+                            for t in train["grad_check"]["tables"].values())}))
+    failures += train["failures"]
+    log(f"recsys train phase: {train['seconds']:.1f} s")
+
     # each serve kernel's launches come from its own path: bf16 serving,
     # or the f32 parity engine for the scalar flash kernel
     row_path = {FLASH_ATTENTION_WGMMA.symbol: serve,
@@ -2130,7 +2649,9 @@ def main(argv: Sequence[str] = ()) -> int:
             "route": "cuda",
             "source": EMBEDDING_BAG.source,
             "replaces": EMBEDDING_BAG.replaces,
-            "launches": recsys["launches"],
+            "launches": recsys["launches"] + train["launches"],
+            "launches_by_path": {"serve": recsys["launches"],
+                                 "train": train["launches"]},
             **{key: bags["serve_bf16"][key]
                for key in ("max_abs_err", "max_err_ratio", "ms", "plain_ms",
                            "bound_ms", "bound_by", "library_ms", "shape",
@@ -2138,6 +2659,7 @@ def main(argv: Sequence[str] = ()) -> int:
             "within_tolerance": all(c["within_tolerance"]
                                     for c in bags.values()),
             "deploy": bags["deploy_bf16"],
+            "backward": train["backward"],
         }
     ]}
     if args.out:
@@ -2150,7 +2672,7 @@ def main(argv: Sequence[str] = ()) -> int:
              "search_kernels": checks,
              "serve": serve, "parity": parity, "attention": attn,
              "recsys": recsys, "recsys_parity": rparity,
-             "embedding_bag": bags,
+             "embedding_bag": bags, "recsys_train": train,
              "kernels": line["kernels"], "failures": failures}, indent=1))
     if failures:
         for f in failures:

@@ -7,4 +7,5 @@ from repro_torch.configs.registry import (  # noqa: F401
     family,
     get_config,
     get_serving,
+    get_training,
 )

@@ -1,7 +1,12 @@
 """din [arXiv:1706.06978]: embed_dim=18, behavior seq_len=100, target
 attention MLP 80-40, head MLP 200-80."""
 
-from repro_torch.configs.families import RECSYS_BATCH_SIZES, RecsysServing
+from repro_torch.configs.families import (
+    RECSYS_BATCH_SIZES,
+    RecsysServing,
+    RecsysTraining,
+    recsys_training,
+)
 from repro_torch.models import recsys as RS
 
 CONFIG = RS.DINConfig(n_items=1_000_000, n_cates=10_000)
@@ -17,3 +22,7 @@ def serving(reduced: bool = False) -> RecsysServing:
                      if reduced else RECSYS_BATCH_SIZES),
         n_candidates=500 if reduced else 1_000_000,
     )
+
+
+def training(reduced: bool = False) -> RecsysTraining:
+    return recsys_training(serving(reduced), RS.din_loss)

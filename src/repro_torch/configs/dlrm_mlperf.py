@@ -2,7 +2,12 @@
 embed_dim=128, bottom MLP 13-512-256-128, top MLP 1024-1024-512-256-1,
 dot interaction.  Table cardinalities: Criteo-1TB (MLPerf v1 setting)."""
 
-from repro_torch.configs.families import RECSYS_BATCH_SIZES, RecsysServing
+from repro_torch.configs.families import (
+    RECSYS_BATCH_SIZES,
+    RecsysServing,
+    RecsysTraining,
+    recsys_training,
+)
 from repro_torch.models import recsys as RS
 
 # Criteo Terabyte per-feature cardinalities (MLPerf DLRM benchmark set)
@@ -29,3 +34,7 @@ def serving(reduced: bool = False) -> RecsysServing:
                      if reduced else RECSYS_BATCH_SIZES),
         n_candidates=1000 if reduced else 1_000_000,
     )
+
+
+def training(reduced: bool = False) -> RecsysTraining:
+    return recsys_training(serving(reduced), RS.dlrm_loss)

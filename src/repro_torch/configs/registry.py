@@ -4,7 +4,8 @@ The reference maps every id to a bundle (config, init, sharding rules,
 step functions).  The port serves the dense LM ids (``get_config`` gives
 their ``TransformerConfig``) and the recsys ids (``get_config`` gives
 their config, ``get_serving`` their score and retrieval functions and
-cell sizes); MoE and GNN ids raise ``NotImplementedError`` naming the
+cell sizes, ``get_training`` their training cell); MoE and GNN ids raise
+``NotImplementedError`` naming the
 ROADMAP.md item that ports them.  ``family`` tells the families apart
 as the reference's bundles do.
 """
@@ -15,7 +16,7 @@ import importlib
 
 from typing import Any
 
-from repro_torch.configs.families import RecsysServing
+from repro_torch.configs.families import RecsysServing, RecsysTraining
 
 ARCH_IDS = [
     "minicpm-2b",
@@ -82,3 +83,11 @@ def get_serving(arch: str, reduced: bool = False) -> RecsysServing:
     if family(arch) != "recsys":
         raise ValueError(f"{arch} is not a recsys arch")
     return _module(arch).serving(reduced=reduced)
+
+
+def get_training(arch: str, reduced: bool = False) -> RecsysTraining:
+    """A recsys arch's ``train_batch`` cell: loss, batch size, optimizer
+    and train step."""
+    if family(arch) != "recsys":
+        raise ValueError(f"{arch} is not a recsys arch")
+    return _module(arch).training(reduced=reduced)

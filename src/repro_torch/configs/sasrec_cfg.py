@@ -1,7 +1,12 @@
 """sasrec [arXiv:1808.09781]: embed_dim=50, 2 blocks, 1 head, seq_len=50,
 causal self-attention over the behavior sequence."""
 
-from repro_torch.configs.families import RECSYS_BATCH_SIZES, RecsysServing
+from repro_torch.configs.families import (
+    RECSYS_BATCH_SIZES,
+    RecsysServing,
+    RecsysTraining,
+    recsys_training,
+)
 from repro_torch.models import recsys as RS
 
 CONFIG = RS.SASRecConfig(n_items=60_000)
@@ -19,3 +24,7 @@ def serving(reduced: bool = False) -> RecsysServing:
         n_candidates=500 if reduced else 1_000_000,
         serve_candidates=200,
     )
+
+
+def training(reduced: bool = False) -> RecsysTraining:
+    return recsys_training(serving(reduced), RS.sasrec_loss)

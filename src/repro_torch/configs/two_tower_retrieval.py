@@ -1,7 +1,12 @@
 """two-tower-retrieval [RecSys'19 YouTube-style]: embed_dim=256, tower MLP
 1024-512-256, dot interaction, in-batch sampled softmax."""
 
-from repro_torch.configs.families import RECSYS_BATCH_SIZES, RecsysServing
+from repro_torch.configs.families import (
+    RECSYS_BATCH_SIZES,
+    RecsysServing,
+    RecsysTraining,
+    recsys_training,
+)
 from repro_torch.models import recsys as RS
 
 CONFIG = RS.TwoTowerConfig()
@@ -21,3 +26,7 @@ def serving(reduced: bool = False) -> RecsysServing:
                      if reduced else RECSYS_BATCH_SIZES),
         n_candidates=1000 if reduced else 1_000_000,
     )
+
+
+def training(reduced: bool = False) -> RecsysTraining:
+    return recsys_training(serving(reduced), RS.twotower_loss)

@@ -16,6 +16,7 @@ import numpy as np
 from repro_torch.core.lexicon import Lexicon
 from repro_torch.data.world import World
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.recsys import param_dtype
 from repro_torch.models.transformer import (
     Params,
     TransformerConfig,
@@ -66,11 +67,13 @@ def transformer_params_from_jax(cfg: TransformerConfig, params_np,
     return cast_params(params_np, cfg.dtype, resolve_device(device))
 
 
-def recsys_params_from_jax(cfg: Any, params_np,
-                           device: DeviceLike = None) -> Params:
+def recsys_params_from_jax(cfg: Any, params_np, device: DeviceLike = None,
+                           masters: bool = False) -> Params:
     """The port's parameters of a recsys arch (any of the four configs)
     from the reference's ``*_init`` tree with every leaf turned into a
-    numpy array (the same nested dicts and lists).  Tables and dense
-    weights are cast to ``cfg.dtype`` once, as the reference casts them at
-    each use; SASRec's norm gains stay f32."""
-    return cast_params(params_np, cfg.dtype, resolve_device(device))
+    numpy array (the same nested dicts and lists).  For serving, tables
+    and dense weights are cast to ``cfg.dtype`` once, as the reference
+    casts them at each use; with ``masters`` (training) every leaf stays
+    f32, the reference's own layout.  SASRec's norm gains stay f32."""
+    return cast_params(params_np, param_dtype(cfg, masters),
+                       resolve_device(device))

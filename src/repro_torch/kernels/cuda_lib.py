@@ -182,6 +182,19 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
         raise ValueError(f"{name} lies on unsupported device {t.device}")
 
 
+def require_no_grad(kernel: str, *operands: torch.Tensor) -> None:
+    """Raise where autograd would record a kernel call that has no
+    backward: the output of a ``ctypes`` launch has no ``grad_fn``, so a
+    loss through it would leave the operands' gradients silently unset."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward, and an operand "
+            "requires grad; differentiable attention on the card comes with "
+            "LM training (ROADMAP.md queue 1, item 10).  Call it under "
+            "torch.no_grad(), or on CPU tensors, whose plain version "
+            "differentiates")
+
+
 # dtype codes of the float kernels' C entry points
 FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -3,12 +3,15 @@
 ``out[b] = sum_k weights[b, k] * table[ids[b, k]]`` for K ids a bag,
 summed in f32 and cast to the table's dtype, as in the Pallas
 ``embedding_bag_kernel`` that the CUDA kernel (``csrc/embedding_bag.cu``)
-ports; the source says how and what bounds it.
+ports; the source says how and what bounds it.  Under autograd the bag
+is one ``torch.autograd.Function`` whose backward is plain PyTorch on
+both devices (:func:`embedding_bag_fixed_backward`).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,15 +32,16 @@ EMBEDDING_BAG = CudaKernel(
 
 def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
                         weights: torch.Tensor) -> torch.Tensor:
-    """(B, D) bag sums in ``table.dtype``.
+    """(B, D) bag sums in ``table.dtype``, differentiable in ``table`` and
+    ``weights``.
 
     ``table`` (V, D) is f32 or bf16 and contiguous; ``ids`` (B, K) is
-    int32 and ``weights`` (B, K) f32; all on one device.  CUDA tensors go
-    through the kernel; CPU tensors through
-    :func:`embedding_bag_fixed_plain`.  Ids must lie in ``[0, V)``: the
-    kernel does not check them (an id outside reads another row or
-    faults), the plain version raises on them, and the reference's
-    gather clamps them."""
+    int32 and ``weights`` (B, K) f32; all on one device.  The forward
+    takes the kernel for CUDA tensors and :func:`embedding_bag_fixed_plain`
+    for CPU tensors; the backward is :func:`embedding_bag_fixed_backward`
+    on both.  Ids must lie in ``[0, V)``: the kernel does not check them
+    (an id outside reads another row or faults), the plain version raises
+    on them, and the reference's gather clamps them."""
     check_float_operand(table, "table", 2)
     if not table.is_contiguous():
         raise ValueError("table must be contiguous")
@@ -53,10 +57,14 @@ def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
     devices = {t.device for t in (table, ids, weights)}
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {devices}")
-    if table.device.type == "cpu":
-        return embedding_bag_fixed_plain(table, ids, weights)
-    if not (ids.is_contiguous() and weights.is_contiguous()):
+    if table.device.type != "cpu" and not (ids.is_contiguous()
+                                           and weights.is_contiguous()):
         raise ValueError("ids and weights must be contiguous")
+    return _EmbeddingBagFixed.apply(table, ids, weights)
+
+
+def _launch(table: torch.Tensor, ids: torch.Tensor,
+            weights: torch.Tensor) -> torch.Tensor:
     (B, K), D = ids.shape, table.shape[1]
     out = torch.empty((B, D), dtype=table.dtype, device=table.device)
     if B == 0 or D == 0:
@@ -67,3 +75,54 @@ def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
         FLOAT_CODES[table.dtype], B, K, D,
     )
     return out
+
+
+def embedding_bag_fixed_backward(
+    grad_out: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
+    table_shape: Tuple[int, int], table_dtype: torch.dtype,
+    table: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The bag's gradients, in plain PyTorch on either device:
+    ``grad_table = zeros(V, D, f32).index_add_(0, ids, w * grad_out)``
+    cast to ``table_dtype`` (the scatter-add that XLA makes of the
+    reference's gather gradient), and, when ``table`` is given,
+    ``grad_weights[b, k] = sum_d grad_out[b, d] * table[ids[b, k], d]``
+    in f32."""
+    D = table_shape[1]
+    g = grad_out.float()
+    contrib = (weights[..., None] * g[:, None, :]).reshape(-1, D)
+    grad_table = torch.zeros(table_shape, dtype=torch.float32,
+                             device=grad_out.device)
+    grad_table.index_add_(0, ids.reshape(-1), contrib)
+    grad_weights = None
+    if table is not None:
+        rows = table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, D)
+        grad_weights = (rows.float() * g[:, None, :]).sum(-1)
+    return grad_table.to(table_dtype), grad_weights
+
+
+class _EmbeddingBagFixed(torch.autograd.Function):
+    """The bag under autograd.  The reference differentiates a gather
+    (``jnp.take``), whose gradient XLA lowers to a scatter-add outside
+    any Pallas kernel, so there is no backward kernel to port: one plain
+    backward serves both devices, and the CPU tests run the same
+    ``Function`` that the card does."""
+
+    @staticmethod
+    def forward(ctx, table, ids, weights):
+        if table.device.type == "cpu":
+            out = embedding_bag_fixed_plain(table, ids, weights)
+        else:
+            out = _launch(table, ids, weights)
+        ctx.table_shape, ctx.table_dtype = tuple(table.shape), table.dtype
+        ctx.save_for_backward(ids, weights,
+                              table if ctx.needs_input_grad[2] else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ids, weights, table = ctx.saved_tensors
+        grad_table, grad_weights = embedding_bag_fixed_backward(
+            grad_out, ids, weights, ctx.table_shape, ctx.table_dtype, table)
+        return (grad_table if ctx.needs_input_grad[0] else None, None,
+                grad_weights)

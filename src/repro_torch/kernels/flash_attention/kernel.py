@@ -34,6 +34,7 @@ from repro_torch.kernels.cuda_lib import (
     FLOAT_CODES,
     CudaKernel,
     check_float_operand,
+    require_no_grad,
 )
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
@@ -94,8 +95,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv == 0``, all of one dtype (f32 or bf16) on one device, each with a
     contiguous last dim (other strides are free, but for the wgmma route's
     16-byte conditions).  CUDA tensors go through the kernel that
-    :func:`flash_route` names; CPU tensors through
-    :func:`flash_attention_plain`."""
+    :func:`flash_route` names, which has no backward: under grad mode an
+    operand that requires grad raises.  CPU tensors go through
+    :func:`flash_attention_plain`, which differentiates."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_float_operand(t, name, 4)
     B, H, S, D = q.shape
@@ -114,6 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal)
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    require_no_grad("flash_attention", q, k, v)
     return run_kernel(flash_route(q.dtype, D), q, k, v, causal)
 
 

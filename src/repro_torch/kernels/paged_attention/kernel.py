@@ -27,6 +27,7 @@ from repro_torch.kernels.cuda_lib import (
     FLOAT_CODES,
     CudaKernel,
     check_float_operand,
+    require_no_grad,
     stream_handle,
 )
 from repro_torch.kernels.paged_attention.ref import paged_attention_plain
@@ -97,7 +98,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ``q`` (B, H, D) and the pools (n_pages, page, D) share one dtype (f32
     or bf16) and are contiguous; ``block_table`` (B, max_pages) and
     ``lengths`` (B,) are int32; all on one device.  CUDA tensors go
-    through the kernel; CPU tensors through :func:`paged_attention_plain`."""
+    through the kernel, which has no backward: under grad mode an operand
+    that requires grad raises.  CPU tensors go through
+    :func:`paged_attention_plain`, which differentiates."""
     check_float_operand(q, "q", 3)
     check_float_operand(k_pool, "k_pool", 3)
     check_float_operand(v_pool, "v_pool", 3)
@@ -125,6 +128,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_attention_plain(q, k_pool, v_pool, block_table, lengths)
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    require_no_grad("paged_attention", q, k_pool, v_pool)
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("block_table", block_table), ("lengths", lengths)):
         if not t.is_contiguous():

@@ -4,22 +4,26 @@ DIN, SASRec and two-tower retrieval.
 Entry points per arch, each taking the reference's batch dicts (tensors
 in place of arrays):
 
-  * ``*_init(cfg, gen)``             — parameters from a ``torch.Generator``
+  * ``*_init(cfg, gen, masters=False)`` — parameters from a
+                                       ``torch.Generator``
+  * ``*_loss(cfg, p, batch)``        — training objective
   * score (``dlrm_forward``, ``din_forward``, ``sasrec_score``,
     ``twotower_score``)              — pointwise serving (p99 / bulk)
   * ``*_retrieval(cfg, p, batch)``   — one query against N candidates,
     the ids of the top 100, from ``*_candidate_scores``
 
-Parameters are held in ``cfg.dtype`` once (SASRec's norm gains stay f32),
-where the reference keeps f32 masters and casts them at every use: at
-DLRM-MLPerf's widths the 26 tables are 45.5 GB in bf16 and would not fit
-a card in f32.  DLRM's 26 single-hot lookups go through the embedding-bag
-kernel as bags of one id of weight 1, which is the row itself, bit for
-bit; every other lookup is a plain gather, as in the reference.
+Serving parameters are held in ``cfg.dtype`` once (SASRec's norm gains
+stay f32): at DLRM-MLPerf's widths the 26 tables are 45.5 GB in bf16 and
+would not fit a card in f32.  Training takes the reference's layout,
+f32 masters (``masters=True``), which every forward casts to
+``cfg.dtype`` at use, as the reference does.  DLRM's 26 single-hot
+lookups go through the embedding-bag kernel (differentiable: its
+``autograd.Function``) as bags of one id of weight 1, which is the row
+itself, bit for bit; every other lookup is a plain gather, as in the
+reference.
 
 Top-k keeps the lower index first among equal scores, as
-``jax.lax.top_k`` does (``top_ids``).  The losses (``bce_logits``,
-``*_loss``) come with the training slice.
+``jax.lax.top_k`` does (``top_ids``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from repro_torch.nn.layers import (
     mlp_apply,
     mlp_init,
     rms_norm,
+    softmax_xent,
 )
 from repro_torch.sparse.embedding import embedding_lookup
 
@@ -55,6 +60,23 @@ def top_ids(scores: torch.Tensor, k: int) -> torch.Tensor:
     equal ones (a stable descending sort; ``torch.topk`` promises no
     order of ties)."""
     return torch.sort(scores, descending=True, stable=True).indices[:k]
+
+
+def bce_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy of logits, in f32.  Its gradient at a
+    logit of 0 is the reference's: ``maximum`` splits a tie in half in
+    both packages, and ``|x|`` is taken as a ``where`` whose gradient at 0
+    is 1, as ``jnp.abs``'s is (``torch.abs``'s is 0)."""
+    lf = logits.float()
+    abs_lf = torch.where(lf >= 0, lf, -lf)
+    return torch.mean(torch.maximum(lf, torch.zeros_like(lf)) - lf * labels
+                      + torch.log1p(torch.exp(-abs_lf)))
+
+
+def param_dtype(cfg: Any, masters: bool) -> torch.dtype:
+    """The dtype parameters are held in: f32 masters for training (the
+    reference's layout), else the compute dtype."""
+    return torch.float32 if masters else cfg.dtype
 
 
 def _table(gen: torch.Generator, rows: int, dim: int,
@@ -81,16 +103,16 @@ class DLRMConfig:
         return len(self.table_rows)
 
 
-def dlrm_init(cfg: DLRMConfig, gen: torch.Generator) -> Params:
-    n = cfg.n_sparse
+def dlrm_init(cfg: DLRMConfig, gen: torch.Generator,
+              masters: bool = False) -> Params:
+    n, dt = cfg.n_sparse, param_dtype(cfg, masters)
     return {
-        "tables": {f"t{i}": _table(gen, rows, cfg.embed_dim, cfg.dtype)
+        "tables": {f"t{i}": _table(gen, rows, cfg.embed_dim, dt)
                    for i, rows in enumerate(cfg.table_rows)},
-        "bot": cast_params(mlp_init(gen, (cfg.n_dense,) + cfg.bot_mlp),
-                           cfg.dtype),
+        "bot": cast_params(mlp_init(gen, (cfg.n_dense,) + cfg.bot_mlp), dt),
         "top": cast_params(
             mlp_init(gen, (cfg.embed_dim + (n + 1) * n // 2,) + cfg.top_mlp),
-            cfg.dtype),
+            dt),
     }
 
 
@@ -119,6 +141,10 @@ def dlrm_forward(cfg: DLRMConfig, p: Params, batch: Dict) -> torch.Tensor:
     flat = inter[:, iu[0], iu[1]].to(cfg.dtype)                  # (B, 351)
     x = torch.cat([d, flat], dim=-1)
     return mlp_apply(p["top"], x, dtype=cfg.dtype)[:, 0]
+
+
+def dlrm_loss(cfg: DLRMConfig, p: Params, batch: Dict) -> torch.Tensor:
+    return bce_logits(dlrm_forward(cfg, p, batch), batch["label"])
 
 
 def dlrm_candidate_scores(cfg: DLRMConfig, p: Params,
@@ -158,16 +184,15 @@ class DINConfig:
     dtype: torch.dtype = torch.bfloat16
 
 
-def din_init(cfg: DINConfig, gen: torch.Generator) -> Params:
-    d = cfg.embed_dim * 2  # item + category embedding
+def din_init(cfg: DINConfig, gen: torch.Generator,
+             masters: bool = False) -> Params:
+    d, dt = cfg.embed_dim * 2, param_dtype(cfg, masters)  # item + category
     return {
-        "item": _table(gen, cfg.n_items, cfg.embed_dim, cfg.dtype),
-        "cate": _table(gen, cfg.n_cates, cfg.embed_dim, cfg.dtype),
+        "item": _table(gen, cfg.n_items, cfg.embed_dim, dt),
+        "cate": _table(gen, cfg.n_cates, cfg.embed_dim, dt),
         # attention MLP input: [e, t, e*t, e-t] -> 4d
-        "attn": cast_params(mlp_init(gen, (4 * d,) + cfg.attn_mlp + (1,)),
-                            cfg.dtype),
-        "head": cast_params(mlp_init(gen, (3 * d,) + cfg.mlp + (1,)),
-                            cfg.dtype),
+        "attn": cast_params(mlp_init(gen, (4 * d,) + cfg.attn_mlp + (1,)), dt),
+        "head": cast_params(mlp_init(gen, (3 * d,) + cfg.mlp + (1,)), dt),
     }
 
 
@@ -190,6 +215,10 @@ def din_forward(cfg: DINConfig, p: Params, batch: Dict) -> torch.Tensor:
     user = torch.einsum("bs,bsd->bd", w, seq)                           # (B,d)
     x = torch.cat([user, tgt, user * tgt], dim=-1)
     return mlp_apply(p["head"], x, dtype=cfg.dtype)[:, 0]
+
+
+def din_loss(cfg: DINConfig, p: Params, batch: Dict) -> torch.Tensor:
+    return bce_logits(din_forward(cfg, p, batch), batch["label"])
 
 
 def din_candidate_scores(cfg: DINConfig, p: Params,
@@ -224,8 +253,9 @@ class SASRecConfig:
     dtype: torch.dtype = torch.bfloat16
 
 
-def sasrec_init(cfg: SASRecConfig, gen: torch.Generator) -> Params:
-    d = cfg.embed_dim
+def sasrec_init(cfg: SASRecConfig, gen: torch.Generator,
+                masters: bool = False) -> Params:
+    d, dt = cfg.embed_dim, param_dtype(cfg, masters)
 
     def ones():
         return torch.ones(d, device=gen.device)
@@ -244,10 +274,10 @@ def sasrec_init(cfg: SASRecConfig, gen: torch.Generator) -> Params:
         for _ in range(cfg.n_blocks)
     ]
     return {
-        "item": _table(gen, cfg.n_items, d, cfg.dtype),
-        "pos": _table(gen, cfg.seq_len, d, cfg.dtype),
+        "item": _table(gen, cfg.n_items, d, dt),
+        "pos": _table(gen, cfg.seq_len, d, dt),
         "ln_f": ones(),
-        "blocks": cast_params(blocks, cfg.dtype),
+        "blocks": cast_params(blocks, dt),
     }
 
 
@@ -269,6 +299,26 @@ def sasrec_backbone(cfg: SASRecConfig, p: Params,
         x = x + dense(blk["fc2"], torch.relu(dense(blk["fc1"], h, cfg.dtype)),
                       cfg.dtype)
     return rms_norm(p["ln_f"], x)
+
+
+def sasrec_loss(cfg: SASRecConfig, p: Params, batch: Dict) -> torch.Tensor:
+    """Next-item prediction, full softmax over items, computed in
+    chunks of C positions (5 where S allows, as the reference's scan) so
+    (B, S, n_items) logits are never materialized."""
+    h = sasrec_backbone(cfg, p, batch["seq"])                        # (B, S, d)
+    B, S, d = h.shape
+    C = 5 if S % 5 == 0 else 1
+    hc = h.reshape(B, S // C, C, d).transpose(0, 1)
+    lc = batch["labels"].reshape(B, S // C, C).transpose(0, 1)
+    table = p["item"]["table"].to(h.dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    n = torch.zeros((), dtype=torch.int32, device=h.device)
+    for hh, ll in zip(hc, lc):
+        logits = torch.einsum("bsd,vd->bsv", hh, table)
+        cnt = (ll != -1).sum().to(torch.int32)
+        tot = tot + softmax_xent(logits, ll) * cnt
+        n = n + cnt
+    return tot / torch.clamp(n, min=1)
 
 
 def sasrec_score(cfg: SASRecConfig, p: Params, batch: Dict) -> torch.Tensor:
@@ -304,17 +354,16 @@ class TwoTowerConfig:
     dtype: torch.dtype = torch.bfloat16
 
 
-def twotower_init(cfg: TwoTowerConfig, gen: torch.Generator) -> Params:
-    d = cfg.embed_dim
+def twotower_init(cfg: TwoTowerConfig, gen: torch.Generator,
+                  masters: bool = False) -> Params:
+    d, dt = cfg.embed_dim, param_dtype(cfg, masters)
     return {
-        "user": _table(gen, cfg.n_users, d, cfg.dtype),
-        "ctx": _table(gen, cfg.n_context, d, cfg.dtype),
-        "item": _table(gen, cfg.n_items, d, cfg.dtype),
-        "icat": _table(gen, cfg.n_context, d, cfg.dtype),
-        "user_tower": cast_params(mlp_init(gen, (2 * d,) + cfg.tower_mlp),
-                                  cfg.dtype),
-        "item_tower": cast_params(mlp_init(gen, (2 * d,) + cfg.tower_mlp),
-                                  cfg.dtype),
+        "user": _table(gen, cfg.n_users, d, dt),
+        "ctx": _table(gen, cfg.n_context, d, dt),
+        "item": _table(gen, cfg.n_items, d, dt),
+        "icat": _table(gen, cfg.n_context, d, dt),
+        "user_tower": cast_params(mlp_init(gen, (2 * d,) + cfg.tower_mlp), dt),
+        "item_tower": cast_params(mlp_init(gen, (2 * d,) + cfg.tower_mlp), dt),
     }
 
 
@@ -340,6 +389,15 @@ def item_embed(cfg: TwoTowerConfig, p: Params, item_id,
         embedding_lookup(p["icat"]["table"], item_cat, cfg.dtype),
     ], dim=-1)
     return _tower(cfg, p, "item_tower", e)
+
+
+def twotower_loss(cfg: TwoTowerConfig, p: Params, batch: Dict) -> torch.Tensor:
+    """In-batch sampled softmax (the RecSys'19 retrieval objective)."""
+    u = user_embed(cfg, p, batch)                                   # (B, d)
+    i = item_embed(cfg, p, batch["item_id"], batch["item_cat"])     # (B, d)
+    logits = torch.einsum("bd,cd->bc", u, i).float() / cfg.temperature
+    labels = torch.arange(u.shape[0], device=u.device)
+    return softmax_xent(logits[:, None, :], labels[:, None])
 
 
 def twotower_score(cfg: TwoTowerConfig, p: Params, batch: Dict) -> torch.Tensor:

@@ -5,7 +5,8 @@ Parameters are nested dicts of tensors; initialisers draw from an explicit
 gives other numbers, so tests hand both packages the same numpy weights).
 Norms and rotary embeddings compute in f32 and cast back, as the
 reference does; ``dense`` and ``mlp_apply`` take their products in the
-compute dtype.  ``softmax_xent`` comes with the training slice.
+compute dtype; ``softmax_xent`` is the masked f32 cross-entropy of the
+losses.
 """
 
 from __future__ import annotations
@@ -120,3 +121,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding.  x: (..., S, n_heads, d_head); positions: (..., S)."""
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 ignore_id: int = -1) -> torch.Tensor:
+    """Mean token cross-entropy in f32; labels == ignore_id are masked."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = (labels != ignore_id).float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

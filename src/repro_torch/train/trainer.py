@@ -1,0 +1,179 @@
+"""Fault-tolerant training loop with microbatch gradient accumulation,
+the port of ``repro.train.trainer``.
+
+  * ``build_train_step`` turns any ``loss_fn(params, batch)`` into
+    ``step(params, opt_state, batch) -> (params, opt_state, metrics)``;
+    gradients come from autograd where the reference takes
+    ``jax.value_and_grad``.  With microbatches, each micro-batch's f32
+    gradient is summed into a zero tree in order and the sum divided by
+    their count, as the reference's scan does,
+  * optional int8 gradient compression before the optimizer,
+  * periodic async checkpoints and resume from (step, data cursor): a
+    restarted run continues from the exact batch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.ckpt.checkpoint import (
+    CheckpointManager,
+    latest_step,
+    load_checkpoint,
+)
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.compression import compress_tree
+from repro_torch.train.optim import OptConfig, adamw_init, adamw_update
+from repro_torch.tree import leaves, tree_map, unflatten
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    opt: OptConfig = dataclasses.field(default_factory=OptConfig)
+    microbatches: int = 1
+    compress_grads: bool = False
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50
+    keep_ckpts: int = 3
+    log_every: int = 10
+
+
+def value_and_grad(loss_fn: Callable[[Any, Dict], torch.Tensor],
+                   params: Any, batch: Dict):
+    """``(loss, grads)`` of ``loss_fn`` at ``params``, grads in the
+    params' structure and dtypes (zeros where the loss does not reach a
+    leaf, as JAX gives)."""
+    with torch.enable_grad():
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss = loss_fn(live, batch)
+        flat = leaves(live)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return loss.detach(), unflatten(params, [
+        torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)])
+
+
+def build_train_step(
+    loss_fn: Callable[[Any, Dict], torch.Tensor],
+    cfg: TrainerConfig,
+    donate: bool = True,
+):
+    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``.  ``batch`` leaves must have a leading dim divisible by
+    ``cfg.microbatches``.  With ``donate`` (the reference's default) the
+    step updates ``params`` and ``opt_state`` in place and returns them,
+    as a JAX step reuses donated buffers: the caller must not expect the
+    old values in them afterwards."""
+
+    def step(params, opt_state, batch):
+        mb = cfg.microbatches
+        if mb > 1:
+            micro = tree_map(
+                lambda x: x.reshape((mb, x.shape[0] // mb) + tuple(x.shape[1:])),
+                batch)
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=leaves(params)[0].device)
+            for i in range(mb):
+                loss, g = value_and_grad(
+                    loss_fn, params, tree_map(lambda x: x[i], micro))
+                for a, b in zip(leaves(grads), leaves(g)):
+                    a.add_(b.float())
+                del g
+                loss_sum = loss_sum + loss
+            loss = loss_sum / mb
+            for a in leaves(grads):
+                a.div_(mb)
+        else:
+            loss, grads = value_and_grad(loss_fn, params, batch)
+        if cfg.compress_grads:
+            grads = compress_tree(grads)
+        params, opt_state, om = adamw_update(cfg.opt, grads, opt_state,
+                                             params, donate=donate)
+        return params, opt_state, {"loss": loss, **om}
+
+    return step
+
+
+def _tensor(x: Any, device: torch.device, copy: bool = False) -> torch.Tensor:
+    """A tensor or array leaf as a tensor on ``device``; with ``copy``
+    never one that shares memory with ``x``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device, copy=copy)
+    if copy:
+        return torch.tensor(np.asarray(x), device=device)
+    return torch.as_tensor(np.asarray(x), device=device)
+
+
+class Trainer:
+    """Trains ``params`` (a tree of tensors or arrays, copied to
+    ``device``; None means the card) with ``loss_fn`` under ``cfg``.  Its
+    step donates the copy, so the caller's tensors are left as they
+    were."""
+
+    def __init__(
+        self,
+        loss_fn: Callable,
+        params: Any,
+        cfg: TrainerConfig,
+        device: DeviceLike = None,
+    ):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.loss_fn = loss_fn
+        self.params = tree_map(lambda p: _tensor(p, self.device, copy=True),
+                               params)
+        self.opt_state = adamw_init(self.params)
+        self.step_num = 0
+        self.data_cursor = 0
+        self._step = build_train_step(loss_fn, cfg, donate=True)
+        self.ckpt = (
+            CheckpointManager(cfg.ckpt_dir, keep=cfg.keep_ckpts)
+            if cfg.ckpt_dir
+            else None
+        )
+        self.history = []
+
+    # -- resume ----------------------------------------------------------------
+    def try_resume(self) -> bool:
+        if not self.cfg.ckpt_dir or latest_step(self.cfg.ckpt_dir) is None:
+            return False
+        self.params, self.opt_state, self.step_num, self.data_cursor = (
+            load_checkpoint(self.cfg.ckpt_dir, self.params, self.opt_state,
+                            device=self.device)
+        )
+        return True
+
+    # -- main loop ---------------------------------------------------------------
+    def fit(self, batches: Callable[[int], Dict], n_steps: int) -> Dict:
+        """Train until step ``n_steps``.  ``batches(cursor)`` returns the
+        batch (tensors or arrays) for a given data cursor: a deterministic
+        data order makes a restart exact."""
+        last = {}
+        while self.step_num < n_steps:
+            batch = tree_map(lambda x: _tensor(x, self.device),
+                             batches(self.data_cursor))
+            self.params, self.opt_state, metrics = self._step(
+                self.params, self.opt_state, batch
+            )
+            self.step_num += 1
+            self.data_cursor += 1
+            if self.step_num % self.cfg.log_every == 0 or self.step_num == n_steps:
+                last = {k: float(v) for k, v in metrics.items()}
+                self.history.append({"step": self.step_num, **last})
+            if self.ckpt and self.step_num % self.cfg.ckpt_every == 0:
+                self.ckpt.save(
+                    self.step_num, self.params, self.opt_state,
+                    data_cursor=self.data_cursor,
+                )
+        if self.ckpt:
+            self.ckpt.save(
+                self.step_num, self.params, self.opt_state,
+                data_cursor=self.data_cursor,
+            )
+            self.ckpt.wait()
+        return last
