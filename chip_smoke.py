@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: the search stack, the
-LM serving path, recsys serving and recsys training.
+LM serving path, recsys serving and training, MoE serving and LM
+training.
 
 Run from the repository root with no arguments::
 
@@ -130,12 +131,47 @@ Phases (any failure exits non-zero before the last line is printed):
      apart), AdamW and the bag's backward timed alone (beside its bound
      and ``F.embedding``'s backward); REDUCED in f32, 3 steps card
      against CPU and 6 steps straight against 3, an async checkpoint, a
-     fresh ``Trainer.try_resume`` and 3 more; and a CUDA attention call
-     whose ``q`` requires grad must raise.  Prints step p50/p99,
+     fresh ``Trainer.try_resume`` and 3 more.  Prints step p50/p99,
      samples/s, peak memory and the profile;
- 12. print the kernels line (six kernels: both flash routes; the search
-     kernels' launches summed over the search and replica phases, the
-     bag's over recsys serving and training), then the result line.
+ 12. moe serve: Moonlight-16B-A3B at the repo's full config (48 layers,
+     64 experts top-6 with 2 shared, 28.55B parameters, 57.1 GB of bf16
+     weights, the router in f32; seeded random weights) through
+     ``ServeEngine``: 16 slots of 2,048 tokens (S_max cut from 4,096 to
+     fit beside the weights), 32 requests of 512-1,024 prompt tokens and
+     32 new tokens each.  The wgmma flash kernel must launch once per
+     layer and prefill, the paged kernel once per layer and decode step,
+     the scalar flash kernel never; every request completes with finite
+     logits.  Prints tokens/s, p50/p99 per prefill and decode step, the
+     picks dropped by capacity per prefill and per decode step, peak
+     memory and a profiled decode step's busy share and top kernels;
+     then Qwen3-235B-A22B at its published widths cut to 8 layers (42.4
+     GB), 4 slots of 2,048, 8 requests of 16 new tokens: the wgmma
+     kernel at GQA 16:1 and the paged kernel with 16 heads a row;
+ 13. moe parity: both MoE configs at REDUCED in float32, card against
+     CPU with the card's tokens forced: logits within 1e-4, equal
+     ``stats()``, the same expert picks in every MoE layer call and the
+     same dropped count;
+ 14. lm train: granite-3-2b at its published widths and depth (40
+     layers, 2,533,531,648 f32 masters and AdamW state, 40.5 GB) through
+     ``Trainer`` with the bundle's ``train_4k`` optimizer and 4
+     microbatches, on batches of 8 x 4,096 tokens (cut from 256 x 4,096)
+     from the launcher's ``synth_lm_batches``.  First one microbatch's
+     loss and gradients with attention through the flash kernel's
+     ``autograd.Function`` and through its plain version under autograd
+     (``LM_GRAD_LOSS_RTOL``, ``LM_GRAD_REL_L2``); then 2 warm-up and 5
+     timed steps (the wgmma kernel must launch 2 x 40 x 4 times a step:
+     the forward and the remat recompute), one profiled step (busy share,
+     the flash forward, its plain backward and AdamW apart), AdamW and the
+     backward alone (beside its bound and SDPA's backward); REDUCED
+     granite and Moonshot in f32, 3 steps card against CPU; the bare
+     attention wrappers must raise on a ``q`` that requires grad, and the
+     ``Function`` must give the plain version's gradient.  Then both
+     attention kernels against their plain versions at the shapes these
+     paths gave them;
+ 15. print the kernels line (six kernels: both flash routes, their
+     launches and the paged kernel's by path; the search kernels'
+     launches summed over the search and replica phases, the bag's over
+     recsys serving and training), then the result line.
 
 Exits with code 2 when no CUDA device is present.  Imports nothing of
 JAX or of the ``repro`` package.
@@ -243,6 +279,47 @@ TRAIN_RESUME_SPLIT = 3
 # three steps
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_PARAM_TOL = 1e-5
+# moe serve: Moonlight-16B-A3B at the repo's full config (48 layers, 64
+# experts top-6, 28.55B parameters, 57.1 GB in bf16).  S_max is cut from
+# the granite cell's 4,096 to 2,048: 16 slots of 4,096 tokens would take
+# 25.8 GB of KV cache, which does not fit beside the weights on 80 GB
+MOE_SLOTS = 16
+MOE_S_MAX = 2048
+MOE_REQUESTS = 32
+MOE_PROMPT = (512, 1024)
+MOE_NEW = 32
+# Qwen3-235B-A22B at its published widths, cut in depth from 94 layers
+# to 8: 470 GB of bf16 does not fit one card; 8 layers of 4.98 GB and
+# 2.49 GB of untied embeddings are 42.4 GB
+QWEN3_LAYERS = 8
+QWEN3_SLOTS = 4
+QWEN3_S_MAX = 2048
+QWEN3_REQUESTS = 8
+QWEN3_NEW = 16
+SERVE_FREE_BYTES = 4 << 30   # left allocated before a large phase, at most
+# lm train: granite-3-2b at its published widths and depth, f32 masters
+# and AdamW state (16 B a parameter, 40.5 GB); the reference's train_4k
+# batch of 256 x 4,096 is cut to 8 x 4,096, in the bundle's 4 microbatches
+LM_TRAIN_BATCH = 8
+LM_TRAIN_SEQ = 4096
+LM_TRAIN_WARMUP = 2
+LM_TRAIN_TIMED = 5
+LM_TRAIN_PARITY_STEPS = 3    # REDUCED, card against CPU
+# kernel route against plain route, one microbatch in bf16.  The two
+# forwards differ only in the order of f32 sums before each attention
+# output's one bf16 rounding, so an output element differs by one bf16
+# step (2^-8 of it) where its rounding falls the other way, and by
+# nothing elsewhere.  That difference is carried through 40 layers of
+# bf16 products, each of which rounds again, and then back through the
+# same layers; the gradients of the two routes are two bf16 computations
+# of one function, and bf16 training tolerates such differences by
+# design.  Held: the loss within 2^-8 relative (one rounding), every
+# leaf's gradient within 2^-4 in relative L2 norm (16 roundings' worth,
+# the depth of the network at about half a step a layer), and every
+# leaf's gradient non-zero.  A wrong backward (scale, mask, GQA sum, a
+# dropped dk or dv) moves a leaf's gradient by its own size, 2^0
+LM_GRAD_LOSS_RTOL = 2.0 ** -8
+LM_GRAD_REL_L2 = 2.0 ** -4
 
 
 def log(msg: str) -> None:
@@ -1213,7 +1290,8 @@ def percentiles_ms(xs: Sequence[float]) -> Dict[str, float]:
 class StepTimer:
     """Wraps the engine module's ``prefill`` and ``decode_step`` with
     synchronised host-clock timers and a finiteness check of the logits,
-    for the length of a ``with`` block."""
+    for the length of a ``with`` block; for an MoE config it also keeps
+    each call's picks dropped by capacity (the cache's ``moe_dropped``)."""
 
     def __init__(self, engine_mod):
         self.mod = engine_mod
@@ -1221,8 +1299,9 @@ class StepTimer:
         self.prefill_s: List[float] = []
         self.decode_s: List[float] = []
         self.finite: List[torch.Tensor] = []
+        self.dropped: Dict[str, List[float]] = {"prefill": [], "decode": []}
 
-    def _wrap(self, fn, times):
+    def _wrap(self, fn, times, kind):
         def timed(*args):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1230,12 +1309,15 @@ class StepTimer:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             self.finite.append(torch.isfinite(logits).all())
+            if "moe_dropped" in cache:
+                self.dropped[kind].append(float(cache["moe_dropped"]))
             return logits, cache
         return timed
 
     def __enter__(self):
-        self.mod.prefill = self._wrap(self.orig[0], self.prefill_s)
-        self.mod.decode_step = self._wrap(self.orig[1], self.decode_s)
+        self.mod.prefill = self._wrap(self.orig[0], self.prefill_s, "prefill")
+        self.mod.decode_step = self._wrap(self.orig[1], self.decode_s,
+                                          "decode")
         return self
 
     def __exit__(self, *exc):
@@ -1243,11 +1325,13 @@ class StepTimer:
         return False
 
 
-def serve_requests(Request, vocab: int, n: int, rng) -> list:
+def serve_requests(Request, vocab: int, n: int, rng,
+                   prompt: Sequence[int] = SERVE_PROMPT,
+                   new: int = SERVE_NEW) -> list:
     return [Request(req_id=i,
                     prompt=rng.randint(0, vocab, rng.randint(
-                        SERVE_PROMPT[0], SERVE_PROMPT[1] + 1)).astype(np.int32),
-                    max_new_tokens=SERVE_NEW)
+                        prompt[0], prompt[1] + 1)).astype(np.int32),
+                    max_new_tokens=new)
             for i in range(n)]
 
 
@@ -1256,7 +1340,8 @@ def profile_decode_step(engine, Request, device) -> dict:
     (``torch.profiler``), then the top host functions of the next one
     (cProfile)."""
     for r in serve_requests(Request, engine.cfg.vocab, engine.slots,
-                            np.random.RandomState(12)):
+                            np.random.RandomState(12), SERVE_PROMPT,
+                            SERVE_NEW):
         engine.submit(r)
     engine.step()   # admits (prefills) every slot and decodes once
     torch.cuda.synchronize()
@@ -1290,22 +1375,27 @@ def profile_prefill(engine_mod, cfg, params, device) -> dict:
                              match="flash_attention")}
 
 
-def serve_phase(device, kernels) -> dict:
-    """granite-3-2b at its published widths through ``ServeEngine``."""
-    from repro_torch.configs.granite_3_2b import CONFIG
-    from repro_torch.models.transformer import init_params
+def serve_cell(cfg, params, device, kernels, label: str, *, slots: int,
+               s_max: int, n_requests: int, prompt: Sequence[int],
+               new: int, setup_s: float) -> tuple:
+    """``ServeEngine`` over ``params`` (``slots`` slots of ``s_max``
+    tokens in SERVE_PAGE-token pages): a warm-up on a one-slot engine of
+    the same weights (cuBLAS handles, the allocator, the kernels' first
+    launches; its launches do not count), then ``n_requests`` requests of
+    ``prompt`` tokens (a range) and ``new`` new tokens each, every
+    prefill and decode step timed.  bf16 prefill at D 64 or 128 takes the
+    wgmma route only: the wgmma flash kernel must launch once per layer
+    and prefill, the paged kernel once per layer and decode step, the
+    scalar flash kernel never.  Returns the report (its ``failures``
+    included) and the engine."""
     from repro_torch.serve import engine as engine_mod
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = CONFIG
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
     weights = tree_leaves(params)
-    engine = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
-                         s_max=SERVE_S_MAX, page_size=SERVE_PAGE,
-                         chain_limit=SERVE_CHAIN, device=device)
-    # warm-up on a small engine of the same weights (cuBLAS handles, the
-    # allocator, the kernels' first launches); its launches do not count
+    engine = ServeEngine(cfg, params, batch_slots=slots, s_max=s_max,
+                         page_size=SERVE_PAGE, chain_limit=SERVE_CHAIN,
+                         device=device)
+    t0 = time.perf_counter()
     warm = ServeEngine(cfg, params, batch_slots=1, s_max=128,
                        page_size=SERVE_PAGE, device=device)
     warm.submit(Request(req_id=0, prompt=np.arange(64, dtype=np.int32),
@@ -1313,19 +1403,22 @@ def serve_phase(device, kernels) -> dict:
     warm.run_until_done()
     del warm
     torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    reqs = serve_requests(Request, cfg.vocab, SERVE_REQUESTS,
-                          np.random.RandomState(11))
+    setup_s += time.perf_counter() - t0
+    reqs = serve_requests(Request, cfg.vocab, n_requests,
+                          np.random.RandomState(11), prompt, new)
     for r in reqs:
         engine.submit(r)
-    log(f"serve: {cfg.name}, {cfg.params_dense:,} parameters "
-        f"({sum(t.numel() * t.element_size() for t in weights):,} B), "
-        f"KV cache {engine.cache['k'].numel() * 2 * engine.cache['k'].element_size():,} B, "
-        f"{len(reqs)} requests, set-up {setup_s:.1f} s")
+    weight_bytes = sum(t.numel() * t.element_size() for t in weights)
+    kv_bytes = engine.cache["k"].numel() * 2 * engine.cache["k"].element_size()
+    log(f"{label}: {cfg.name}, {cfg.params_dense:,} parameters "
+        f"({weight_bytes:,} B), KV cache {kv_bytes:,} B, {len(reqs)} "
+        f"requests, set-up {setup_s:.1f} s")
 
     for k in kernels:
         k.launches = 0
         k.largest = None
+    phase_peak = torch.cuda.max_memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
     with StepTimer(engine_mod) as timer:
         t0 = time.perf_counter()
         done = engine.run_until_done(max_steps=100_000)
@@ -1337,31 +1430,32 @@ def serve_phase(device, kernels) -> dict:
     failures: List[str] = []
     tokens = sum(len(r.out_tokens) for r in done)
     if len(done) != len(reqs):
-        failures.append(f"serve: {len(done)} of {len(reqs)} requests done")
-    if any(len(r.out_tokens) != SERVE_NEW for r in done):
-        failures.append("serve: a request stopped short of its new tokens")
+        failures.append(f"{label}: {len(done)} of {len(reqs)} requests done")
+    if any(len(r.out_tokens) != new for r in done):
+        failures.append(f"{label}: a request stopped short of its new tokens")
     if any(not 0 <= t < cfg.vocab for r in done for t in r.out_tokens):
-        failures.append("serve: a token id outside the vocabulary")
+        failures.append(f"{label}: a token id outside the vocabulary")
     if not all(bool(f) for f in timer.finite):
-        failures.append("serve: non-finite logits")
-    # bf16 prefill at D 64 takes the wgmma route only: the scalar flash
-    # kernel must not launch at all
+        failures.append(f"{label}: non-finite logits")
     expect = {"flash_attention_wgmma": cfg.n_layers * len(timer.prefill_s),
               "paged_attention": cfg.n_layers * len(timer.decode_s)}
     for name, n in expect.items():
         if launches.get(name, 0) == 0:
-            failures.append(f"{name} was never launched by the serve phase")
+            failures.append(f"{name} was never launched by {label}")
         elif launches[name] != n:
-            failures.append(f"{name}: {launches[name]} launches, {n} expected "
-                            "(one per layer and call)")
+            failures.append(f"{label}: {name}: {launches[name]} launches, "
+                            f"{n} expected (one per layer and call)")
     if launches.get("flash_attention", 0) != 0:
-        failures.append(f"flash_attention (scalar) launched "
+        failures.append(f"{label}: flash_attention (scalar) launched "
                         f"{launches['flash_attention']} times in bf16 serving")
     decode_tokens = tokens - len(timer.prefill_s)
     report = {
         "arch": cfg.name, "params": cfg.params_dense,
-        "requests": len(reqs), "slots": SERVE_SLOTS, "s_max": SERVE_S_MAX,
+        "params_active": cfg.params_active, "layers": cfg.n_layers,
+        "weight_bytes": weight_bytes, "kv_bytes": kv_bytes,
+        "requests": len(reqs), "slots": slots, "s_max": s_max,
         "page_size": SERVE_PAGE, "chain_limit": SERVE_CHAIN,
+        "prompt_range": list(prompt), "new_tokens": new,
         "prompt_tokens": int(sum(r.prompt.shape[0] for r in reqs)),
         "generated_tokens": tokens, "steps": engine.steps,
         "wall_s": wall_s, "setup_s": setup_s,
@@ -1373,14 +1467,147 @@ def serve_phase(device, kernels) -> dict:
         "decode_s_total": sum(timer.decode_s),
         "launches": launches, "largest": largest,
         "kv": engine.stats(),
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
+        # the phase's peak (weights drawn, warm-up) and the serving run's
+        "peak_mem_bytes": max(phase_peak,
+                              torch.cuda.max_memory_allocated(device)),
+        "serve_peak_mem_bytes": torch.cuda.max_memory_allocated(device),
+        "failures": failures,
     }
+    if cfg.moe is not None:
+        report["dropped"] = {
+            kind: {"calls": len(xs), "total": float(sum(xs)),
+                   "mean": float(np.mean(xs)) if xs else 0.0,
+                   "max": float(max(xs)) if xs else 0.0,
+                   "picks_per_call_mean": float(np.mean(
+                       picks)) if picks else 0.0}
+            for kind, xs, picks in (
+                ("prefill", timer.dropped["prefill"],
+                 [r.prompt.shape[0] * cfg.moe.top_k * cfg.n_layers
+                  for r in reqs]),
+                ("decode", timer.dropped["decode"],
+                 [slots * cfg.moe.top_k * cfg.n_layers]
+                 * len(timer.dropped["decode"])))}
+    return report, engine
+
+
+def serve_phase(device, kernels) -> dict:
+    """granite-3-2b at its published widths through ``ServeEngine``."""
+    from repro_torch.configs.granite_3_2b import CONFIG
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.engine import Request
+
+    cfg = CONFIG
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    report, engine = serve_cell(
+        cfg, params, device, kernels, "serve", slots=SERVE_SLOTS,
+        s_max=SERVE_S_MAX, n_requests=SERVE_REQUESTS, prompt=SERVE_PROMPT,
+        new=SERVE_NEW, setup_s=time.perf_counter() - t0)
     # after the launch counts are read: profiling does not count
     report["profile"] = profile_decode_step(engine, Request, device)
     report["prefill_profile"] = profile_prefill(engine_mod, cfg, params,
                                                 device)
-    report["failures"] = failures
     return report
+
+
+def teacher_forced(cfg, params, device, kernels, specs, kw) -> dict:
+    """``cfg`` served on the card (through the kernels, ``kernels``'
+    counts read over that run), then replayed on the CPU (through the
+    plain versions) with the card's tokens forced: the largest logit
+    difference over every selection, both engines' ``stats()`` and
+    tokens and, for an MoE config, every ``moe_apply`` call's expert
+    picks and dropped count on each side."""
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    recorded: List[tuple] = []
+    errs: List[float] = []
+    routes: Dict[str, list] = {"card": [], "cpu": []}
+
+    class Recording(ServeEngine):
+        def _select(self, logits):
+            picks = super()._select(logits)
+            recorded.append((logits.float().cpu(), picks))
+            return picks
+
+    class Replaying(ServeEngine):
+        def _select(self, logits):
+            want, picks = recorded[len(errs)]
+            errs.append(float((logits.float() - want).abs().max()))
+            return picks
+
+    def serve(engine, side):
+        orig = tf_mod.moe_apply
+
+        def routed(*args, **kw_):
+            y, aux = orig(*args, **kw_)
+            routes[side].append((aux["experts"].cpu(),
+                                 float(aux["dropped_tokens"])))
+            return y, aux
+
+        tf_mod.moe_apply = routed
+        try:
+            for i, (prompt, n) in enumerate(specs):
+                engine.submit(Request(req_id=i, prompt=prompt,
+                                      max_new_tokens=n))
+            return engine.run_until_done(max_steps=1000), engine.stats()
+        finally:
+            tf_mod.moe_apply = orig
+
+    for k in kernels:
+        k.launches = 0
+    card_done, card_stats = serve(Recording(cfg, params, device=device, **kw),
+                                  "card")
+    launches = {k.symbol: k.launches for k in kernels}
+    cpu_done, cpu_stats = serve(Replaying(cfg, tree_to(params, "cpu"),
+                                          device="cpu", **kw), "cpu")
+    same_routes = (len(routes["card"]) == len(routes["cpu"]) and all(
+        torch.equal(a[0], b[0]) for a, b in zip(routes["card"],
+                                                routes["cpu"])))
+    return {"errs": errs, "selections": len(recorded),
+            "card_stats": card_stats, "cpu_stats": cpu_stats,
+            "same_tokens": [r.out_tokens for r in card_done]
+            == [r.out_tokens for r in cpu_done],
+            "launches": launches, "moe_calls": len(routes["card"]),
+            "same_experts": same_routes,
+            "dropped": [sum(d for _, d in routes[side])
+                        for side in ("card", "cpu")]}
+
+
+def parity_failures(label: str, run: dict, expect: Dict[str, int]) -> List[str]:
+    """What :func:`teacher_forced` found wrong: logits past PARITY_TOL,
+    differing stats, tokens, expert picks or drops, or launch counts
+    other than ``expect``."""
+    failures = []
+    if len(run["errs"]) != run["selections"]:
+        failures.append(f"{label}: {len(run['errs'])} CPU selections, "
+                        f"{run['selections']} on the card")
+    if max(run["errs"]) > PARITY_TOL:
+        failures.append(f"{label}: logits differ by {max(run['errs'])} > "
+                        f"{PARITY_TOL}")
+    if run["card_stats"] != run["cpu_stats"]:
+        failures.append(f"{label}: stats differ: {run['card_stats']} vs "
+                        f"{run['cpu_stats']}")
+    if not run["same_tokens"]:
+        failures.append(f"{label}: tokens differ")
+    if not run["same_experts"]:
+        failures.append(f"{label}: the card and the CPU picked other experts")
+    if run["dropped"][0] != run["dropped"][1]:
+        failures.append(f"{label}: dropped_tokens {run['dropped'][0]} on the "
+                        f"card, {run['dropped'][1]} on the CPU")
+    for name, n in expect.items():
+        if run["launches"].get(name) != n:
+            failures.append(f"{label}: {name} launched "
+                            f"{run['launches'].get(name)} times in f32 "
+                            f"serving, {n} expected")
+    return failures
+
+
+def parity_specs(vocab: int, seed: int) -> list:
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, vocab, rng.randint(40, 200)).astype(np.int32), 12)
+            for _ in range(6)]
 
 
 def parity_phase(device, kernels) -> dict:
@@ -1392,62 +1619,22 @@ def parity_phase(device, kernels) -> dict:
     layer and prompt, the wgmma kernel never."""
     from repro_torch.configs.granite_3_2b import CONFIG
     from repro_torch.models.transformer import init_params
-    from repro_torch.serve.engine import Request, ServeEngine
 
     cfg = dataclasses.replace(CONFIG, n_layers=2, dtype=torch.float32)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(1))
     kw = dict(batch_slots=4, s_max=512, page_size=SERVE_PAGE, chain_limit=3)
-    rng = np.random.RandomState(13)
-    specs = [(rng.randint(0, cfg.vocab, rng.randint(40, 200)).astype(np.int32),
-              12) for _ in range(6)]
-    recorded: List[tuple] = []
-
-    class Recording(ServeEngine):
-        def _select(self, logits):
-            picks = super()._select(logits)
-            recorded.append((logits.float().cpu(), picks))
-            return picks
-
-    errs: List[float] = []
-
-    class Replaying(ServeEngine):
-        def _select(self, logits):
-            want, picks = recorded[len(errs)]
-            errs.append(float((logits.float() - want).abs().max()))
-            return picks
-
-    def serve(engine):
-        for i, (prompt, n) in enumerate(specs):
-            engine.submit(Request(req_id=i, prompt=prompt, max_new_tokens=n))
-        return engine.run_until_done(max_steps=1000), engine.stats()
-
+    specs = parity_specs(cfg.vocab, 13)
     t0 = time.perf_counter()
-    for k in kernels:
-        k.launches = 0
-    card_done, card_stats = serve(Recording(cfg, params, device=device, **kw))
-    launches = {k.symbol: k.launches for k in kernels}
-    cpu_done, cpu_stats = serve(Replaying(cfg, tree_to(params, "cpu"),
-                                          device="cpu", **kw))
-    failures = []
-    if len(errs) != len(recorded):
-        failures.append(f"parity: {len(errs)} CPU selections, "
-                        f"{len(recorded)} on the card")
-    if max(errs) > PARITY_TOL:
-        failures.append(f"parity: logits differ by {max(errs)} > {PARITY_TOL}")
-    if card_stats != cpu_stats:
-        failures.append(f"parity: stats differ: {card_stats} vs {cpu_stats}")
-    if [r.out_tokens for r in card_done] != [r.out_tokens for r in cpu_done]:
-        failures.append("parity: tokens differ")
-    expect = {"flash_attention": cfg.n_layers * len(specs),
-              "flash_attention_wgmma": 0}
-    for name, n in expect.items():
-        if launches.get(name) != n:
-            failures.append(f"parity: {name} launched {launches.get(name)} "
-                            f"times in f32 serving, {n} expected")
-    return {"selections": len(recorded), "max_abs_logit_err": max(errs),
-            "launches": launches,
-            "tolerance": PARITY_TOL, "stats": card_stats,
-            "steps": card_stats["steps"], "seconds": time.perf_counter() - t0,
+    run = teacher_forced(cfg, params, device, kernels, specs, kw)
+    failures = parity_failures("parity", run, {
+        "flash_attention": cfg.n_layers * len(specs),
+        "flash_attention_wgmma": 0})
+    return {"selections": run["selections"],
+            "max_abs_logit_err": max(run["errs"]),
+            "launches": run["launches"],
+            "tolerance": PARITY_TOL, "stats": run["card_stats"],
+            "steps": run["card_stats"]["steps"],
+            "seconds": time.perf_counter() - t0,
             "failures": failures}
 
 
@@ -2173,12 +2360,17 @@ def bag_backward_case(V: int, D: int, B: int, gen: torch.Generator,
     }
 
 
-def profile_train_step(trainer, batches: Callable[[int], dict]) -> dict:
+def profile_train_step(trainer, batches: Callable[[int], dict],
+                       ranges: Optional[Dict[str, tuple]] = None,
+                       forward: tuple = ("bag_forward", "embedding_bag")
+                       ) -> dict:
     """One training step under ``torch.profiler``: the device's busy
     share, the top ops by the device time of the kernels they launched,
-    the top kernels, and the device time of the bag forward (the
-    kernel), of the bag backward and of AdamW, each of the last two read
-    from a ``record_function`` range around its call."""
+    the top kernels, the device time of the kernels whose name holds
+    ``forward[1]`` (reported as ``forward[0]``; the bag kernel by
+    default), and of each of ``ranges`` (label: (module, function),
+    AdamW and the bag's backward by default), read from a
+    ``record_function`` range around its calls."""
     from torch.autograd import DeviceType
     from torch.profiler import record_function
 
@@ -2193,8 +2385,9 @@ def profile_train_step(trainer, batches: Callable[[int], dict]) -> dict:
                 return fn(*args, **kw)
         return fn, wrapped
 
-    ranges = {"bag_backward": (bag_mod, "embedding_bag_fixed_backward"),
-              "adamw_update": (trainer_mod, "adamw_update")}
+    if ranges is None:
+        ranges = {"bag_backward": (bag_mod, "embedding_bag_fixed_backward"),
+                  "adamw_update": (trainer_mod, "adamw_update")}
     saved = {}
     for label, (mod, attr) in ranges.items():
         saved[label], wrapped = ranged(mod, attr, label)
@@ -2210,6 +2403,7 @@ def profile_train_step(trainer, batches: Callable[[int], dict]) -> dict:
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
             events = prof.key_averages()
+            post_s = time.perf_counter() - t0 - wall_us / 1e6
             # a range also shows on the device's timeline: not a kernel
             kernels = sorted(
                 ((e.key, e.count, e.self_device_time_total) for e in events
@@ -2229,27 +2423,34 @@ def profile_train_step(trainer, batches: Callable[[int], dict]) -> dict:
         for label, (mod, attr) in ranges.items():
             setattr(mod, attr, saved[label])
     busy_us = sum(k[2] for k in kernels)
-    bag = [k for k in kernels if "embedding_bag" in k[0]]
+    hit = [k for k in kernels if forward[1] in k[0]]
     return {
         "captured": bool(kernels),
         "wall_ms": wall_us / 1e3,
+        "trace_processing_s": post_s,
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / wall_us,
         "device_ops": [{"op": n[:60], "count": c, "ms": us / 1e3}
                        for n, c, us in ops[:12]],
         "device_kernels": [{"name": n[:100], "count": c, "ms": us / 1e3}
                            for n, c, us in kernels[:8]],
-        "bag_forward_launches": sum(k[1] for k in bag),
-        "bag_forward_ms": sum(k[2] for k in bag) / 1e3,
+        f"{forward[0]}_launches": sum(k[1] for k in hit),
+        f"{forward[0]}_ms": sum(k[2] for k in hit) / 1e3,
         **range_ms,
     }
 
 
 def attention_grad_guard(device) -> List[str]:
-    """Both attention kernels have no backward: a CUDA call whose ``q``
-    requires grad, under grad mode, must raise (it returned an output
-    with no ``grad_fn`` before the guard)."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    """The bare attention wrappers have no backward: a CUDA call whose
+    ``q`` requires grad, under grad mode, must raise (it returned an
+    output with no ``grad_fn`` before the guard).  The flash kernel's
+    ``autograd.Function`` must give autograd's gradient of the plain
+    version on the same operands, within F32_TOL in f32."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention,
+        flash_attention_differentiable,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     from repro_torch.kernels.paged_attention.kernel import paged_attention
 
     gen = torch.Generator(device=device).manual_seed(41)
@@ -2279,6 +2480,18 @@ def attention_grad_guard(device) -> List[str]:
         else:
             failures.append(f"{name} on CUDA with a q that requires grad "
                             "did not raise")
+    ops = [torch.randn(shape, generator=gen, device=device)
+           for shape in ((2, 8, 77, 32), (2, 2, 77, 32), (2, 2, 77, 32))]
+    do = torch.randn((2, 8, 77, 32), generator=gen, device=device)
+    grads = []
+    for fn in (flash_attention_differentiable, flash_attention_plain):
+        live = [t.clone().requires_grad_(True) for t in ops]
+        grads.append(torch.autograd.grad(fn(*live, True), live, do))
+    for name, g, want in zip("qkv", *grads):
+        err = float((g - want).abs().max())
+        if not err <= F32_TOL * max(1.0, float(want.abs().max())):
+            failures.append(f"flash_attention_differentiable: d{name} differs "
+                            f"from the plain version's by {err:.3g}")
     return failures
 
 
@@ -2363,8 +2576,7 @@ def recsys_train_phase(device, bag) -> dict:
     plain route's on one batch, TRAIN_WARMUP_STEPS warm-up steps and
     TRAIN_TIMED_STEPS timed ones (the bag kernel must launch once a table
     and step), one profiled step, AdamW and the bag's backward timed
-    alone, then the REDUCED checks and the attention kernels' grad
-    guard."""
+    alone, then the REDUCED checks."""
     from repro_torch.configs.registry import get_training
     from repro_torch.kernels.embedding_bag.kernel import embedding_bag_fixed
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_fixed_plain
@@ -2454,7 +2666,6 @@ def recsys_train_phase(device, bag) -> dict:
                         f"by {backward['max_abs_err']:.3g}")
     checks = reduced_train_checks(device)
     failures += checks.pop("failures")
-    failures += attention_grad_guard(device)
     return {
         "arch": cfg.name, "published_rows": sum(tr.config.table_rows),
         "rows": sum(rows), "reduced": f"each table capped at "
@@ -2470,6 +2681,425 @@ def recsys_train_phase(device, bag) -> dict:
         "reduced_checks": checks, "seconds": time.perf_counter() - t0,
         "failures": failures,
     }
+
+
+# ----------------------------------------------------------- MoE serving --
+def free_check(label: str, device) -> List[str]:
+    """Earlier phases' memory must be gone before a large phase: at most
+    SERVE_FREE_BYTES still allocated.  Resets the peak."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    if held > SERVE_FREE_BYTES:
+        return [f"{label}: {held:,} B still allocated before the phase"]
+    return []
+
+
+def moe_serve_phase(device, kernels) -> dict:
+    """Moonlight-16B-A3B at the repo's full config (seeded random bf16
+    weights, the router in f32) through ``ServeEngine``: MOE_SLOTS slots
+    of MOE_S_MAX tokens, MOE_REQUESTS requests of MOE_PROMPT tokens and
+    MOE_NEW new tokens each, then one profiled decode step.  Every row of
+    a decode step takes part, so with 16 slots each expert has a
+    capacity of one pick a step, for which the empty slots compete too
+    (the reference's semantics)."""
+    from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Request
+
+    failures = free_check("moe serve", device)
+    cfg = CONFIG
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    report, engine = serve_cell(
+        cfg, params, device, kernels, "moe serve", slots=MOE_SLOTS,
+        s_max=MOE_S_MAX, n_requests=MOE_REQUESTS, prompt=MOE_PROMPT,
+        new=MOE_NEW, setup_s=time.perf_counter() - t0)
+    report["failures"] = failures + report["failures"]
+    if params["block"]["moe"]["router"]["w"].dtype != torch.float32:
+        report["failures"].append("moe serve: the router is not f32")
+    report["reduced"] = (f"S_max {MOE_S_MAX} (the granite cell's "
+                         f"{SERVE_S_MAX} does not fit beside the weights)")
+    # after the launch counts are read: profiling does not count
+    report["profile"] = profile_decode_step(engine, Request, device)
+    return report
+
+
+def moe_qwen3_phase(device, kernels) -> dict:
+    """Qwen3-235B-A22B at its published widths cut to QWEN3_LAYERS
+    layers, through ``ServeEngine``: the wgmma flash kernel at GQA 16:1
+    (64 heads over 4) and the paged kernel with 16 query heads a row."""
+    from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Request
+
+    failures = free_check("moe serve qwen3", device)
+    cfg = dataclasses.replace(CONFIG, n_layers=QWEN3_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    report, engine = serve_cell(
+        cfg, params, device, kernels, "moe serve qwen3", slots=QWEN3_SLOTS,
+        s_max=QWEN3_S_MAX, n_requests=QWEN3_REQUESTS, prompt=MOE_PROMPT,
+        new=QWEN3_NEW, setup_s=time.perf_counter() - t0)
+    report["failures"] = failures + report["failures"]
+    report["published_layers"] = CONFIG.n_layers
+    report["reduced"] = (f"layers {CONFIG.n_layers} -> {QWEN3_LAYERS} "
+                         f"({CONFIG.params_dense:,} parameters do not fit "
+                         "one card)")
+    report["profile"] = profile_decode_step(engine, Request, device)
+    return report
+
+
+def moe_parity_phase(device, kernels) -> dict:
+    """Both MoE configs at REDUCED in float32, served on the card and
+    replayed on the CPU with the card's tokens forced: logits within
+    PARITY_TOL, equal ``stats()`` and tokens, the same expert picks in
+    every ``moe_apply`` call and the same dropped count.  Their head dims
+    (16 and 8) take the scalar flash kernel: once per layer and prompt."""
+    from repro_torch.configs import moonshot_v1_16b_a3b, qwen3_moe_235b_a22b
+    from repro_torch.models.transformer import init_params
+
+    out: Dict[str, dict] = {}
+    failures: List[str] = []
+    kw = dict(batch_slots=4, s_max=512, page_size=SERVE_PAGE, chain_limit=3)
+    for mod in (moonshot_v1_16b_a3b, qwen3_moe_235b_a22b):
+        cfg = dataclasses.replace(mod.REDUCED, dtype=torch.float32)
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(2))
+        specs = parity_specs(cfg.vocab, 15)
+        t0 = time.perf_counter()
+        run = teacher_forced(cfg, params, device, kernels, specs, kw)
+        failures += parity_failures(f"moe parity {cfg.name}", run, {
+            "flash_attention": cfg.n_layers * len(specs),
+            "flash_attention_wgmma": 0,
+            "paged_attention": cfg.n_layers * run["card_stats"]["steps"]})
+        if run["moe_calls"] == 0:
+            failures.append(f"moe parity {cfg.name}: no moe_apply call")
+        out[cfg.name] = {
+            "selections": run["selections"],
+            "max_abs_logit_err": max(run["errs"]),
+            "tolerance": PARITY_TOL, "launches": run["launches"],
+            "moe_calls": run["moe_calls"],
+            "same_experts": run["same_experts"], "dropped": run["dropped"],
+            "steps": run["card_stats"]["steps"],
+            "seconds": time.perf_counter() - t0}
+    launches: Dict[str, int] = {}
+    for r in out.values():
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return {"configs": out, "launches": launches, "failures": failures}
+
+
+# ------------------------------------------------------------ LM training --
+def lm_route_grads(cfg, params: dict, batch: dict, attention: Callable) -> dict:
+    """One forward and backward of ``lm_loss`` with the model's attention
+    through ``attention`` (the kernel's ``autograd.Function``, or the
+    plain version under autograd): the loss and every leaf's gradient."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.tree import leaves, tree_map
+
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    orig, attn_mod.flash_attention_differentiable = (
+        attn_mod.flash_attention_differentiable, attention)
+    try:
+        loss, _ = lm_loss(cfg, live, batch["tokens"], batch["labels"])
+        grads = torch.autograd.grad(loss, leaves(live))
+    finally:
+        attn_mod.flash_attention_differentiable = orig
+    return {"loss": loss.detach(), "grads": grads}
+
+
+def lm_grad_failures(kernel: dict, plain: dict, names: List[str]) -> tuple:
+    """The kernel route's gradients against the plain route's on one
+    microbatch: the loss within LM_GRAD_LOSS_RTOL, each leaf within
+    LM_GRAD_REL_L2 in relative L2 norm and non-zero."""
+    failures: List[str] = []
+    loss_rel = abs(float(kernel["loss"]) / float(plain["loss"]) - 1)
+    if not loss_rel <= LM_GRAD_LOSS_RTOL:
+        failures.append(f"lm train: kernel route loss {float(kernel['loss'])!r}"
+                        f", plain route {float(plain['loss'])!r}")
+    rel = {}
+    for name, g, p in zip(names, kernel["grads"], plain["grads"]):
+        norm = float(p.double().norm())
+        rel[name] = float((g.double() - p.double()).norm()) / max(norm, 1e-30)
+        if not rel[name] <= LM_GRAD_REL_L2:
+            failures.append(f"lm train: gradient of {name} differs from the "
+                            f"plain route's by {rel[name]:.3g} (relative L2)")
+        if not bool(g.any()):
+            failures.append(f"lm train: kernel route gradient of {name} is 0")
+    return {"loss_rel_err": loss_rel, "max_rel_l2": max(rel.values()),
+            "rel_l2": rel}, failures
+
+
+def flash_backward_case(B: int, H: int, Hkv: int, S: int, D: int,
+                        gen: torch.Generator, device) -> dict:
+    """The flash ``Function``'s plain backward at a training shape, on
+    (B, S, heads, D) views as the model passes them, timed beside its
+    bound and the backward of ``scaled_dot_product_attention`` (K/V
+    expanded outside its timing); both against autograd of the plain
+    forward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_backward_plain,
+        flash_attention_plain,
+    )
+
+    q, k, v = flash_inputs(B, H, Hkv, S, D, torch.bfloat16, gen, device,
+                           views=True)
+    do = torch.randn(B, H, S, D, generator=gen, device=device).to(torch.bfloat16)
+    got = flash_attention_backward_plain(q, k, v, do, True)
+    ref_leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(*ref_leaves, True),
+                               ref_leaves, do)
+    checks = [elementwise_check(g, w, F32_TOL) for g, w in zip(got, want)]
+    del got, want, ref_leaves
+    ke = k.repeat_interleave(H // Hkv, dim=1).detach().requires_grad_(True)
+    ve = v.repeat_interleave(H // Hkv, dim=1).detach().requires_grad_(True)
+    qs = q.detach().requires_grad_(True)
+    out = F.scaled_dot_product_attention(qs, ke, ve, is_causal=True)
+    pairs = S * (S + 1) / 2
+    # recompute q k^T, then dO V^T, P^T dO, dS K and dS^T q: five
+    # products of 2 D flops a (query, key) pair and head
+    flops = 5 * 2 * B * H * D * pairs
+    nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * 2 * 2
+    return {
+        "shape": [B, H, Hkv, S, D], "dtype": "bfloat16", "causal": True,
+        "dq": checks[0], "dk": checks[1], "dv": checks[2],
+        "within_tolerance": all(c["within_tolerance"] for c in checks),
+        "ms": cuda_ms(lambda: flash_attention_backward_plain(q, k, v, do, True),
+                      reps=5),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            out, (qs, ke, ve), do, retain_graph=True), reps=5),
+        "bound_ms": max(flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / BF16_OPS_PER_S
+        >= nbytes / HBM_BYTES_PER_S else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+
+
+def lm_reduced_checks(device) -> dict:
+    """REDUCED granite-3-2b and Moonshot in f32 from the same seeded
+    masters and the launcher's batches: LM_TRAIN_PARITY_STEPS steps of
+    ``Trainer`` (the launcher's optimizer, 2 microbatches) on the card
+    against the CPU; per-step losses within TRAIN_LOSS_RTOL, parameters
+    and optimizer state within TRAIN_PARAM_TOL."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import synth_lm_batches
+    from repro_torch.models.transformer import init_params, lm_loss
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+
+    out: Dict[str, dict] = {}
+    failures: List[str] = []
+    opt = OptConfig(lr=3e-3, schedule="wsd", warmup_steps=20,
+                    total_steps=LM_TRAIN_PARITY_STEPS)
+    for arch in ("granite-3-2b", "moonshot-v1-16b-a3b"):
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  dtype=torch.float32)
+        params = init_params(cfg, torch.Generator().manual_seed(44),
+                             masters=True)
+        batches = synth_lm_batches(cfg.vocab, 4, 64)
+        runs = []
+        for where in (device, "cpu"):
+            tr = Trainer(lambda p, b: lm_loss(cfg, p, b["tokens"],
+                                              b["labels"])[0],
+                         params, TrainerConfig(opt=opt, microbatches=2,
+                                               log_every=1), device=where)
+            tr.fit(batches, LM_TRAIN_PARITY_STEPS)
+            runs.append(tr)
+        a, b = runs
+        loss_err = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                       for x, y in zip(a.history, b.history))
+        state_err = max(
+            float((x.cpu() - y).abs().max()) for x, y in
+            zip(leaves(a.params) + leaves(a.opt_state["mu"])
+                + leaves(a.opt_state["nu"]),
+                leaves(b.params) + leaves(b.opt_state["mu"])
+                + leaves(b.opt_state["nu"])))
+        if not loss_err <= TRAIN_LOSS_RTOL:
+            failures.append(f"lm train {arch} REDUCED: losses differ by "
+                            f"{loss_err:.3g} relative")
+        if not state_err <= TRAIN_PARAM_TOL:
+            failures.append(f"lm train {arch} REDUCED: parameters or "
+                            f"optimizer state differ by {state_err:.3g}")
+        out[arch] = {"steps": LM_TRAIN_PARITY_STEPS,
+                     "max_loss_rel_err": loss_err,
+                     "max_state_abs_err": state_err,
+                     "losses": [h["loss"] for h in a.history]}
+    out["failures"] = failures
+    return out
+
+
+def lm_train_phase(device, kernels) -> dict:
+    """granite-3-2b at its published widths and depth, f32 masters drawn
+    on the card, trained through ``Trainer`` with the bundle's
+    ``train_4k`` optimizer and microbatches on LM_TRAIN_BATCH x
+    LM_TRAIN_SEQ batches of the launcher's ``synth_lm_batches``: first
+    one microbatch's gradients through the kernel's ``Function`` and
+    through the plain version under autograd, then LM_TRAIN_WARMUP
+    warm-up and LM_TRAIN_TIMED timed steps (the wgmma flash kernel must
+    launch twice per layer and microbatch: the forward and the remat
+    recompute), one profiled step, AdamW alone, and the REDUCED checks."""
+    from repro_torch.configs.registry import get_bundle
+    from repro_torch.kernels.flash_attention import kernel as flash_mod
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.launch.train import synth_lm_batches
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.train.optim import adamw_update
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import flatten_with_path, leaves, path_name, tree_map
+
+    t0 = time.perf_counter()
+    failures = free_check("lm train", device)
+    bundle = get_bundle("granite-3-2b")
+    cfg, mb = bundle.config, bundle.microbatches
+    params = bundle.init(torch.Generator(device=device).manual_seed(0))
+    names = [path_name(p) for p, _ in flatten_with_path(params)]
+    n_params = sum(t.numel() for t in leaves(params))
+    if not all(t.dtype == torch.float32 for t in leaves(params)):
+        failures.append("lm train: masters are not all f32")
+    data = synth_lm_batches(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+
+    def batch_of(cursor):
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in data(cursor).items()}
+
+    # the gradient is real: kernel route against plain route, one microbatch
+    split_s = {}
+    t1 = time.perf_counter()
+    first = batch_of(10_000)
+    micro = {k: v[: LM_TRAIN_BATCH // mb] for k, v in first.items()}
+    kern = lm_route_grads(cfg, params, micro, flash_mod.flash_attention_differentiable)
+    plain = lm_route_grads(cfg, params, micro, lambda q, k, v, causal:
+                           flash_attention_plain(q, k, v, causal))
+    grad_check, fails = lm_grad_failures(kern, plain, names)
+    failures += fails
+    grad_check["loss"] = [float(kern["loss"]), float(plain["loss"])]
+    del kern, plain, first, micro
+    split_s["grad_check"] = time.perf_counter() - t1
+    log(f"lm train: gradient check done, device memory "
+        f"{torch.cuda.memory_allocated(device):,} B")
+
+    trainer = Trainer(bundle.loss_fn(), params, TrainerConfig(
+        opt=bundle.opt, microbatches=mb, log_every=1), device=device)
+    del params
+    n_steps = LM_TRAIN_WARMUP + LM_TRAIN_TIMED
+    batches = {c: batch_of(c) for c in range(n_steps + 1)}
+    get = batches.__getitem__
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log(f"lm train: {cfg.name}, {n_params:,} f32 parameters, batch "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} in {mb} microbatches, set-up "
+        f"{setup_s:.1f} s, device memory "
+        f"{torch.cuda.memory_allocated(device):,} B")
+    for k in kernels:
+        k.launches = 0
+        k.largest = None
+    for _ in range(LM_TRAIN_WARMUP):
+        trainer.fit(get, trainer.step_num + 1)
+        log(f"lm train: step {trainer.step_num}, loss "
+            f"{trainer.history[-1]['loss']:.4f}, peak "
+            f"{torch.cuda.max_memory_allocated(device):,} B")
+    step_s = []
+    for _ in range(LM_TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.fit(get, trainer.step_num + 1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    launches = {k.symbol: k.launches for k in kernels}
+    largest = {k.symbol: k.largest for k in kernels}
+    t1 = time.perf_counter()
+    expect = {"flash_attention_wgmma": 2 * cfg.n_layers * mb * n_steps,
+              "flash_attention": 0, "paged_attention": 0}
+    for name, n in expect.items():
+        if launches.get(name) != n:
+            failures.append(f"lm train: {name} launched {launches.get(name)} "
+                            f"times, {n} expected (forward and remat "
+                            f"recompute: 2 x {cfg.n_layers} layers x {mb} "
+                            f"microbatches x {n_steps} steps)")
+    losses = [h["loss"] for h in trainer.history]
+    if not all(np.isfinite(losses)) or len(losses) != n_steps:
+        failures.append(f"lm train: losses {losses}")
+    peak = torch.cuda.max_memory_allocated(device)
+    profile = profile_train_step(
+        trainer, get,
+        ranges={"flash_backward": (flash_mod, "flash_attention_backward_plain"),
+                "adamw_update": (trainer_mod, "adamw_update")},
+        forward=("flash_forward", "flash_attention"))
+    split_s["profile"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    grads = tree_map(torch.zeros_like, trainer.params)
+    adamw_ms = cuda_ms(lambda: adamw_update(bundle.opt, grads,
+                                            trainer.opt_state, trainer.params,
+                                            donate=True), reps=3)
+    del grads, trainer, batches
+    torch.cuda.empty_cache()
+    backward = flash_backward_case(
+        LM_TRAIN_BATCH // mb, cfg.n_heads, cfg.n_kv_heads, LM_TRAIN_SEQ,
+        cfg.d_head, torch.Generator(device=device).manual_seed(48), device)
+    if not backward["within_tolerance"]:
+        failures.append("flash attention's plain backward differs from "
+                        "autograd of the plain forward")
+    split_s["adamw_and_backward_alone"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    checks = lm_reduced_checks(device)
+    failures += checks.pop("failures")
+    failures += attention_grad_guard(device)
+    split_s["reduced_and_guard"] = time.perf_counter() - t1
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    return {
+        "arch": cfg.name, "parameters": n_params,
+        "state_bytes": 16 * n_params, "layers": cfg.n_layers,
+        "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ], "microbatches": mb,
+        "reduced": f"batch {bundle.shapes['train_4k'][0]} -> "
+        f"{LM_TRAIN_BATCH} sequences of {LM_TRAIN_SEQ}",
+        "opt": dataclasses.asdict(bundle.opt), "setup_s": setup_s,
+        "step": percentiles_ms(step_s),
+        "tokens_per_s": tokens * len(step_s) / sum(step_s),
+        "losses": losses, "launches": launches, "largest": largest,
+        "expected_launches": expect, "peak_mem_bytes": peak,
+        "profile": profile, "adamw_ms": adamw_ms, "backward": backward,
+        "grad_check": grad_check, "reduced_checks": checks,
+        "split_s": split_s,
+        "seconds": time.perf_counter() - t0, "failures": failures,
+    }
+
+
+def path_attention_phase(paths: Dict[str, dict], device) -> Dict[str, dict]:
+    """The attention kernels against their plain versions at the largest
+    shapes the MoE serving and LM training paths gave them (bf16): the
+    wgmma flash kernel on Moonshot's and Qwen3's prefill and on the
+    training microbatch's (B, S, H, D) views, the paged kernel on both
+    MoE decode steps."""
+    from repro_torch.kernels.flash_attention.kernel import FLASH_ATTENTION_WGMMA
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    rng = np.random.RandomState(10)
+    out: Dict[str, dict] = {"flash_attention_wgmma": {}, "paged_attention": {}}
+    for path, rep in paths.items():
+        shape = rep["largest"].get("flash_attention_wgmma")
+        if shape:
+            q, k, v = flash_inputs(*shape, torch.bfloat16, gen, device,
+                                   views=path == "lm_train")
+            out["flash_attention_wgmma"][f"{path}_bf16"] = flash_case(
+                q, k, v, True, FLASH_ATTENTION_WGMMA)
+            del q, k, v
+        shape = rep["largest"].get("paged_attention")
+        if shape:
+            R, G, max_pages, page, D = shape
+            n_kv = R // rep["slots"]
+            lens = rng.randint(MOE_PROMPT[0], MOE_PROMPT[1] + rep["new_tokens"]
+                               + 1, rep["slots"]).repeat(n_kv)
+            out["paged_attention"][f"{path}_bf16"] = paged_case(
+                R, G, D, page, max_pages, lens, torch.bfloat16, gen, device,
+                shuffled=False)
+    return out
 
 
 # ---------------------------------------------------------------- main --
@@ -2600,11 +3230,51 @@ def main(argv: Sequence[str] = ()) -> int:
     failures += train["failures"]
     log(f"recsys train phase: {train['seconds']:.1f} s")
 
-    # each serve kernel's launches come from its own path: bf16 serving,
-    # or the f32 parity engine for the scalar flash kernel
-    row_path = {FLASH_ATTENTION_WGMMA.symbol: serve,
-                FLASH_ATTENTION.symbol: parity,
-                PAGED_ATTENTION.symbol: serve}
+    t0 = time.perf_counter()
+    moe = moe_serve_phase(device, serve_kernels)
+    log("moe serve: " + json.dumps({k: v for k, v in moe.items()
+                                    if k != "profile"}))
+    log("moe serve profile: " + json.dumps(moe["profile"]))
+    failures += moe["failures"]
+    qwen3 = moe_qwen3_phase(device, serve_kernels)
+    log("moe serve qwen3: " + json.dumps({k: v for k, v in qwen3.items()
+                                          if k != "profile"}))
+    log("moe serve qwen3 profile: " + json.dumps(qwen3["profile"]))
+    failures += qwen3["failures"]
+    torch.cuda.empty_cache()
+    mparity = moe_parity_phase(device, serve_kernels)
+    log("moe parity: " + json.dumps(mparity))
+    failures += mparity["failures"]
+    log(f"moe phases: {time.perf_counter() - t0:.1f} s")
+
+    lm = lm_train_phase(device, serve_kernels)
+    log("lm train: " + json.dumps({k: v for k, v in lm.items()
+                                   if k not in ("profile", "grad_check")}))
+    log("lm train profile: " + json.dumps(lm["profile"]))
+    log("lm train gradients: " + json.dumps(
+        {k: v for k, v in lm["grad_check"].items() if k != "rel_l2"}))
+    failures += lm["failures"]
+    log(f"lm train phase: {lm['seconds']:.1f} s")
+    paths = {"moe_serve": moe, "moe_serve_qwen3": qwen3, "lm_train": lm}
+    path_attn = path_attention_phase(paths, device)
+    for name, cases in path_attn.items():
+        for where, case in cases.items():
+            log(f"kernel {name} {where}: " + json.dumps(case))
+            if not case["within_tolerance"]:
+                failures.append(f"{name} disagrees with its plain version "
+                                f"at {where} shape {case['shape']}: error "
+                                f"{case['max_err_ratio']:.3g} times its limit")
+            attn[name][where] = case
+
+    # each attention kernel's launches by path: bf16 serving (granite,
+    # Moonshot, Qwen3), the f32 parity engines (the scalar flash kernel's
+    # path) and LM training (forward and remat recompute)
+    launch_paths = {"serve": serve, "parity": parity, "moe_serve": moe,
+                    "moe_serve_qwen3": qwen3, "moe_parity": mparity,
+                    "lm_train": lm}
+    by_path = {k.symbol: {path: rep["launches"].get(k.symbol, 0)
+                          for path, rep in launch_paths.items()}
+               for k in serve_kernels}
     # the search path's own launch: a decoded chunk, a join round
     search_case = {VARINT_DECODE.symbol: "search",
                    SORTED_MEMBER_MASK.symbol: "round"}
@@ -2633,7 +3303,10 @@ def main(argv: Sequence[str] = ()) -> int:
             "route": "cuda",
             "source": k.source,
             "replaces": k.replaces,
-            "launches": row_path[k.symbol]["launches"][k.symbol],
+            "launches": sum(by_path[k.symbol].values()),
+            "launches_by_path": by_path[k.symbol],
+            **({"backward": lm["backward"]}
+               if k is FLASH_ATTENTION_WGMMA else {}),
             **{key: attn[k.symbol][f"serve_{row_dtype[k.symbol]}"][key]
                for key in ("max_abs_err", "max_err_ratio", "ms",
                            "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2673,6 +3346,8 @@ def main(argv: Sequence[str] = ()) -> int:
              "serve": serve, "parity": parity, "attention": attn,
              "recsys": recsys, "recsys_parity": rparity,
              "embedding_bag": bags, "recsys_train": train,
+             "moe_serve": moe, "moe_serve_qwen3": qwen3,
+             "moe_parity": mparity, "lm_train": lm,
              "kernels": line["kernels"], "failures": failures}, indent=1))
     if failures:
         for f in failures:

@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Run some of ``chip_smoke.py``'s MoE and LM-training phases alone on one
+CUDA card, to iterate on them without the whole smoke run.
+
+    python3 scripts/smoke_phases.py moe,qwen3,mparity,lm,guard,attn \
+        [--out build/smoke_phases.json]
+
+Phases: ``moe`` (Moonlight-16B-A3B served at its full config), ``qwen3``
+(Qwen3-235B-A22B widths at 8 layers), ``mparity`` (both MoE configs at
+REDUCED, card against CPU), ``lm`` (granite-3-2b trained at its published
+widths), ``guard`` (the attention wrappers' grad guard and the flash
+``Function``), ``attn`` (both attention kernels at the shapes the
+``moe``, ``qwen3`` and ``lm`` phases gave them).  Builds the kernels,
+turns TF32 off as the smoke run does, runs the phases in that order,
+prints each one's failures and main numbers, writes the full reports as
+JSON, and exits 1 if any phase failed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PHASES = ("moe", "qwen3", "mparity", "lm", "guard", "attn")
+PATH_NAMES = {"moe": "moe_serve", "qwen3": "moe_serve_qwen3", "lm": "lm_train"}
+SUMMARY_KEYS = ("tokens_per_s", "prefill", "decode_step", "dropped",
+                "peak_mem_bytes", "serve_peak_mem_bytes", "launches", "step",
+                "grad_check", "configs", "reduced_checks", "backward",
+                "adamw_ms", "setup_s", "split_s", "seconds", "failures")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("phases", help="comma-separated, of " + ",".join(PHASES))
+    ap.add_argument("--out", default="build/smoke_phases.json")
+    args = ap.parse_args(argv)
+    wanted = args.phases.split(",")
+    unknown = set(wanted) - set(PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}")
+    if not torch.cuda.is_available():
+        print("smoke_phases: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
+    import chip_smoke as cs
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.flash_attention.kernel import (
+        FLASH_ATTENTION,
+        FLASH_ATTENTION_WGMMA,
+    )
+    from repro_torch.kernels.paged_attention.kernel import PAGED_ATTENTION
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    kernels = (FLASH_ATTENTION_WGMMA, FLASH_ATTENTION, PAGED_ATTENTION)
+    t0 = time.perf_counter()
+    cuda_lib.build()
+    cs.log(f"build: {time.perf_counter() - t0:.1f} s")
+    cs.log(cs.smi_line())
+    calls = {
+        "moe": lambda: cs.moe_serve_phase(device, kernels),
+        "qwen3": lambda: cs.moe_qwen3_phase(device, kernels),
+        "mparity": lambda: cs.moe_parity_phase(device, kernels),
+        "lm": lambda: cs.lm_train_phase(device, kernels),
+        "guard": lambda: {"failures": cs.attention_grad_guard(device)},
+        "attn": lambda: {"failures": [], "cases": cs.path_attention_phase(
+            {PATH_NAMES[k]: out[k] for k in PATH_NAMES if k in out},
+            device)},
+    }
+    out: dict = {"smi": cs.smi_line()}
+    failed = False
+    for name in PHASES:
+        if name not in wanted:
+            continue
+        t0 = time.perf_counter()
+        out[name] = calls[name]()
+        failed |= bool(out[name]["failures"])
+        cs.log(f"{name}: {time.perf_counter() - t0:.1f} s, " + json.dumps(
+            {k: v for k, v in out[name].items() if k in SUMMARY_KEYS}))
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(out, indent=1, default=str))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,3 +22,6 @@ REDUCED = TransformerConfig(
     n_layers=2, d_model=64, n_heads=8, n_kv_heads=2, d_head=8,
     d_ff=256, vocab=512, tie_embeddings=True, loss_chunk=32, flash_chunk=16,
 )
+
+# the reference bundle's train_4k microbatches
+MICROBATCHES = 4

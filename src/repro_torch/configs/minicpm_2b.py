@@ -1,8 +1,9 @@
 """minicpm-2b [arXiv:2404.06395; hf]: 40L d_model=2304 36H (MHA kv=36)
-d_ff=5760 vocab=122753, tied embeddings (MiniCPM ties).  The reference's
-WSD optimizer schedule comes with the training slice."""
+d_ff=5760 vocab=122753, tied embeddings (MiniCPM ties), trained with the
+WSD schedule."""
 
 from repro_torch.models.transformer import TransformerConfig
+from repro_torch.train.optim import OptConfig
 
 CONFIG = TransformerConfig(
     name="minicpm-2b",
@@ -23,3 +24,10 @@ REDUCED = TransformerConfig(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_head=16,
     d_ff=160, vocab=512, tie_embeddings=True, loss_chunk=32, flash_chunk=16,
 )
+
+# the reference bundle's train_4k microbatches
+MICROBATCHES = 4
+
+# the WSD (warmup-stable-decay) schedule is the arch's signature trainer
+OPT = OptConfig(lr=1e-2 / 4, schedule="wsd", warmup_steps=500,
+                total_steps=50_000, decay_fraction=0.1)

@@ -23,3 +23,6 @@ REDUCED = TransformerConfig(
     d_ff=192, vocab=512, qkv_bias=True, tie_embeddings=False,
     loss_chunk=32, flash_chunk=16,
 )
+
+# the reference bundle's train_4k microbatches
+MICROBATCHES = 4

@@ -1,22 +1,34 @@
-"""Architecture registry of the port: ``--arch`` id -> config.
+"""Architecture registry of the port: ``--arch`` id -> config and bundle.
 
 The reference maps every id to a bundle (config, init, sharding rules,
-step functions).  The port serves the dense LM ids (``get_config`` gives
-their ``TransformerConfig``) and the recsys ids (``get_config`` gives
-their config, ``get_serving`` their score and retrieval functions and
-cell sizes, ``get_training`` their training cell); MoE and GNN ids raise
-``NotImplementedError`` naming the
-ROADMAP.md item that ports them.  ``family`` tells the families apart
-as the reference's bundles do.
+step functions).  The port has the LM ids, dense and MoE (``get_config``
+gives their ``TransformerConfig``, ``get_bundle`` their
+:class:`~repro_torch.configs.families.LMBundle`), and the recsys ids
+(``get_config`` gives their config, ``get_serving`` their score and
+retrieval functions and cell sizes, ``get_training`` their training
+cell, ``get_bundle`` both); the GNN id raises ``NotImplementedError``
+naming the ROADMAP.md item that ports it.  ``family`` tells the families
+apart as the reference's bundles do; ``shape_cells`` and ``all_cells``
+list the reference's cells.  No bundle carries sharding rules (ROADMAP.md
+queue 1, item 12).
 """
 
 from __future__ import annotations
 
 import importlib
 
-from typing import Any
+from typing import Any, List, Tuple, Union
 
-from repro_torch.configs.families import RecsysServing, RecsysTraining
+from repro_torch.configs.families import (
+    LM_SHAPES,
+    RECSYS_SHAPES,
+    REDUCED_LM_CELL_SHAPES,
+    LMBundle,
+    RecsysBundle,
+    RecsysServing,
+    RecsysTraining,
+    lm_bundle,
+)
 
 ARCH_IDS = [
     "minicpm-2b",
@@ -37,6 +49,12 @@ _MODULES = {
     "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
 }
 SERVE_ARCH_IDS = list(_MODULES)   # the dense LM ids
+_MOE_MODULES = {
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+}
+MOE_ARCH_IDS = list(_MOE_MODULES)
+LM_ARCH_IDS = SERVE_ARCH_IDS + MOE_ARCH_IDS
 _RECSYS_MODULES = {
     "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
     "din": "repro_torch.configs.din_cfg",
@@ -46,10 +64,9 @@ _RECSYS_MODULES = {
 RECSYS_ARCH_IDS = list(_RECSYS_MODULES)
 
 _NOT_PORTED = {
-    "moonshot-v1-16b-a3b": "MoE LM: ROADMAP.md queue 1, item 10",
-    "qwen3-moe-235b-a22b": "MoE LM: ROADMAP.md queue 1, item 10",
     "mace": "GNN: ROADMAP.md queue 1, item 11",
 }
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
 
 
 def family(arch: str) -> str:
@@ -66,7 +83,8 @@ def family(arch: str) -> str:
 def _module(arch: str):
     if arch in _NOT_PORTED:
         raise NotImplementedError(f"{arch} is not ported yet ({_NOT_PORTED[arch]})")
-    name = _MODULES.get(arch) or _RECSYS_MODULES.get(arch)
+    name = (_MODULES.get(arch) or _MOE_MODULES.get(arch)
+            or _RECSYS_MODULES.get(arch))
     if name is None:
         raise KeyError(f"unknown arch {arch!r}; expected one of {ARCH_IDS}")
     return importlib.import_module(name)
@@ -91,3 +109,28 @@ def get_training(arch: str, reduced: bool = False) -> RecsysTraining:
     if family(arch) != "recsys":
         raise ValueError(f"{arch} is not a recsys arch")
     return _module(arch).training(reduced=reduced)
+
+
+def get_bundle(arch: str, reduced: bool = False) -> Union[LMBundle, RecsysBundle]:
+    """The arch's bundle: an LM arch's :class:`LMBundle` (the reference
+    bundle's cell shapes, microbatches and optimizer), a recsys arch's
+    :class:`RecsysBundle`."""
+    mod = _module(arch)
+    if family(arch) == "recsys":
+        return RecsysBundle(name=arch, serving=mod.serving(reduced=reduced),
+                            training=mod.training(reduced=reduced))
+    opt = getattr(mod, "OPT", None)
+    if reduced:
+        return lm_bundle(arch, mod.REDUCED, shapes=REDUCED_LM_CELL_SHAPES,
+                         opt=opt)
+    return lm_bundle(arch, mod.CONFIG, opt=opt, microbatches=mod.MICROBATCHES)
+
+
+def shape_cells(arch: str) -> List[str]:
+    """The arch's cells, in the reference's order (a GNN id's too)."""
+    return list({"lm": LM_SHAPES, "gnn": GNN_SHAPES,
+                 "recsys": RECSYS_SHAPES}[family(arch)])
+
+
+def all_cells() -> List[Tuple[str, str]]:
+    return [(a, s) for a in ARCH_IDS for s in shape_cells(a)]

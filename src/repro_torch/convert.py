@@ -12,16 +12,13 @@ from __future__ import annotations
 from typing import Any, Mapping, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.lexicon import Lexicon
 from repro_torch.data.world import World
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.recsys import param_dtype
-from repro_torch.models.transformer import (
-    Params,
-    TransformerConfig,
-    require_dense,
-)
+from repro_torch.models.transformer import Params, TransformerConfig
 from repro_torch.nn.layers import cast_params
 
 _INT_FIELDS = ("n_words", "n_lemmas", "known_cutoff")
@@ -58,13 +55,22 @@ def world_from_arrays(
 
 
 def transformer_params_from_jax(cfg: TransformerConfig, params_np,
-                                device: DeviceLike = None) -> Params:
+                                device: DeviceLike = None,
+                                masters: bool = False) -> Params:
     """The port's transformer parameters from the reference's
     ``init_params`` tree with every leaf turned into a numpy array (the
-    same nested dict).  Norm gains stay f32; every other weight is cast to
-    ``cfg.dtype`` once, as the reference casts it at each use."""
-    require_dense(cfg)
-    return cast_params(params_np, cfg.dtype, resolve_device(device))
+    same nested dict, the ``block.moe`` subtree included).  For serving,
+    every weight is cast to ``cfg.dtype`` once, as the reference casts it
+    at each use; with ``masters`` (training) every leaf stays f32, the
+    reference's own layout.  Norm gains and the MoE router
+    (``block.moe.router.w``, which routes in f32) stay f32 either way."""
+    dev = resolve_device(device)
+    out = cast_params(params_np, torch.float32 if masters else cfg.dtype, dev)
+    moe = out.get("block", {}).get("moe")
+    if moe is not None:
+        moe["router"] = cast_params(params_np["block"]["moe"]["router"],
+                                    torch.float32, dev)
+    return out
 
 
 def recsys_params_from_jax(cfg: Any, params_np, device: DeviceLike = None,

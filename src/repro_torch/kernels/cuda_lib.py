@@ -182,17 +182,17 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
         raise ValueError(f"{name} lies on unsupported device {t.device}")
 
 
-def require_no_grad(kernel: str, *operands: torch.Tensor) -> None:
+def require_no_grad(kernel: str, *operands: torch.Tensor,
+                    hint: str = "call it under torch.no_grad()") -> None:
     """Raise where autograd would record a kernel call that has no
     backward: the output of a ``ctypes`` launch has no ``grad_fn``, so a
-    loss through it would leave the operands' gradients silently unset."""
+    loss through it would leave the operands' gradients silently unset.
+    ``hint`` says what to call instead."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         raise RuntimeError(
             f"{kernel}: the CUDA kernel has no backward, and an operand "
-            "requires grad; differentiable attention on the card comes with "
-            "LM training (ROADMAP.md queue 1, item 10).  Call it under "
-            "torch.no_grad(), or on CPU tensors, whose plain version "
-            "differentiates")
+            f"requires grad; {hint}, or pass CPU tensors, whose plain "
+            "version differentiates")
 
 
 # dtype codes of the float kernels' C entry points

@@ -1,2 +1,5 @@
-from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F401
+from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
+    flash_attention,
+    flash_attention_differentiable,
+)
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain  # noqa: F401

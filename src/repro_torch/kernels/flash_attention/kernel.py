@@ -20,6 +20,12 @@ Two routes, chosen by :func:`flash_route` from the dtype and D alone:
 
 It is a choice between two hand-written kernels, each with its own launch
 count, never a retry: a CUDA error from either raises.
+
+Under autograd, :func:`flash_attention_differentiable` is one
+``torch.autograd.Function``: its forward is :func:`flash_attention` (the
+kernel on CUDA, the plain version on the CPU) and its backward is
+``ref.flash_attention_backward_plain`` on both devices.  The bare
+wrapper has no backward and refuses operands that require grad.
 """
 
 from __future__ import annotations
@@ -36,7 +42,10 @@ from repro_torch.kernels.cuda_lib import (
     check_float_operand,
     require_no_grad,
 )
-from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_backward_plain,
+    flash_attention_plain,
+)
 
 FLASH_ATTENTION = CudaKernel(
     "flash_attention",
@@ -55,6 +64,9 @@ FLASH_ATTENTION_WGMMA = CudaKernel(
 )
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
+# what the bare wrapper's grad guard says to call instead
+NO_GRAD_HINT = ("differentiate through flash_attention_differentiable, whose "
+                "backward is plain PyTorch")
 WGMMA_HEAD_DIMS = (64, 128)
 TMA_ALIGN = 16       # bytes: TMA's base and stride unit
 TMA_MAX_STRIDE = 1 << 40
@@ -96,7 +108,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous last dim (other strides are free, but for the wgmma route's
     16-byte conditions).  CUDA tensors go through the kernel that
     :func:`flash_route` names, which has no backward: under grad mode an
-    operand that requires grad raises.  CPU tensors go through
+    operand that requires grad raises (differentiate through
+    :func:`flash_attention_differentiable`).  CPU tensors go through
     :func:`flash_attention_plain`, which differentiates."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_float_operand(t, name, 4)
@@ -116,7 +129,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal)
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
-    require_no_grad("flash_attention", q, k, v)
+    require_no_grad("flash_attention", q, k, v, hint=NO_GRAD_HINT)
     return run_kernel(flash_route(q.dtype, D), q, k, v, causal)
 
 
@@ -150,3 +163,34 @@ def run_kernel(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor,
         int(causal), 1.0 / math.sqrt(D),
     )
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd.  The reference differentiates its
+    jnp attention (``repro.models.attention``) and has no backward
+    kernel, so there is none to port: the forward keeps the hand kernel
+    on the training path, and one plain backward serves both devices,
+    so the CPU tests run the same ``Function`` that the card does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = flash_attention(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward_plain(q, k, v, grad_out,
+                                                    ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_differentiable(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor,
+                                   causal: bool = True) -> torch.Tensor:
+    """:func:`flash_attention` (same operands, same output) with a
+    backward: ``flash_attention_backward_plain`` from the saved q, k and
+    v."""
+    return _FlashAttention.apply(q, k, v, causal)

@@ -7,4 +7,7 @@ and widens it in two ways: K/V may have fewer heads than q (GQA, head
 There are no block-size arguments: the CUDA kernel's tiles are fixed.
 """
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention  # noqa: F401
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: F401
+    flash_attention,
+    flash_attention_differentiable,
+)

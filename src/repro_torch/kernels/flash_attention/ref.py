@@ -1,7 +1,10 @@
 """The plain PyTorch version of flash attention: the function that
 ``repro.kernels.flash_attention.ref`` states, in the CUDA kernel's
 arithmetic.  The wrapper in ``kernel.py`` takes it for CPU tensors; the
-card's checks hold the kernel against it."""
+card's checks hold the kernel against it.  Its gradient,
+:func:`flash_attention_backward_plain`, is the backward of the
+attention ``autograd.Function`` on both devices: the reference
+differentiates its jnp attention, and has no backward kernel to port."""
 
 from __future__ import annotations
 
@@ -27,3 +30,49 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", p, vf).to(q.dtype)
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, grad_out: torch.Tensor,
+                                   causal: bool = True, rows: int = 512):
+    """The gradient of :func:`flash_attention_plain`: ``(dq, dk, dv)`` in
+    the operands' dtypes, from the saved operands alone.
+
+    P is recomputed in f32 (the forward's scores, mask and exact
+    softmax) and O = P V with it; then ``dv = P^T dO``, ``dS = P * (dO
+    V^T - rowsum(dO * O))``, ``dq = dS K / sqrt(D)`` and ``dk = dS^T q /
+    sqrt(D)``, all in f32 and cast once; a KV head's ``dk`` and ``dv`` sum
+    over the query heads of its group.  The query rows go ``rows`` at a
+    time, so no (S, S) tensor of a whole head is held: causal chunks read
+    only the keys up to their last row.  The (rows, S) passes run in
+    place where they can: the backward's time is those passes."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float().reshape(B, Hkv, G, S, D)
+    dof = grad_out.float().reshape(B, Hkv, G, S, D)
+    kf, vf = k.float(), v.float()
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    pos = torch.arange(S, device=q.device)
+    for i0 in range(0, S, rows):
+        i1 = min(S, i0 + rows)
+        t1 = i1 if causal else S
+        qi, doi = qf[:, :, :, i0:i1], dof[:, :, :, i0:i1]
+        kj, vj = kf[:, :, :t1], vf[:, :, :t1]
+        s = torch.einsum("bngsd,bntd->bngst", qi, kj).mul_(scale)
+        if causal:
+            s.masked_fill_(pos[None, :t1] > pos[i0:i1, None], NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        del s
+        delta = (doi * torch.einsum("bngst,bntd->bngsd", p, vj)).sum(
+            -1, keepdim=True)
+        dv[:, :, :t1] += torch.einsum("bngst,bngsd->bntd", p, doi)
+        ds = torch.einsum("bngsd,bntd->bngst", doi, vj).sub_(delta).mul_(p)
+        del p
+        dq[:, :, :, i0:i1] = torch.einsum("bngst,bntd->bngsd", ds, kj) * scale
+        dk[:, :, :t1] += torch.einsum("bngst,bngsd->bntd", ds, qi) * scale
+    return (dq.reshape(B, H, S, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

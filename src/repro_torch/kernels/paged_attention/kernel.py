@@ -128,7 +128,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_attention_plain(q, k_pool, v_pool, block_table, lengths)
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
-    require_no_grad("paged_attention", q, k_pool, v_pool)
+    require_no_grad("paged_attention", q, k_pool, v_pool,
+                    hint="it serves decode only: call it under torch.no_grad()")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("block_table", block_table), ("lengths", lengths)):
         if not t.is_contiguous():

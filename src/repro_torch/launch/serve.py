@@ -5,10 +5,9 @@ the CUDA card by default.
         --requests 16 --slots 4 [--device cpu]
 
 Serves the arch's reduced configuration with seeded random weights, as
-the reference launcher (``repro.launch.serve``) does.  A recsys or GNN
-id exits with "<arch> is not an LM arch", as the reference's does; an LM
-arch the port does not serve yet (MoE) raises ``NotImplementedError``
-naming its ROADMAP.md item.
+the reference launcher (``repro.launch.serve``) does: every LM arch,
+dense and MoE.  A recsys or GNN id exits with "<arch> is not an LM
+arch", as the reference's does.
 """
 
 from __future__ import annotations

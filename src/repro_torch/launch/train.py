@@ -1,0 +1,110 @@
+"""Training launcher, the port of ``repro.launch.train``: ``--arch <id>``
+through ``Trainer`` with ``lm_loss``, on the CUDA card by default.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
+        --steps 200 --ckpt-dir /tmp/ckpt [--device cpu]
+
+Trains the arch's reduced configuration (``--full``: the published one)
+from f32 masters drawn from seed 0, with the reference launcher's
+optimizer (``OptConfig(lr=3e-3, schedule="wsd", warmup_steps=20)``) on
+``synth_lm_batches``, the reference's seeded Zipf batches.  ``--device``
+takes the place of the reference's ``--mesh``: a mesh other than
+``host`` is ROADMAP.md queue 1, item 12, and raises.  A recsys or GNN id
+exits with the reference's message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import ARCH_IDS, family, get_bundle
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import lm_loss
+from repro_torch.train.optim import OptConfig
+from repro_torch.train.trainer import Trainer, TrainerConfig
+from repro_torch.tree import leaves
+
+
+def synth_lm_batches(vocab: int, batch: int, seq: int
+                     ) -> Callable[[int], Dict[str, np.ndarray]]:
+    """``fn(cursor)``: the batch of data cursor ``cursor``, seeded by it
+    (numpy ``RandomState``, as the reference): sorted Zipf(1.5) tokens
+    modulo ``vocab`` and their next tokens as labels (-1 at the end)."""
+    def fn(cursor: int):
+        rng = np.random.RandomState(cursor)
+        toks = np.sort(rng.zipf(1.5, size=(batch, seq)) % vocab, axis=1)
+        labels = np.roll(toks, -1, axis=1)
+        labels[:, -1] = -1
+        return {"tokens": toks.astype(np.int32),
+                "labels": labels.astype(np.int32)}
+
+    return fn
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Trainer:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="granite-3-2b")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--full", action="store_true",
+                    help="the published config (f32 masters and AdamW "
+                    "state: 16 B a parameter on the card)")
+    ap.add_argument("--mesh", choices=["host", "single", "multi"],
+                    default="host")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--compress-grads", action="store_true")
+    args = ap.parse_args(argv)
+
+    if args.mesh != "host":
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: sharding over a mesh is not ported yet "
+            "(ROADMAP.md queue 1, item 12)")
+    if family(args.arch) != "lm":
+        raise SystemExit(
+            f"{args.arch} is a {family(args.arch)} arch; this launcher drives "
+            "the LM family (see examples/ for the others)"
+        )
+    device = resolve_device(args.device)
+    bundle = get_bundle(args.arch, reduced=not args.full)
+    cfg = bundle.config
+    params = bundle.init(torch.Generator(device=device).manual_seed(0))
+    n = sum(t.numel() for t in leaves(params))
+    print(f"arch={args.arch} params={n/1e6:.1f}M device={device}")
+
+    trainer = Trainer(
+        lambda p, b: lm_loss(cfg, p, b["tokens"], b["labels"])[0],
+        params,
+        TrainerConfig(
+            opt=OptConfig(lr=3e-3, schedule="wsd", warmup_steps=20,
+                          total_steps=args.steps),
+            microbatches=args.microbatches,
+            compress_grads=args.compress_grads,
+            ckpt_dir=args.ckpt_dir or None,
+            ckpt_every=100,
+            log_every=20,
+        ),
+        device=device,
+    )
+    del params
+    if args.ckpt_dir and trainer.try_resume():
+        print(f"resumed at step {trainer.step_num}")
+
+    batches = synth_lm_batches(cfg.vocab, args.batch, args.seq)
+    t0 = time.time()
+    last = trainer.fit(batches, args.steps)
+    dt = time.time() - t0
+    print(f"done: {trainer.step_num} steps in {dt:.1f}s, metrics={last}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

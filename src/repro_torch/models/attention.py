@@ -3,8 +3,10 @@
   * ``mha``               — full materialized scores, plain PyTorch (kept
                             as the reference's small-S oracle; not on the
                             serving path)
-  * ``attention``         — prefill: causal attention through the flash
-                            kernel (``kernels.flash_attention``)
+  * ``attention``         — prefill and training: causal attention
+                            through the flash kernel under its
+                            ``autograd.Function``
+                            (``kernels.flash_attention``)
   * ``decode_attention``  — one query token against a (B, S_max, n_kv, D)
                             slot cache with a valid-length mask, through
                             the paged kernel (``kernels.paged_attention``)
@@ -33,7 +35,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention_differentiable,
+)
 from repro_torch.kernels.paged_attention.ops import paged_attention
 
 NEG_INF = -1e30
@@ -70,11 +74,12 @@ def mha(
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True) -> torch.Tensor:
     """(B, S, H, D) queries over (B, S, n_kv, D) keys and values through
-    the flash kernel; (B, S, H, D) out.  The kernel reads the (B, H, S, D)
-    views through their strides, so nothing is transposed in memory on
-    the way in."""
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal)
+    the flash kernel; (B, S, H, D) out, differentiable (the kernel's
+    ``autograd.Function``, whose backward is plain PyTorch).  The kernel
+    reads the (B, H, S, D) views through their strides, so nothing is
+    transposed in memory on the way in."""
+    out = flash_attention_differentiable(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal)
     return out.transpose(1, 2)
 
 

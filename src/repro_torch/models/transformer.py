@@ -1,16 +1,21 @@
-"""Decoder-only transformer: the serving entry points of
-``repro.models.transformer`` (dense configurations).
+"""Decoder-only transformer family (dense + MoE), the port of
+``repro.models.transformer``: the serving entry points (``prefill``,
+``decode_step``) and the training ones (``backbone``, ``lm_loss``).
 
-GQA with optional QKV bias, RoPE, SwiGLU MLP, RMSNorm, tied or untied
-unembedding.  ``prefill`` and ``decode_step`` keep the reference's bf16/f32
-casts step for step; the layer ``scan`` is a Python loop.  Differences,
-none of which changes a value:
+GQA with optional QKV bias, RoPE, SwiGLU MLP or MoE FFN
+(``models.moe``), RMSNorm, tied or untied unembedding.  Every entry point
+keeps the reference's bf16/f32 casts step for step; the layer ``scan`` is
+a Python loop.  Differences, none of which changes a value:
 
-  * parameters are held in ``cfg.dtype`` once (norm gains stay f32),
-    where the reference keeps f32 masters and casts at every call;
+  * serving parameters are held in ``cfg.dtype`` once (norm gains and
+    the MoE router stay f32), where the reference keeps f32 masters and
+    casts at every call; training takes f32 masters
+    (``init_params(..., masters=True)``) and casts at every use, as the
+    reference does;
   * the rotary tables are computed once per call, not per layer;
-  * prefill attention runs through the flash kernel and decode attention
-    through the paged kernel (``models.attention``);
+  * attention runs through the flash kernel (prefill and training, the
+    latter under its ``autograd.Function``) and decode attention through
+    the paged kernel (``models.attention``);
   * the KV cache is head-major, (L, B, n_kv, S_max, D) — the reference's
     is (L, B, S_max, n_kv, D) — so each layer's cache is a page pool for
     the paged kernel; the cache dict also carries that view's ``page``
@@ -19,11 +24,11 @@ none of which changes a value:
     ``[b, :, len[b]]`` and returns the same cache dict with ``len``
     advanced, where the reference selects with a one-hot mask over the
     whole cache and returns a new one.  A row whose length has reached
-    S_max is left unwritten, as the reference's select leaves it.
-
-A configuration with ``moe`` set raises ``NotImplementedError``: MoE
-serving is ROADMAP.md queue 1, item 10.  ``backbone`` and ``lm_loss``
-come with the training slice.
+    S_max is left unwritten, as the reference's select leaves it;
+  * ``remat`` recomputes each block in the backward pass
+    (``torch.utils.checkpoint``) under both of the reference's policies,
+    and ``lm_loss`` recomputes each loss chunk's logits: memory, not
+    values.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (
@@ -41,27 +47,29 @@ from repro_torch.models.attention import (
     slot_decode_attention,
     slot_page,
 )
-from repro_torch.models.moe import MoEConfig
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 from repro_torch.nn.layers import (
     apply_rope,
     dense_init,
     embedding_init,
     rms_norm,
     rope_tables,
+    softmax_xent,
 )
+from repro_torch.tree import leaves, tree_map
 
 Params = Dict[str, Any]
 
 DEFAULT_PAGE = 16
+AUX_SUMS = ("dropped_tokens", "balance_loss")   # MoE aux values, per layer
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The reference's configuration.  ``loss_chunk`` and ``flash_chunk``
-    are carried so configs compare field for field; the training slice
-    reads ``loss_chunk``, and nothing reads ``flash_chunk`` (the flash
-    kernel has no chunk).  The reference's ``remat`` and ``att_shard``
-    (training and sharding knobs) are left out."""
+    """The reference's configuration.  ``flash_chunk`` is carried so
+    configs compare field for field; nothing reads it (the flash kernel
+    has no chunk).  The reference's ``att_shard`` (a sharding knob) is
+    left out."""
 
     name: str
     n_layers: int
@@ -77,6 +85,7 @@ class TransformerConfig:
     tie_embeddings: bool = True
     moe: Optional[MoEConfig] = None
     dtype: torch.dtype = torch.bfloat16
+    remat: str = "dots"          # none | dots | full
     loss_chunk: int = 512
     flash_chunk: int = 1024
 
@@ -96,90 +105,236 @@ class TransformerConfig:
         emb = V * d * (1 if self.tie_embeddings else 2)
         return L * (att + ff + 2 * d) + emb + d
 
-
-def require_dense(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet "
-            "(ROADMAP.md queue 1, item 10)"
-        )
+    @property
+    def params_active(self) -> int:
+        """Active parameters per token (MoE: top_k + shared experts only)."""
+        if not self.moe:
+            return self.params_dense
+        d, L = self.d_model, self.n_layers
+        att = d * (self.n_heads * self.d_head) + 2 * d * (
+            self.n_kv_heads * self.d_head
+        ) + (self.n_heads * self.d_head) * d
+        ff = (self.moe.top_k + self.moe.n_shared_experts) * 3 * d * self.moe.d_ff
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return L * (att + ff + 2 * d) + emb + d
 
 
 # ------------------------------------------------------------------- init ---
-def init_params(cfg: TransformerConfig, gen: torch.Generator) -> Params:
+def _stacked(L: int, make) -> Params:
+    """The layers of ``make()`` (a tree of one layer's tensors, drawn on
+    each call) stacked along a new first axis, drawn one layer at a time
+    into preallocated tensors: no stacked f32 copy of a whole weight ever
+    exists (Moonshot's experts alone would be 35 GB of it)."""
+    out = None
+    for i in range(L):
+        layer = make()
+        if out is None:
+            out = tree_map(lambda t: torch.empty((L,) + tuple(t.shape),
+                                                 dtype=t.dtype,
+                                                 device=t.device), layer)
+        for dst, src in zip(leaves(out), leaves(layer)):
+            dst[i].copy_(src)
+        del layer
+    return out
+
+
+def init_params(cfg: TransformerConfig, gen: torch.Generator,
+                masters: bool = False) -> Params:
     """Seeded random weights on ``gen``'s device, in the reference's
-    structure and scales (``dense_init``, ``embedding_init``), matrices
-    cast to ``cfg.dtype`` once."""
-    require_dense(cfg)
+    structure and scales (``dense_init``, ``embedding_init``,
+    ``moe_init``).  Matrices are held in ``cfg.dtype`` (serving), or in
+    f32 with ``masters`` (training, the reference's own layout); norm
+    gains and the MoE router are f32 either way."""
     L, d = cfg.n_layers, cfg.d_model
     qd = cfg.n_heads * cfg.d_head
     kvd = cfg.n_kv_heads * cfg.d_head
     dev = gen.device
+    wdt = torch.float32 if masters else cfg.dtype
 
     def stack(d_in, d_out, bias=False):
-        layers = [dense_init(gen, d_in, d_out, bias=bias) for _ in range(L)]
-        return {k: torch.stack([p[k] for p in layers]).to(cfg.dtype)
-                for k in layers[0]}
+        return _stacked(L, lambda: {
+            k: v.to(wdt) for k, v in dense_init(gen, d_in, d_out,
+                                                bias=bias).items()})
 
     def ones(*shape):
         return torch.ones(shape, dtype=torch.float32, device=dev)
 
-    params: Params = {
-        "embed": {"table": embedding_init(gen, cfg.vocab, d)["table"].to(cfg.dtype)},
-        "ln_f": ones(d),
-        "block": {
-            "ln1": ones(L, d),
-            "ln2": ones(L, d),
-            "wq": stack(d, qd, cfg.qkv_bias),
-            "wk": stack(d, kvd, cfg.qkv_bias),
-            "wv": stack(d, kvd, cfg.qkv_bias),
-            "wo": stack(qd, d),
-            "mlp": {"wg": stack(d, cfg.d_ff), "wu": stack(d, cfg.d_ff),
-                    "wd": stack(cfg.d_ff, d)},
-        },
+    # drawn in the order of earlier releases (embedding, then the block,
+    # then the unembedding), so a seed gives the same dense weights
+    embed = {"table": embedding_init(gen, cfg.vocab, d)["table"].to(wdt)}
+    block: Params = {
+        "ln1": ones(L, d),
+        "ln2": ones(L, d),
+        "wq": stack(d, qd, cfg.qkv_bias),
+        "wk": stack(d, kvd, cfg.qkv_bias),
+        "wv": stack(d, kvd, cfg.qkv_bias),
+        "wo": stack(qd, d),
     }
+    if cfg.moe is not None:
+        block["moe"] = _stacked(L, lambda: moe_init(gen, d, cfg.moe, wdt))
+    else:
+        block["mlp"] = {"wg": stack(d, cfg.d_ff), "wu": stack(d, cfg.d_ff),
+                        "wd": stack(cfg.d_ff, d)}
+    params: Params = {"embed": embed, "ln_f": ones(d), "block": block}
     if not cfg.tie_embeddings:
-        params["unembed"] = {
-            "w": dense_init(gen, d, cfg.vocab)["w"].to(cfg.dtype)}
+        params["unembed"] = {"w": dense_init(gen, d, cfg.vocab)["w"].to(wdt)}
     return params
 
 
-def _layer(tree, i: int):
-    """Layer ``i``'s slice of the stacked block parameters."""
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of the stacked block parameters, each leaf split
+    by one ``unbind``.  Under autograd, a layer taken by indexing the
+    stack sends back a gradient the size of the whole stack for every
+    layer, L times the stack's bytes in fills and adds a backward pass;
+    ``unbind``'s backward stacks the L gradients once."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 # ---------------------------------------------------------------- forward ---
+def _embed(cfg: TransformerConfig, params: Params,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' rows of the table in ``cfg.dtype`` (gathered, then cast:
+    the reference's cast-then-gather, without casting the whole table)."""
+    return params["embed"]["table"][tokens].to(cfg.dtype)
+
+
 def _qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor):
-    q = h @ lp["wq"]["w"]
-    k = h @ lp["wk"]["w"]
-    v = h @ lp["wv"]["w"]
+    dt = cfg.dtype
+    h = h.to(dt)
+    q = h @ lp["wq"]["w"].to(dt)
+    k = h @ lp["wk"]["w"].to(dt)
+    v = h @ lp["wv"]["w"].to(dt)
     if cfg.qkv_bias:
-        q = q + lp["wq"]["b"]
-        k = k + lp["wk"]["b"]
-        v = v + lp["wv"]["b"]
+        q = q + lp["wq"]["b"].to(dt)
+        k = k + lp["wk"]["b"].to(dt)
+        v = v + lp["wv"]["b"].to(dt)
     B, S, _ = h.shape
     return (q.reshape(B, S, cfg.n_heads, cfg.d_head),
             k.reshape(B, S, cfg.n_kv_heads, cfg.d_head),
             v.reshape(B, S, cfg.n_kv_heads, cfg.d_head))
 
 
-def _mlp(cfg: TransformerConfig, lp: Params, xx: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(lp["ln2"], xx, cfg.rms_eps)
-    m = lp["mlp"]
-    g = F.silu(h @ m["wg"]["w"])
-    u = h @ m["wu"]["w"]
-    y = (g * u) @ m["wd"]["w"]
-    return xx + y.to(xx.dtype)
+def _out(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
+         o: torch.Tensor) -> torch.Tensor:
+    """The residual ``x`` plus the attention output ``o`` (B, S, H, D)
+    projected by ``wo``."""
+    B, S = o.shape[:2]
+    o = o.reshape(B, S, cfg.n_heads * cfg.d_head) @ lp["wo"]["w"].to(cfg.dtype)
+    return x + o.to(x.dtype)
+
+
+def _attend(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
+            cos: torch.Tensor, sin: torch.Tensor):
+    """Causal self-attention over ``x`` (B, S, d) added to it, and the
+    layer's roped K and its V, (B, S, n_kv, D) each."""
+    h = rms_norm(lp["ln1"], x, cfg.rms_eps)
+    q, k, v = _qkv(cfg, lp, h)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    return _out(cfg, lp, x, attention(q, k, v, causal=True)), k, v
+
+
+def _ffn(cfg: TransformerConfig, lp: Params,
+         x: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """``x`` plus its SwiGLU MLP or MoE layer, and the MoE's aux values
+    (empty for a dense layer)."""
+    h = rms_norm(lp["ln2"], x, cfg.rms_eps)
+    dt = cfg.dtype
+    if cfg.moe is not None:
+        y, aux = moe_apply(lp["moe"], h, cfg.moe, dtype=dt)
+    else:
+        m = lp["mlp"]
+        h = h.to(dt)
+        g = F.silu(h @ m["wg"]["w"].to(dt))
+        u = h @ m["wu"]["w"].to(dt)
+        y = (g * u) @ m["wd"]["w"].to(dt)
+        aux = {}
+    return x + y.to(x.dtype), aux
+
+
+def _block_fwd(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
+               cos: torch.Tensor, sin: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """One block: attention then the MLP or MoE, with the aux values."""
+    x, _, _ = _attend(cfg, lp, x, cos, sin)
+    return _ffn(cfg, lp, x)
+
+
+def _remat(cfg: TransformerConfig, fn):
+    """``fn`` recomputed in the backward pass, per block.  The reference's
+    ``"dots"`` policy saves the matmul outputs and ``"full"`` saves
+    nothing; both are full per-block recompute here
+    (``torch.utils.checkpoint``, non-reentrant).  That changes memory and
+    time, not the function or its gradient."""
+    if cfg.remat == "none":
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def backbone(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+             positions: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Dict]:
+    """Embed + all blocks + final norm.  Returns (B, S, d) hidden and
+    the aux values summed over layers (MoE: ``dropped_tokens``,
+    ``balance_loss``)."""
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = _embed(cfg, params, tokens)
+    cos, sin = rope_tables(positions, cfg.d_head, cfg.rope_theta)
+    body = _remat(cfg, lambda lp, xx: _block_fwd(cfg, lp, xx, cos, sin))
+    sums: Dict = {}
+    for lp in _unstack(params["block"], cfg.n_layers):
+        x, aux = body(lp, x)
+        for key in AUX_SUMS:
+            if key in aux:
+                sums[key] = sums[key] + aux[key] if key in sums else aux[key]
+    return rms_norm(params["ln_f"], x, cfg.rms_eps), sums
+
+
+def _unembed_w(cfg: TransformerConfig, params: Params,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The (d, vocab) unembedding in ``dtype``."""
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].to(dtype).T
+    return params["unembed"]["w"].to(dtype)
 
 
 def _unembed_chunk(cfg: TransformerConfig, params: Params,
                    h: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return h @ params["embed"]["table"].to(h.dtype).T
-    return h @ params["unembed"]["w"].to(h.dtype)
+    return h @ _unembed_w(cfg, params, h.dtype)
+
+
+def _chunk_nll(h: torch.Tensor, w: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    return softmax_xent(h @ w, labels)
+
+
+def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+            labels: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """Chunked-softmax LM loss: the logits of ``loss_chunk`` positions at
+    a time, each chunk recomputed in the backward pass, so (B, S, vocab)
+    is never materialized.  MoE configs add ``0.01 * balance_loss /
+    n_layers``."""
+    h, aux = backbone(cfg, params, tokens)
+    B, S, d = h.shape
+    C = min(cfg.loss_chunk, S)
+    assert S % C == 0
+    w = _unembed_w(cfg, params, h.dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    n = torch.zeros((), dtype=torch.int64, device=h.device)
+    for i in range(0, S, C):
+        ll = labels[:, i:i + C]
+        nll = checkpoint(_chunk_nll, h[:, i:i + C], w, ll, use_reentrant=False)
+        cnt = (ll != -1).sum()
+        tot = tot + nll * cnt
+        n = n + cnt
+    loss = tot / torch.clamp(n, min=1)
+    if "balance_loss" in aux:
+        loss = loss + 0.01 * aux["balance_loss"] / cfg.n_layers
+    return loss, aux
 
 
 # ------------------------------------------------------------------ serve ---
@@ -188,7 +343,6 @@ def make_cache(cfg: TransformerConfig, batch: int, s_max: int, dtype=None,
     """An empty head-major cache: ``k``/``v`` (L, batch, n_kv, s_max, D),
     ``len`` (batch,) int32, and the pool view's ``page`` and slot
     ``table`` (see ``models.attention``)."""
-    require_dense(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     L, n_kv, D = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
@@ -206,23 +360,19 @@ def prefill(cfg: TransformerConfig, params: Params, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, Dict]:
     """Process a prompt; return last-position logits (B, vocab) and its
     head-major K/V (``k``, ``v``: (L, B, n_kv, S, D)) with ``len``, for
-    copying into the slots of a :func:`make_cache` cache."""
-    require_dense(cfg)
+    copying into the slots of a :func:`make_cache` cache.  For an MoE
+    config the dict also holds ``moe_dropped``, the picks dropped by
+    capacity over all layers (an f32 0-d tensor)."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = params["embed"]["table"][tokens]
+    x = _embed(cfg, params, tokens)
     cos, sin = rope_tables(positions, cfg.d_head, cfg.rope_theta)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["block"], i)
-        h = rms_norm(lp["ln1"], x, cfg.rms_eps)
-        q, k, v = _qkv(cfg, lp, h)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        o = attention(q, k, v, causal=True)
-        o = o.reshape(B, S, cfg.n_heads * cfg.d_head) @ lp["wo"]["w"]
-        x = x + o.to(x.dtype)
-        x = _mlp(cfg, lp, x)
+    dropped = None
+    for lp in _unstack(params["block"], cfg.n_layers):
+        x, k, v = _attend(cfg, lp, x, cos, sin)
+        x, aux = _ffn(cfg, lp, x)
+        dropped = _add_dropped(dropped, aux)
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
     x = rms_norm(params["ln_f"], x, cfg.rms_eps)
@@ -232,19 +382,29 @@ def prefill(cfg: TransformerConfig, params: Params, tokens: torch.Tensor
         "v": torch.stack(vs),
         "len": torch.full((B,), S, dtype=torch.int32, device=tokens.device),
     }
+    if dropped is not None:
+        cache["moe_dropped"] = dropped
     return logits[:, 0], cache
+
+
+def _add_dropped(total: Optional[torch.Tensor], aux: Dict):
+    if "dropped_tokens" not in aux:
+        return total
+    return aux["dropped_tokens"] if total is None else total + aux["dropped_tokens"]
 
 
 def decode_step(cfg: TransformerConfig, params: Params, token: torch.Tensor,
                 cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """One decode step: token (B,) -> logits (B, vocab); the
     :func:`make_cache` cache is updated in place and returned with
-    ``len`` advanced by one."""
-    require_dense(cfg)
+    ``len`` advanced by one.  Every row takes part, the empty slots of an
+    engine too (they carry token 0): with MoE they take expert capacity,
+    as in the reference.  For an MoE config the cache's ``moe_dropped``
+    is set to this step's picks dropped by capacity."""
     B = token.shape[0]
     lens = cache["len"]  # (B,)
     positions = lens[:, None]  # (B, 1)
-    x = params["embed"]["table"][token[:, None]]
+    x = _embed(cfg, params, token[:, None])
     cos, sin = rope_tables(positions, cfg.d_head, cfg.rope_theta)
     s_max = cache["k"].shape[3]
     bidx = torch.arange(B, device=token.device)
@@ -255,9 +415,10 @@ def decode_step(cfg: TransformerConfig, params: Params, token: torch.Tensor,
     slot = lens.long().clamp(max=s_max - 1)
     room = (lens < s_max)[:, None, None]
     new_lens = lens + 1
-    for i in range(cfg.n_layers):
-        lp = _layer(params["block"], i)
-        kc, vc = cache["k"][i], cache["v"][i]  # (B, n_kv, S_max, D) views
+    dropped = None
+    layers = _unstack(params["block"], cfg.n_layers)
+    for lp, kc, vc in zip(layers, cache["k"], cache["v"]):
+        # kc, vc: (B, n_kv, S_max, D) views of the layer's cache
         h = rms_norm(lp["ln1"], x, cfg.rms_eps)
         q, k, v = _qkv(cfg, lp, h)
         q = apply_rope(q, cos, sin)
@@ -268,10 +429,12 @@ def decode_step(cfg: TransformerConfig, params: Params, token: torch.Tensor,
                                         vc[bidx, :, slot])
         o = slot_decode_attention(q, kc, vc, new_lens, cache["page"],
                                   cache["table"])
-        o = o.reshape(B, 1, cfg.n_heads * cfg.d_head) @ lp["wo"]["w"]
-        x = x + o.to(x.dtype)
-        x = _mlp(cfg, lp, x)
+        x = _out(cfg, lp, x, o)
+        x, aux = _ffn(cfg, lp, x)
+        dropped = _add_dropped(dropped, aux)
     x = rms_norm(params["ln_f"], x, cfg.rms_eps)
     logits = _unembed_chunk(cfg, params, x)[:, 0]
     cache["len"] = new_lens
+    if dropped is not None:
+        cache["moe_dropped"] = dropped
     return logits, cache

@@ -73,8 +73,8 @@ def test_the_routes_are_two_kernels_with_their_own_counts():
 # ------------------------------------------------------- TMA conditions --
 def _views_of_attention(cfg, B=2, S=5):
     """The (B, H, S, D) views ``models.attention.attention`` hands the
-    kernel wrapper, from (B, S, heads * D) projections as the transformer
-    makes them."""
+    kernel wrapper (through its ``autograd.Function``), from (B, S, heads
+    * D) projections as the transformer makes them."""
     seen = {}
 
     def capture(q, k, v, causal=True):
@@ -86,7 +86,7 @@ def _views_of_attention(cfg, B=2, S=5):
                            ).reshape(B, S, heads, cfg.d_head)
 
     mp = pytest.MonkeyPatch()
-    mp.setattr(port_att, "flash_attention", capture)
+    mp.setattr(port_att, "flash_attention_differentiable", capture)
     try:
         port_att.attention(proj(cfg.n_heads), proj(cfg.n_kv_heads),
                            proj(cfg.n_kv_heads))

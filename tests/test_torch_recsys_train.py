@@ -49,7 +49,10 @@ from repro_torch.kernels.embedding_bag import (
     embedding_bag_fixed,
     embedding_bag_fixed_plain,
 )
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (
+    NO_GRAD_HINT,
+    flash_attention,
+)
 from repro_torch.kernels.paged_attention.kernel import paged_attention
 from repro_torch.models import recsys as port_rs
 from repro_torch.nn import layers as port_layers
@@ -423,14 +426,15 @@ def test_get_training_rejects_a_non_recsys_arch():
 
 # ------------------------------------------------- the attention grad guard --
 def test_attention_grad_guard():
-    """The CUDA attention kernels have no backward: ``require_no_grad``
-    (called by both wrappers on CUDA operands) raises when an operand
-    requires grad under grad mode, naming queue 1 item 10; the CPU
-    wrappers run their plain versions, which differentiate."""
+    """The bare CUDA attention wrappers have no backward:
+    ``require_no_grad`` (called by both on CUDA operands) raises when an
+    operand requires grad under grad mode, saying what to call instead
+    (the flash kernel's ``autograd.Function``); the CPU wrappers run their
+    plain versions, which differentiate."""
     q = torch.randn(1, 2, 4, 8, requires_grad=True)
     kv = torch.randn(1, 2, 4, 8)
-    with pytest.raises(RuntimeError, match="queue 1, item 10"):
-        require_no_grad("flash_attention", q, kv, kv)
+    with pytest.raises(RuntimeError, match="flash_attention_differentiable"):
+        require_no_grad("flash_attention", q, kv, kv, hint=NO_GRAD_HINT)
     with torch.no_grad():
         require_no_grad("flash_attention", q, kv, kv)
     require_no_grad("flash_attention", kv, kv, kv)

@@ -28,6 +28,7 @@ from repro.serve.engine import ServeEngine as RefServeEngine
 
 from repro_torch.configs.registry import (
     ARCH_IDS,
+    LM_ARCH_IDS,
     RECSYS_ARCH_IDS,
     SERVE_ARCH_IDS,
     get_config,
@@ -36,7 +37,6 @@ from repro_torch.convert import transformer_params_from_jax
 from repro_torch.core.paged_kv import PagedKVManager
 from repro_torch.launch import serve as port_launch
 from repro_torch.models import transformer as port_tf
-from repro_torch.models.moe import MoEConfig
 from repro_torch.serve.engine import Request, ServeEngine
 
 CPU = "cpu"
@@ -261,7 +261,7 @@ def test_paged_kv_manager_matches_reference(case):
     _same_state(ref, port, seqs)
 
 
-# ------------------------------------------------------ configs and MoE --
+# ---------------------------------------------------------------- configs --
 @pytest.mark.parametrize("reduced", [False, True])
 @pytest.mark.parametrize("arch", SERVE_ARCH_IDS)
 def test_configs_equal_reference(arch, reduced):
@@ -277,28 +277,11 @@ def test_configs_equal_reference(arch, reduced):
 
 def test_unported_archs_raise():
     assert set(SERVE_ARCH_IDS) < set(ARCH_IDS)
-    for arch in set(ARCH_IDS) - set(SERVE_ARCH_IDS) - set(RECSYS_ARCH_IDS):
+    for arch in set(ARCH_IDS) - set(LM_ARCH_IDS) - set(RECSYS_ARCH_IDS):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        port_launch.main(["--arch", "moonshot-v1-16b-a3b", "--device", "cpu"])
-
-
-def test_moe_config_raises_not_implemented():
-    cfg = dataclasses.replace(
-        get_config("granite-3-2b", reduced=True),
-        moe=MoEConfig(n_experts=4, top_k=2, d_ff=32))
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        port_tf.init_params(cfg, gen)
-    with pytest.raises(NotImplementedError):
-        port_tf.make_cache(cfg, 1, 16, device=CPU)
-    with pytest.raises(NotImplementedError):
-        port_tf.prefill(cfg, {}, torch.zeros(1, 4, dtype=torch.int64))
-    with pytest.raises(NotImplementedError):
-        transformer_params_from_jax(cfg, {}, CPU)
 
 
 def test_serve_entry_points_raise_without_cuda(monkeypatch):
