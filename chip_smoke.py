@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: the search stack, the
-LM serving path, recsys serving and training, MoE serving and LM
-training.
+LM serving path, recsys serving and training, MoE serving, LM training
+and GNN training.
 
 Run from the repository root with no arguments::
 
@@ -168,7 +168,24 @@ Phases (any failure exits non-zero before the last line is printed):
      ``Function`` must give the plain version's gradient.  Then both
      attention kernels against their plain versions at the shapes these
      paths gave them;
- 15. print the kernels line (six kernels: both flash routes, their
+ 15. gnn train: MACE at its published widths (2 layers, k 128, l_max 2,
+     correlation 3, 8 radial functions) through ``get_bundle("mace")``'s
+     four cells and ``Trainer`` with the bundle's AdamW, data synthetic
+     from ``--seed``: Cora's size (2,708 nodes, 10,556 edges, 1,433
+     features, 7 classes), the sampled cell (1,024 fresh seeds a step,
+     fanout [15, 10], padded to 169,984 nodes and 168,960 edges, from a
+     Reddit-sized graph of 232,965 nodes at mean degree 492 sampled on
+     the host, its 602-wide feature table on the card), ogbn-products'
+     size (2,449,029 nodes, 61,859,140 edges in 30 chunks of 2^21, 100
+     features, 47 classes) and 128 molecules of 30 atoms and 64 edges.
+     Each cell: 2 warm-up and 5 timed steps (finite losses, every
+     parameter moved), peak memory and a profiled step; the sampler's
+     host time.  Then E(3) invariance and card against CPU (loss,
+     every gradient leaf) at full width on Cora and molecule, and all
+     four cells at REDUCED, 3 steps card against CPU.  TF32 must be off
+     and no hand kernel may launch: the reference's MACE reaches no
+     Pallas kernel;
+ 16. print the kernels line (six kernels: both flash routes, their
      launches and the paged kernel's by path; the search kernels'
      launches summed over the search and replica phases, the bag's over
      recsys serving and training), then the result line.
@@ -320,6 +337,23 @@ LM_TRAIN_PARITY_STEPS = 3    # REDUCED, card against CPU
 # dropped dk or dv) moves a leaf's gradient by its own size, 2^0
 LM_GRAD_LOSS_RTOL = 2.0 ** -8
 LM_GRAD_REL_L2 = 2.0 ** -4
+# gnn train: MACE at CONFIG's widths in the bundle's four cells, data
+# synthetic from --seed.  Cora and ogbn-products at their published node
+# and edge counts; the sampled cell on GraphSAGE's Reddit graph
+# (arXiv:1706.02216, as PyG's Reddit has it: 232,965 nodes at mean
+# degree 492, about 114.6M edges)
+GNN_WARMUP = 2
+GNN_TIMED = 5
+GNN_PARITY_STEPS = 3         # REDUCED, card against CPU
+REDDIT_NODES = 232_965
+REDDIT_DEGREE = 492
+# E(3) invariance within 1e-4 of the output's largest magnitude (as
+# tests/test_models.py asks of the reference); card against CPU at full
+# width: the loss within 1e-5 relative, each gradient leaf within 1e-4
+# relative L2 (the two sides sum the same f32 terms in other orders)
+GNN_INVARIANCE_TOL = 1e-4
+GNN_LOSS_RTOL = 1e-5
+GNN_GRAD_REL_L2 = 1e-4
 
 
 def log(msg: str) -> None:
@@ -3102,6 +3136,356 @@ def path_attention_phase(paths: Dict[str, dict], device) -> Dict[str, dict]:
     return out
 
 
+# ------------------------------------------------------------ gnn train --
+def gnn_edges(n: int, e: int, seed: int) -> tuple:
+    """``e`` edges (src, dst; int32) over ``n`` nodes: a
+    ``synthetic_graph`` at a mean degree just past e / n, cut to its
+    first ``e`` edges (node u's in-edges are its CSR row)."""
+    from repro_torch.models.gnn_common import synthetic_graph
+
+    g = synthetic_graph(n, -(-e // n) + 1, seed)
+    if g.n_edges < e:
+        raise RuntimeError(f"synthetic graph of {g.n_edges} edges, {e} asked")
+    dst = np.repeat(np.arange(n, dtype=np.int32), np.diff(g.indptr))[:e]
+    return g.indices[:e].astype(np.int32), dst
+
+
+def gnn_node_batch(cfg, n: int, e: int, seed: int, device) -> dict:
+    """A node-classification batch of the cell's shapes: ``gnn_edges``,
+    features and positions N(0, 1) and labels uniform in ``cfg.n_out``,
+    drawn on ``device`` from ``seed``."""
+    src, dst = gnn_edges(n, e, seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {
+        "feat": torch.randn((n, cfg.d_feat), generator=gen, device=device),
+        "pos": torch.randn((n, 3), generator=gen, device=device),
+        "edges_src": torch.from_numpy(src).to(device),
+        "edges_dst": torch.from_numpy(dst).to(device),
+        "labels": torch.randint(0, cfg.n_out, (n,), generator=gen,
+                                device=device, dtype=torch.int32),
+    }
+
+
+def gnn_mol_batch(cfg, sizes: tuple, seed: int, device) -> dict:
+    """The molecule cell's batch: ``batch_small_graphs`` of (graphs,
+    nodes, edges a graph), species and energies from ``RandomState(seed)``,
+    positions N(0, 1) drawn on ``device``."""
+    from repro_torch.models.gnn_common import batch_small_graphs
+
+    n_g, n_n, n_e = sizes
+    b = batch_small_graphs(n_g, n_n, n_e, seed)
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {
+        "species": torch.from_numpy(rng.randint(
+            0, cfg.n_species, n_g * n_n).astype(np.int32)).to(device),
+        "pos": torch.randn((n_g * n_n, 3), generator=gen, device=device),
+        "edges_src": torch.from_numpy(b["edges_src"]).to(device),
+        "edges_dst": torch.from_numpy(b["edges_dst"]).to(device),
+        "graph_of": torch.from_numpy(b["graph_of"]).to(device),
+        "energy": torch.from_numpy(
+            rng.randn(n_g).astype(np.float32)).to(device),
+    }
+
+
+class GNNSampled:
+    """The sampled cell's data: a ``synthetic_graph`` of ``n`` nodes at
+    mean degree ``degree`` on the host, a ``NeighborSampler`` over it,
+    and feature, position and label tables drawn on ``device``.  A data
+    cursor's batch samples ``n_seeds`` fresh seeds with
+    ``RandomState(seed + cursor)`` (host seconds kept in ``host_s``) and
+    gathers the subgraph's rows on the device; the labels count on the
+    seeds only (``label_mask``), padded edges are masked."""
+
+    def __init__(self, cfg, n: int, degree: int, n_seeds: int, fanout,
+                 seed: int, device):
+        from repro_torch.models.gnn_common import (
+            NeighborSampler,
+            synthetic_graph,
+        )
+
+        graph = synthetic_graph(n, degree, seed)
+        self.n_edges = graph.n_edges
+        self.sampler = NeighborSampler(graph, fanout)
+        self.n, self.n_seeds, self.seed, self.device = n, n_seeds, seed, device
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self.feat = torch.randn((n, cfg.d_feat), generator=gen, device=device)
+        self.pos = torch.randn((n, 3), generator=gen, device=device)
+        self.labels = torch.randint(0, cfg.n_out, (n,), generator=gen,
+                                    device=device, dtype=torch.int32)
+        self.host_s: List[float] = []
+
+    def __call__(self, cursor: int) -> dict:
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(self.seed + cursor)
+        seeds = rng.choice(self.n, self.n_seeds, replace=False)
+        sub = self.sampler.sample(seeds, rng)
+        self.host_s.append(time.perf_counter() - t0)
+        dev = self.device
+        nodes = torch.from_numpy(sub["nodes"]).to(dev)
+        label_mask = torch.zeros(nodes.shape[0], device=dev)
+        label_mask[: sub["n_seeds"]] = 1.0
+        return {
+            "feat": self.feat.index_select(0, nodes),
+            "pos": self.pos.index_select(0, nodes),
+            "edges_src": torch.from_numpy(sub["edges_src"]).to(dev),
+            "edges_dst": torch.from_numpy(sub["edges_dst"]).to(dev),
+            "labels": self.labels.index_select(0, nodes),
+            "edge_mask": torch.from_numpy(sub["edge_mask"]).to(dev),
+            "label_mask": label_mask,
+        }
+
+
+def gnn_invariance(spec, batch: dict, seed: int, device) -> float:
+    """The largest change of the outputs under a rotation and translation
+    of the positions, relative to their largest magnitude (the rotation
+    of ``tests/test_models.py``'s MACE check)."""
+    from repro_torch.models.mace import mace_forward
+
+    th = 0.9
+    c, s = np.cos(th), np.sin(th)
+    R = torch.tensor(np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+                     @ np.array([[1, 0, 0], [0, 0.6, -0.8], [0, 0.8, 0.6]]),
+                     dtype=torch.float32, device=device)
+    params = spec.init(torch.Generator(device=device).manual_seed(seed))
+    feat = batch["feat"] if spec.config.d_feat else batch["species"]
+    pos, src, dst = batch["pos"], batch["edges_src"], batch["edges_dst"]
+    mask = batch.get("edge_mask")
+    with torch.no_grad():
+        o1 = mace_forward(spec.config, params, feat, pos, src, dst, mask)
+        o2 = mace_forward(spec.config, params, feat, pos @ R.T + 2.5, src,
+                          dst, mask)
+    return float((o1 - o2).abs().max() / o1.abs().max())
+
+
+def gnn_grad_parity(spec, batch_cpu: dict, seed: int, device) -> dict:
+    """One loss and gradient, the same CPU-drawn parameters and batch on
+    the card and on the CPU: the loss's relative difference and each
+    leaf's relative L2 difference."""
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import flatten_with_path, path_name
+
+    params = spec.init(torch.Generator().manual_seed(seed))
+    loss_fn = spec.loss_fn()
+    cl, cg = value_and_grad(loss_fn, params, batch_cpu)
+    gl, gg = value_and_grad(loss_fn, tree_to(params, device),
+                            tree_to(batch_cpu, device))
+    rel = {path_name(p): float((g.cpu() - c).norm() / c.norm())
+           for (p, g), (_, c) in zip(flatten_with_path(gg),
+                                     flatten_with_path(cg))}
+    return {"loss": [float(gl), float(cl)],
+            "loss_rel_err": abs(float(gl) - float(cl)) / abs(float(cl)),
+            "max_grad_rel_l2": max(rel.values()),
+            "worst_leaf": max(rel, key=rel.get), "grad_rel_l2": rel}
+
+
+def gnn_reduced_checks(seed: int, device) -> dict:
+    """The four cells at REDUCED from the same CPU-drawn parameters and
+    batches: GNN_PARITY_STEPS ``Trainer`` steps with the bundle's AdamW on
+    the card and on the CPU; losses within TRAIN_LOSS_RTOL relative,
+    parameters and optimizer state within TRAIN_PARAM_TOL."""
+    from repro_torch.configs.registry import get_bundle
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+
+    b = get_bundle("mace", reduced=True)
+    out: Dict[str, dict] = {}
+    failures: List[str] = []
+    for cell, spec in b.cell_specs.items():
+        cfg = spec.config
+        if cell == "molecule":
+            data = [gnn_mol_batch(cfg, b.sizes["mol"], seed + c, "cpu")
+                    for c in range(GNN_PARITY_STEPS)]
+        elif cell == "minibatch_lg":
+            n_seeds, fanout = b.sizes["mb_seeds"]
+            src = GNNSampled(cfg, 500, 8, n_seeds, fanout, seed, "cpu")
+            data = [src(c) for c in range(GNN_PARITY_STEPS)]
+        else:
+            n, e = b.sizes["cora" if cell == "full_graph_sm" else "products"]
+            data = [gnn_node_batch(cfg, n, e, seed + c, "cpu")
+                    for c in range(GNN_PARITY_STEPS)]
+        params = spec.init(torch.Generator().manual_seed(seed))
+        runs = []
+        for where in (device, "cpu"):
+            tr = Trainer(spec.loss_fn(), params, TrainerConfig(
+                opt=spec.opt, log_every=1), device=where)
+            tr.fit(data.__getitem__, GNN_PARITY_STEPS)
+            runs.append(tr)
+        a, c = runs
+        loss_err = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                       for x, y in zip(a.history, c.history))
+        state_err = max(
+            float((x.cpu() - y).abs().max()) for x, y in
+            zip(leaves(a.params) + leaves(a.opt_state["mu"])
+                + leaves(a.opt_state["nu"]),
+                leaves(c.params) + leaves(c.opt_state["mu"])
+                + leaves(c.opt_state["nu"])))
+        if not loss_err <= TRAIN_LOSS_RTOL:
+            failures.append(f"gnn train {cell} REDUCED: losses differ by "
+                            f"{loss_err:.3g} relative")
+        if not state_err <= TRAIN_PARAM_TOL:
+            failures.append(f"gnn train {cell} REDUCED: parameters or "
+                            f"optimizer state differ by {state_err:.3g}")
+        out[cell] = {"steps": GNN_PARITY_STEPS, "max_loss_rel_err": loss_err,
+                     "max_state_abs_err": state_err,
+                     "losses": [h["loss"] for h in a.history]}
+    out["failures"] = failures
+    return out
+
+
+def gnn_cell(name: str, spec, batches: Callable[[int], dict], seed: int,
+             device) -> dict:
+    """Train one cell through ``Trainer`` with the bundle's AdamW from
+    parameters drawn on the card: GNN_WARMUP warm-up and GNN_TIMED timed
+    steps (every loss finite, every parameter leaf moved), peak memory,
+    one profiled step."""
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import flatten_with_path, path_name
+
+    torch.cuda.reset_peak_memory_stats(device)
+    params = spec.init(torch.Generator(device=device).manual_seed(seed))
+    start = {path_name(p): t.clone() for p, t in flatten_with_path(params)}
+    trainer = Trainer(spec.loss_fn(), params, TrainerConfig(
+        opt=spec.opt, log_every=1), device=device)
+    del params
+    for _ in range(GNN_WARMUP):
+        trainer.fit(batches, trainer.step_num + 1)
+    step_s = []
+    for _ in range(GNN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(batches, trainer.step_num + 1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(device)
+    losses = [h["loss"] for h in trainer.history]
+    still = [path_name(p) for p, t in flatten_with_path(trainer.params)
+             if torch.equal(t, start[path_name(p)])]
+    failures = []
+    if not all(np.isfinite(losses)) or len(losses) != GNN_WARMUP + GNN_TIMED:
+        failures.append(f"gnn train {name}: losses {losses}")
+    if still:
+        failures.append(f"gnn train {name}: parameters did not move: {still}")
+    profile = profile_train_step(
+        trainer, batches,
+        ranges={"adamw_update": (trainer_mod, "adamw_update")},
+        forward=("index_add", "indexFunc"))
+    log(f"gnn train {name}: step p50 {np.percentile(step_s, 50) * 1e3:.1f} "
+        f"ms, peak {peak:,} B, losses {[round(x, 4) for x in losses]}")
+    return {"step": percentiles_ms(step_s), "losses": losses,
+            "peak_mem_bytes": peak, "profile": profile, "failures": failures}
+
+
+def gnn_train_phase(device, hand_kernels, seed: int = 0) -> dict:
+    """MACE at ``CONFIG``'s widths through ``get_bundle("mace")``'s four
+    cells on the card (``Trainer``, the bundle's AdamW): Cora's published
+    size, the sampled cell on the Reddit graph (1,024 fresh seeds a step,
+    fanout [15, 10], features on the card), ogbn-products at its published
+    size, the batched molecules; then E(3) invariance and card against
+    CPU at full width on Cora and molecule, and the REDUCED cells card
+    against CPU.  The GNN path reaches no hand kernel: no launch counter
+    may rise during the phase, and TF32 must be off."""
+    from repro_torch.configs.registry import get_bundle
+
+    t0 = time.perf_counter()
+    failures = free_check("gnn train", device)
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    log(f"gnn train: TF32 {tf32}")
+    if (tf32["matmul"] or tf32["cudnn"]
+            or tf32["float32_matmul_precision"] != "highest"):
+        failures.append(f"gnn train: TF32 is on ({tf32})")
+    before = {k.symbol: k.launches for k in hand_kernels}
+    bundle = get_bundle("mace")
+    specs, sizes = bundle.cell_specs, bundle.sizes
+    cells: Dict[str, dict] = {}
+
+    spec = specs["full_graph_sm"]
+    n, e = sizes["cora"]
+    cora = gnn_node_batch(spec.config, n, e, seed, device)
+    cells["full_graph_sm"] = {"nodes": n, "edges": e, **gnn_cell(
+        "full_graph_sm", spec, lambda c: cora, seed, device)}
+    del cora
+
+    spec = specs["minibatch_lg"]
+    n_seeds, fanout = sizes["mb_seeds"]
+    t1 = time.perf_counter()
+    sampled = GNNSampled(spec.config, REDDIT_NODES, REDDIT_DEGREE, n_seeds,
+                         fanout, seed, device)
+    setup_s = time.perf_counter() - t1
+    n_max, e_max = spec.inputs["labels"][0][0], spec.inputs["edge_mask"][0][0]
+    rep = gnn_cell("minibatch_lg", spec, sampled, seed, device)
+    cells["minibatch_lg"] = {
+        "graph_nodes": REDDIT_NODES, "graph_edges": sampled.n_edges,
+        "feature_table_bytes": sampled.feat.numel() * 4, "seeds": n_seeds,
+        "fanout": list(fanout), "nodes": n_max, "edges": e_max,
+        "graph_setup_s": setup_s,
+        "sampler": percentiles_ms(sampled.host_s), **rep}
+    del sampled
+
+    spec = specs["ogb_products"]
+    n, e = sizes["products"]
+    t1 = time.perf_counter()
+    products = gnn_node_batch(spec.config, n, e, seed, device)
+    setup_s = time.perf_counter() - t1
+    cells["ogb_products"] = {"nodes": n, "edges": e, "mean_degree": e / n,
+                             "edge_chunks": -(-e // spec.config.edge_chunk),
+                             "graph_setup_s": setup_s, **gnn_cell(
+                                 "ogb_products", spec, lambda c: products,
+                                 seed, device)}
+    del products
+
+    spec = specs["molecule"]
+    mol = gnn_mol_batch(spec.config, sizes["mol"], seed, device)
+    cells["molecule"] = {"graphs": sizes["mol"][0],
+                         "nodes": sizes["mol"][0] * sizes["mol"][1],
+                         "edges": sizes["mol"][0] * sizes["mol"][2],
+                         **gnn_cell("molecule", spec, lambda c: mol, seed,
+                                    device)}
+    del mol
+    for name, rep in cells.items():
+        failures += rep.pop("failures")
+        per_step = rep["step"]["p50_ms"] / 1e3
+        if name == "molecule":
+            rep["graphs_per_s"] = rep["graphs"] / per_step
+        rep["nodes_per_s"] = rep["nodes"] / per_step
+
+    # checks at full width: invariance, and card against CPU
+    checks: Dict[str, dict] = {}
+    for name in ("full_graph_sm", "molecule"):
+        spec = specs[name]
+        if name == "molecule":
+            batch = gnn_mol_batch(spec.config, sizes["mol"], seed, "cpu")
+        else:
+            batch = gnn_node_batch(spec.config, *sizes["cora"], seed, "cpu")
+        inv = gnn_invariance(spec, tree_to(batch, device), seed, device)
+        par = gnn_grad_parity(spec, batch, seed, device)
+        checks[name] = {"invariance_rel_err": inv, **par}
+        if not inv <= GNN_INVARIANCE_TOL:
+            failures.append(f"gnn train {name}: outputs move by {inv:.3g} "
+                            "of their size under a rotation")
+        if not par["loss_rel_err"] <= GNN_LOSS_RTOL:
+            failures.append(f"gnn train {name}: card and CPU losses differ by "
+                            f"{par['loss_rel_err']:.3g} relative")
+        if not par["max_grad_rel_l2"] <= GNN_GRAD_REL_L2:
+            failures.append(f"gnn train {name}: gradient {par['worst_leaf']} "
+                            f"differs by {par['max_grad_rel_l2']:.3g} "
+                            "relative L2, card against CPU")
+    reduced = gnn_reduced_checks(seed, device)
+    failures += reduced.pop("failures")
+    after = {k.symbol: k.launches for k in hand_kernels}
+    if after != before:
+        failures.append(f"gnn train: hand kernels launched on the GNN path: "
+                        f"{before} -> {after}")
+    return {"config": dataclasses.asdict(bundle.config) | {"dtype": "float32"},
+            "seed": seed, "tf32": tf32, "cells": cells, "checks": checks,
+            "reduced_checks": reduced,
+            "hand_kernel_launches": {k: after[k] - before[k] for k in after},
+            "seconds": time.perf_counter() - t0, "failures": failures}
+
+
 # ---------------------------------------------------------------- main --
 def smi_line() -> str:
     proc = subprocess.run(
@@ -3119,6 +3503,8 @@ def main(argv: Sequence[str] = ()) -> int:
                     help="world scale (1.0: about 0.84M tokens)")
     ap.add_argument("--out", default=None,
                     help="also write the full report as JSON here")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the gnn train phase's synthetic data")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3266,6 +3652,17 @@ def main(argv: Sequence[str] = ()) -> int:
                                 f"{case['max_err_ratio']:.3g} times its limit")
             attn[name][where] = case
 
+    gnn = gnn_train_phase(device, kernels + serve_kernels + (EMBEDDING_BAG,),
+                          args.seed)
+    for name, cell in gnn["cells"].items():
+        log(f"gnn train {name}: " + json.dumps(
+            {k: v for k, v in cell.items() if k != "profile"}))
+        log(f"gnn train {name} profile: " + json.dumps(cell["profile"]))
+    log("gnn train checks: " + json.dumps(
+        {k: v for k, v in gnn.items() if k not in ("cells", "config")}))
+    failures += gnn["failures"]
+    log(f"gnn train phase: {gnn['seconds']:.1f} s")
+
     # each attention kernel's launches by path: bf16 serving (granite,
     # Moonshot, Qwen3), the f32 parity engines (the scalar flash kernel's
     # path) and LM training (forward and remat recompute)
@@ -3347,7 +3744,7 @@ def main(argv: Sequence[str] = ()) -> int:
              "recsys": recsys, "recsys_parity": rparity,
              "embedding_bag": bags, "recsys_train": train,
              "moe_serve": moe, "moe_serve_qwen3": qwen3,
-             "moe_parity": mparity, "lm_train": lm,
+             "moe_parity": mparity, "lm_train": lm, "gnn_train": gnn,
              "kernels": line["kernels"], "failures": failures}, indent=1))
     if failures:
         for f in failures:

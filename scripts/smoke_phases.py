@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Run some of ``chip_smoke.py``'s MoE and LM-training phases alone on one
-CUDA card, to iterate on them without the whole smoke run.
+"""Run some of ``chip_smoke.py``'s MoE, LM-training and GNN-training
+phases alone on one CUDA card, to iterate on them without the whole smoke
+run.
 
-    python3 scripts/smoke_phases.py moe,qwen3,mparity,lm,guard,attn \
-        [--out build/smoke_phases.json]
+    python3 scripts/smoke_phases.py moe,qwen3,mparity,lm,guard,attn,gnn \
+        [--seed 0] [--out build/smoke_phases.json]
 
 Phases: ``moe`` (Moonlight-16B-A3B served at its full config), ``qwen3``
 (Qwen3-235B-A22B widths at 8 layers), ``mparity`` (both MoE configs at
 REDUCED, card against CPU), ``lm`` (granite-3-2b trained at its published
 widths), ``guard`` (the attention wrappers' grad guard and the flash
 ``Function``), ``attn`` (both attention kernels at the shapes the
-``moe``, ``qwen3`` and ``lm`` phases gave them).  Builds the kernels,
+``moe``, ``qwen3`` and ``lm`` phases gave them), ``gnn`` (MACE trained at
+its published widths in the GNN bundle's four cells, data from
+``--seed``; no hand kernel may launch).  Builds the kernels,
 turns TF32 off as the smoke run does, runs the phases in that order,
 prints each one's failures and main numbers, writes the full reports as
 JSON, and exits 1 if any phase failed.
@@ -27,18 +30,22 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("moe", "qwen3", "mparity", "lm", "guard", "attn")
+PHASES = ("moe", "qwen3", "mparity", "lm", "guard", "attn", "gnn")
 PATH_NAMES = {"moe": "moe_serve", "qwen3": "moe_serve_qwen3", "lm": "lm_train"}
 SUMMARY_KEYS = ("tokens_per_s", "prefill", "decode_step", "dropped",
                 "peak_mem_bytes", "serve_peak_mem_bytes", "launches", "step",
                 "grad_check", "configs", "reduced_checks", "backward",
-                "adamw_ms", "setup_s", "split_s", "seconds", "failures")
+                "adamw_ms", "setup_s", "split_s", "checks",
+                "reduced_checks", "hand_kernel_launches", "seconds",
+                "failures")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("phases", help="comma-separated, of " + ",".join(PHASES))
     ap.add_argument("--out", default="build/smoke_phases.json")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the gnn phase's synthetic data")
     args = ap.parse_args(argv)
     wanted = args.phases.split(",")
     unknown = set(wanted) - set(PHASES)
@@ -51,11 +58,14 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import chip_smoke as cs
     from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.embedding_bag.kernel import EMBEDDING_BAG
     from repro_torch.kernels.flash_attention.kernel import (
         FLASH_ATTENTION,
         FLASH_ATTENTION_WGMMA,
     )
+    from repro_torch.kernels.intersect.kernel import SORTED_MEMBER_MASK
     from repro_torch.kernels.paged_attention.kernel import PAGED_ATTENTION
+    from repro_torch.kernels.posting_decode.kernel import VARINT_DECODE
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -74,6 +84,9 @@ def main(argv=None) -> int:
         "attn": lambda: {"failures": [], "cases": cs.path_attention_phase(
             {PATH_NAMES[k]: out[k] for k in PATH_NAMES if k in out},
             device)},
+        "gnn": lambda: cs.gnn_train_phase(
+            device, kernels + (VARINT_DECODE, SORTED_MEMBER_MASK,
+                               EMBEDDING_BAG), args.seed),
     }
     out: dict = {"smi": cs.smi_line()}
     failed = False

@@ -1,4 +1,4 @@
-"""Configurations of the port: ``--arch <id>`` -> LM or recsys config."""
+"""Configurations of the port: ``--arch <id>`` -> LM, GNN or recsys config."""
 
 from repro_torch.configs.registry import (  # noqa: F401
     ARCH_IDS,

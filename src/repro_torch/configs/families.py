@@ -13,6 +13,11 @@ item 12).
     sizes of its cells and its candidate count (cells ``serve_p99``,
     ``serve_bulk`` and ``retrieval_cand``), and for its ``train_batch``
     cell the loss, the optimizer settings and the train step.
+  * GNN (:class:`GNNCell`, gathered in :class:`GNNBundle`; the
+    reference's ``gnn_bundle``): MACE in its four cells, each with the
+    dataset's config, its init, its loss and train step under the
+    bundle's optimizer, and the shapes of its batch; the bundle's full
+    and REDUCED sizes.
 """
 
 from __future__ import annotations
@@ -22,12 +27,15 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.models import mace as M
 from repro_torch.models import transformer as TF
+from repro_torch.models.gnn_common import NeighborSampler
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.trainer import TrainerConfig, build_train_step
 
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
 # families.py:90-95 of the reference: (batch, sequence) of each LM cell
 LM_CELL_SHAPES = {"train_4k": (256, 4096), "prefill_32k": (32, 32768),
                   "decode_32k": (128, 32768), "long_500k": (1, 524288)}
@@ -147,3 +155,115 @@ class RecsysBundle:
     @property
     def cells(self) -> Tuple[str, ...]:
         return RECSYS_SHAPES
+
+
+# ================================================================= GNN =====
+# families.py:194-195 of the reference: the GNN bundle's optimizer
+GNN_OPT = OptConfig(lr=1e-3, weight_decay=0.0, schedule="cosine",
+                    warmup_steps=10, total_steps=1000)
+# families.py:204-214: (nodes, edges) of Cora and of ogbn-products, the
+# sampled cell's (seeds, fanout), the molecule cell's (graphs, nodes a
+# graph, edges a graph)
+GNN_SIZES = {"cora": (2708, 10556), "products": (2_449_029, 61_859_140),
+             "mb_seeds": (1024, (15, 10)), "mol": (128, 30, 64)}
+REDUCED_GNN_SIZES = {"cora": (128, 512), "products": (256, 1024),
+                     "mb_seeds": (8, (3, 2)), "mol": (4, 10, 16)}
+
+Shape = Tuple[Tuple[int, ...], torch.dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNCell:
+    """One GNN cell: ``config`` (the bundle's base with the dataset's
+    ``d_feat`` and ``n_out``), ``loss(cfg, params, batch)``, the shape
+    and dtype of each batch input, and the bundle's optimizer."""
+    name: str
+    config: M.MACEConfig
+    loss: Callable
+    inputs: Dict[str, Shape]
+    opt: OptConfig = GNN_OPT
+
+    def init(self, gen: torch.Generator):
+        """f32 parameters on ``gen``'s device."""
+        return M.mace_init(self.config, gen)
+
+    def loss_fn(self) -> Callable:
+        """``loss(params, batch)`` at this cell's config."""
+        return lambda p, b: self.loss(self.config, p, b)
+
+    def train_step(self):
+        """``step(params, opt_state, batch)``; it donates ``params`` and
+        ``opt_state`` (updates them in place)."""
+        return _train_fn(self.loss_fn(), self.opt)
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNBundle:
+    """MACE's four cells (``cell_specs``, in ``GNN_SHAPES`` order) and the
+    sizes they were built at; ``init`` is the Cora cell's, as the
+    reference bundle's is."""
+    name: str
+    config: M.MACEConfig
+    sizes: Dict[str, tuple]
+    cell_specs: Dict[str, GNNCell]
+    family: str = "gnn"
+
+    @property
+    def cells(self) -> Tuple[str, ...]:
+        return GNN_SHAPES
+
+    @property
+    def cell_configs(self) -> Dict[str, M.MACEConfig]:
+        return {c: spec.config for c, spec in self.cell_specs.items()}
+
+    @property
+    def cell_inits(self) -> Dict[str, Callable]:
+        return {c: spec.init for c, spec in self.cell_specs.items()}
+
+    def init(self, gen: torch.Generator):
+        return self.cell_specs["full_graph_sm"].init(gen)
+
+
+def _node_inputs(cfg: M.MACEConfig, N: int, E: int,
+                 masked: bool) -> Dict[str, Shape]:
+    f32, i32 = torch.float32, torch.int32
+    inputs = {"feat": ((N, cfg.d_feat), f32), "pos": ((N, 3), f32),
+              "edges_src": ((E,), i32), "edges_dst": ((E,), i32),
+              "labels": ((N,), i32)}
+    if masked:
+        inputs["edge_mask"] = ((E,), f32)
+        inputs["label_mask"] = ((N,), f32)
+    return inputs
+
+
+def gnn_bundle(name: str, base: M.MACEConfig,
+               reduced: bool = False) -> GNNBundle:
+    sizes = REDUCED_GNN_SIZES if reduced else GNN_SIZES
+    # one config per cell (d_feat / n_out vary per dataset shape)
+    cfg_cora = dataclasses.replace(base, d_feat=1433, n_out=7)
+    cfg_reddit = dataclasses.replace(base, d_feat=602, n_out=41)
+    cfg_products = dataclasses.replace(base, d_feat=100, n_out=47)
+    cfg_mol = dataclasses.replace(base, d_feat=0, n_species=32, n_out=1)
+
+    n_max, e_max = NeighborSampler.padded_sizes(*sizes["mb_seeds"])
+    n_g, n_n, n_e = sizes["mol"]
+    f32, i32 = torch.float32, torch.int32
+    mol_inputs = {"species": ((n_g * n_n,), i32), "pos": ((n_g * n_n, 3), f32),
+                  "edges_src": ((n_g * n_e,), i32),
+                  "edges_dst": ((n_g * n_e,), i32),
+                  "graph_of": ((n_g * n_n,), i32), "energy": ((n_g,), f32)}
+    specs = {
+        "full_graph_sm": GNNCell(
+            "full_graph_sm", cfg_cora, M.mace_node_xent,
+            _node_inputs(cfg_cora, *sizes["cora"], masked=False)),
+        "minibatch_lg": GNNCell(
+            "minibatch_lg", cfg_reddit, M.mace_node_xent,
+            _node_inputs(cfg_reddit, n_max, e_max, masked=True)),
+        "ogb_products": GNNCell(
+            "ogb_products", cfg_products, M.mace_node_xent,
+            _node_inputs(cfg_products, *sizes["products"], masked=False)),
+        "molecule": GNNCell("molecule", cfg_mol, M.mace_energy_mse,
+                            mol_inputs),
+    }
+    return GNNBundle(name=name, config=base, sizes=dict(sizes),
+                     cell_specs=specs)

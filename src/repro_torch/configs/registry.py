@@ -1,16 +1,16 @@
 """Architecture registry of the port: ``--arch`` id -> config and bundle.
 
 The reference maps every id to a bundle (config, init, sharding rules,
-step functions).  The port has the LM ids, dense and MoE (``get_config``
+step functions).  So does the port, without the sharding rules
+(ROADMAP.md queue 1, item 12): the LM ids, dense and MoE (``get_config``
 gives their ``TransformerConfig``, ``get_bundle`` their
-:class:`~repro_torch.configs.families.LMBundle`), and the recsys ids
-(``get_config`` gives their config, ``get_serving`` their score and
-retrieval functions and cell sizes, ``get_training`` their training
-cell, ``get_bundle`` both); the GNN id raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it.  ``family`` tells the families
-apart as the reference's bundles do; ``shape_cells`` and ``all_cells``
-list the reference's cells.  No bundle carries sharding rules (ROADMAP.md
-queue 1, item 12).
+:class:`~repro_torch.configs.families.LMBundle`), the GNN id ``mace``
+(its ``MACEConfig``, and a :class:`~repro_torch.configs.families.GNNBundle`
+of four cells), and the recsys ids (``get_config`` gives their config,
+``get_serving`` their score and retrieval functions and cell sizes,
+``get_training`` their training cell, ``get_bundle`` both).  ``family``
+tells the families apart as the reference's bundles do; ``shape_cells``
+and ``all_cells`` list the reference's cells.
 """
 
 from __future__ import annotations
@@ -20,9 +20,11 @@ import importlib
 from typing import Any, List, Tuple, Union
 
 from repro_torch.configs.families import (
+    GNN_SHAPES,
     LM_SHAPES,
     RECSYS_SHAPES,
     REDUCED_LM_CELL_SHAPES,
+    GNNBundle,
     LMBundle,
     RecsysBundle,
     RecsysServing,
@@ -63,17 +65,14 @@ _RECSYS_MODULES = {
 }
 RECSYS_ARCH_IDS = list(_RECSYS_MODULES)
 
-_NOT_PORTED = {
-    "mace": "GNN: ROADMAP.md queue 1, item 11",
-}
-GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+_GNN_MODULES = {"mace": "repro_torch.configs.mace_cfg"}
 
 
 def family(arch: str) -> str:
     """``"lm"``, ``"gnn"`` or ``"recsys"``, the reference bundle's family."""
     if arch in _RECSYS_MODULES:
         return "recsys"
-    if arch == "mace":
+    if arch in _GNN_MODULES:
         return "gnn"
     if arch in ARCH_IDS:
         return "lm"
@@ -81,10 +80,8 @@ def family(arch: str) -> str:
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(f"{arch} is not ported yet ({_NOT_PORTED[arch]})")
     name = (_MODULES.get(arch) or _MOE_MODULES.get(arch)
-            or _RECSYS_MODULES.get(arch))
+            or _RECSYS_MODULES.get(arch) or _GNN_MODULES.get(arch))
     if name is None:
         raise KeyError(f"unknown arch {arch!r}; expected one of {ARCH_IDS}")
     return importlib.import_module(name)
@@ -111,11 +108,14 @@ def get_training(arch: str, reduced: bool = False) -> RecsysTraining:
     return _module(arch).training(reduced=reduced)
 
 
-def get_bundle(arch: str, reduced: bool = False) -> Union[LMBundle, RecsysBundle]:
+def get_bundle(arch: str, reduced: bool = False
+               ) -> Union[LMBundle, RecsysBundle, GNNBundle]:
     """The arch's bundle: an LM arch's :class:`LMBundle` (the reference
     bundle's cell shapes, microbatches and optimizer), a recsys arch's
-    :class:`RecsysBundle`."""
+    :class:`RecsysBundle`, the GNN arch's :class:`GNNBundle`."""
     mod = _module(arch)
+    if family(arch) == "gnn":
+        return mod.bundle(reduced=reduced)
     if family(arch) == "recsys":
         return RecsysBundle(name=arch, serving=mod.serving(reduced=reduced),
                             training=mod.training(reduced=reduced))

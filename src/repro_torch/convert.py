@@ -4,7 +4,7 @@ The collection plays the part that weights play in a model port: the
 tests pull a reference world apart into numpy arrays and rebuild it here,
 so both packages index byte-identical data.  Transformer and recsys
 weights come across the same way (:func:`transformer_params_from_jax`,
-:func:`recsys_params_from_jax`).
+:func:`recsys_params_from_jax`, :func:`mace_params_from_jax`).
 """
 
 from __future__ import annotations
@@ -83,3 +83,12 @@ def recsys_params_from_jax(cfg: Any, params_np, device: DeviceLike = None,
     f32, the reference's own layout.  SASRec's norm gains stay f32."""
     return cast_params(params_np, param_dtype(cfg, masters),
                        resolve_device(device))
+
+
+def mace_params_from_jax(cfg: Any, params_np, device: DeviceLike = None
+                         ) -> Params:
+    """The port's MACE parameters from the reference's ``mace_init`` tree
+    with every leaf turned into a numpy array (the same nested dicts, and
+    ``layers`` a list): every leaf f32 whatever ``cfg`` says, as the
+    reference keeps them (its equivariant algebra is f32)."""
+    return cast_params(params_np, torch.float32, resolve_device(device))

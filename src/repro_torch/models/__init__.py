@@ -1,3 +1,4 @@
-"""Models of the port: the dense decoder-only transformer's serving entry
-points (``transformer``) over the attention kernels (``attention``), and
-the recsys archs' serving entry points (``recsys``)."""
+"""Models of the port: the decoder-only transformer, dense or MoE
+(``transformer``, ``moe``) over the attention kernels (``attention``),
+the recsys archs (``recsys``), and MACE (``mace``) with its host graph
+substrate (``gnn_common``)."""

@@ -6,9 +6,10 @@ None of them is a Pallas kernel in the reference, so plain PyTorch is
 their port.  The fused fixed-size bag that DLRM's lookups go through is
 ``repro_torch.kernels.embedding_bag``.
 
-Ids must lie in ``[0, vocab)``: PyTorch raises on an id outside the
-table on the CPU and does not check it on the card, where JAX would
-clamp or fill.
+Ids of a lookup must lie in ``[0, vocab)``: PyTorch raises on an id
+outside the table on the CPU and does not check it on the card, where
+JAX would clamp or fill.  ``segment_softmax`` takes any segment id and
+returns what the reference returns.
 """
 
 from __future__ import annotations
@@ -59,14 +60,24 @@ def segment_softmax(
     num_segments: int,
 ) -> torch.Tensor:
     """Softmax within segments (GAT-style attention over ragged
-    neighbours), with a floor of 1e-20 on each denominator."""
+    neighbours), with a floor of 1e-20 on each denominator.
+
+    A segment id outside ``[0, num_segments)`` gives the reference's
+    answer, that of JAX's segment reductions and gather: it is left out
+    of every segment's max and sum (here it lands in one extra row that
+    is cut off), and the read-back clamps an id past the end and wraps a
+    negative one.  So such an entry is divided by the segment it is read
+    from, ``inf`` where that segment is empty; nothing raises or asserts."""
     seg = segment_ids.long()
-    idx = seg.reshape(-1, *([1] * (logits.dim() - 1))).expand_as(logits)
-    shape = (num_segments, *logits.shape[1:])
+    n = num_segments
+    dropped = torch.where((seg >= 0) & (seg < n), seg, n)
+    read = torch.where(seg < 0, seg + n, seg).clamp(0, n - 1)
+    idx = dropped.reshape(-1, *([1] * (logits.dim() - 1))).expand_as(logits)
+    shape = (n + 1, *logits.shape[1:])
     mx = torch.full(shape, float("-inf"), dtype=logits.dtype,
                     device=logits.device)
-    mx = mx.scatter_reduce(0, idx, logits, "amax", include_self=True)
-    z = torch.exp(logits - mx[seg])
+    mx = mx.scatter_reduce(0, idx, logits, "amax", include_self=True)[:n]
+    z = torch.exp(logits - mx[read])
     denom = torch.zeros(shape, dtype=z.dtype, device=z.device)
-    denom = denom.index_add_(0, seg, z)
-    return z / torch.clamp(denom[seg], min=1e-20)
+    denom = denom.index_add_(0, dropped, z)[:n]
+    return z / torch.clamp(denom[read], min=1e-20)

@@ -341,8 +341,33 @@ def test_recsys_and_gnn_bundles():
         assert b.family == "recsys" and list(b.cells) == shape_cells(arch)
         assert b.training.batch_size == b.serving.batch_sizes["train_batch"]
         assert b.config == get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_bundle("mace")
+    # the GNN bundle: the reference's cells, per-cell configs and batch
+    # shapes at both sizes, and its published dataset sizes
+    for reduced in (False, True):
+        b, ref = get_bundle("mace", reduced=reduced), ref_get_bundle(
+            "mace", reduced=reduced)
+        assert b.family == ref.family == "gnn"
+        assert list(b.cells) == shape_cells("mace") == list(ref.cells)
+        assert b.config == get_config("mace", reduced=reduced)
+        assert list(b.cell_configs) == list(ref.cell_configs)
+        for cell in b.cells:
+            got, want = b.cell_configs[cell], ref.cell_configs[cell]
+            assert {f: v for f, v in dataclasses.asdict(got).items()
+                    if f != "dtype"} == {
+                f: v for f, v in dataclasses.asdict(want).items()
+                if f != "dtype"}
+            assert {k: (tuple(shape), str(dt).removeprefix("torch."))
+                    for k, (shape, dt) in b.cell_specs[cell].inputs.items()
+                    } == {k: (tuple(v.shape), str(v.dtype)) for k, v in
+                          ref.cells[cell].inputs["batch"].items()}
+        assert all(spec.opt == OptConfig(
+            lr=1e-3, weight_decay=0.0, schedule="cosine", warmup_steps=10,
+            total_steps=1000) for spec in b.cell_specs.values())
+    full = get_bundle("mace")
+    assert full.sizes["cora"] == (2708, 10556)
+    assert full.sizes["products"] == (2_449_029, 61_859_140)
+    assert full.cell_specs["minibatch_lg"].inputs["labels"][0] == (169_984,)
+    assert full.cell_specs["minibatch_lg"].inputs["edge_mask"][0] == (168_960,)
 
 
 # ------------------------------------------------ the card phases' helpers --
