@@ -274,6 +274,7 @@ BAG_F32_ROWS = 20_000_000     # 10.24 GB of f32 at D = 128: past 2^31
 BAG_DEPLOY_B, BAG_DEPLOY_K = 262_144, 8   # kernel_bench's K
 BAG_DIN_ROWS, BAG_DIN_D = 1_000_000, 18   # DIN's items and width
 BAG_DIN_B, BAG_DIN_K = 16_384, 100        # and its history length
+BAG_BAD_EVERY = 4_099        # one out-of-range id a this many in a rule case
 # recsys train: dlrm-mlperf at its published widths; at 16 B a parameter
 # (f32 masters, gradients, mu, nu) its 177,944,225 rows need 364 GB, so
 # each table is capped at 2^22 rows (23,458,556 rows, 48.0 GB of state)
@@ -322,6 +323,10 @@ LM_TRAIN_SEQ = 4096
 LM_TRAIN_WARMUP = 2
 LM_TRAIN_TIMED = 5
 LM_TRAIN_PARITY_STEPS = 3    # REDUCED, card against CPU
+# the mesh phase: a one-rank NCCL mesh's granite step against the
+# unsharded one, its peak at most this much above that step's
+MESH_PEAK_RATIO = 1.05
+MESH_PSUM_SHAPE = (2048, 8192)   # one of granite's (d, d_ff) gradients
 # kernel route against plain route, one microbatch in bf16.  The two
 # forwards differ only in the order of f32 sums before each attention
 # output's one bf16 rounding, so an output element differs by one bf16
@@ -2186,6 +2191,8 @@ def bag_case(table: torch.Tensor, ids: torch.Tensor,
         "shape": [V, D, B, K], "dtype": str(table.dtype).split(".")[-1],
         **check, "bit_identical": identical,
         "ms": cuda_ms(lambda: embedding_bag_fixed(table, ids, w)),
+        "fill_ms": cuda_ms(lambda: embedding_bag_fixed(table, ids, w,
+                                                       id_rule="fill")),
         "plain_ms": cuda_ms(lambda: embedding_bag_fixed_plain(table, ids, w)),
         "library_ms": cuda_ms(lambda: F.embedding_bag(
             ids, table, mode="sum", per_sample_weights=lib_w)),
@@ -2197,9 +2204,57 @@ def bag_case(table: torch.Tensor, ids: torch.Tensor,
     }
 
 
+def bad_ids(ids: torch.Tensor, V: int) -> torch.Tensor:
+    """``ids`` with every BAG_BAD_EVERY-th id replaced, in turn, by V, -1,
+    -V, -V-1 and 2^31-1: out of range, wrapped, wrapped to row 0, out of
+    range after the wrap, and the largest int32."""
+    bad = torch.tensor([V, -1, -V, -V - 1, 2**31 - 1], dtype=torch.int32,
+                       device=ids.device)
+    out = ids.clone()
+    flat = out.view(-1)
+    pos = torch.arange(0, flat.numel(), BAG_BAD_EVERY, device=ids.device)
+    flat[pos] = bad[torch.arange(pos.numel(), device=ids.device) % 5]
+    return out
+
+
+def bag_rule_case(table: torch.Tensor, ids: torch.Tensor,
+                  w: torch.Tensor) -> dict:
+    """The kernel under each id rule against its plain version on ids
+    with :func:`bad_ids` mixed in: bit for bit, NaN in the same places
+    (the NaN's own bits aside), and the fill rule's NaN bags counted."""
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_fixed
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_fixed_plain
+
+    ids = bad_ids(ids, table.shape[0])
+    out = {"shape": list(table.shape) + list(ids.shape),
+           "dtype": str(table.dtype).split(".")[-1],
+           "bad_ids": int((ids.view(-1)[::BAG_BAD_EVERY]).numel())}
+    for rule in ("clip", "fill"):
+        got = embedding_bag_fixed(table, ids, w, id_rule=rule)
+        plain = embedding_bag_fixed_plain(table, ids, w, id_rule=rule)
+        torch.cuda.synchronize()
+        nan_g, nan_p = torch.isnan(got), torch.isnan(plain)
+        same = bool(torch.equal(nan_g, nan_p)) and bool(torch.equal(
+            torch.where(nan_g, 0, got), torch.where(nan_p, 0, plain)))
+        out[rule] = {"bit_identical": same,
+                     "nan_bags": int(nan_g.any(1).sum()),
+                     "ms": cuda_ms(lambda: embedding_bag_fixed(
+                         table, ids, w, id_rule=rule))}
+        del got, plain
+    # V, -V-1 and 2^31-1 read a NaN row under fill; -1 and -V wrap
+    want = sum(1 for i in range(out["bad_ids"]) if i % 5 in (0, 3, 4))
+    out["fill"]["expected_nan_bags"] = want if ids.shape[1] == 1 else None
+    out["within_tolerance"] = (
+        out["clip"]["bit_identical"] and out["fill"]["bit_identical"]
+        and out["clip"]["nan_bags"] == 0
+        and (ids.shape[1] != 1 or out["fill"]["nan_bags"] == want))
+    return out
+
+
 def bag_phase(params: dict, largest, device) -> Dict[str, dict]:
     """The bag kernel against its plain version in bf16 and f32: at the
-    serve phase's largest launch (K = 1, w = 1; bit identical), at a
+    serve phase's largest launch (K = 1, w = 1; bit identical, and with
+    out-of-range ids under both id rules, :func:`bag_rule_case`), at a
     multi-hot deployment shape over t19's 48,937,457 rows (and a 20M-row
     f32 table; both past 2^31 elements), and at DIN's widths (D = 18,
     K = 100)."""
@@ -2212,8 +2267,9 @@ def bag_phase(params: dict, largest, device) -> Dict[str, dict]:
     ones = torch.ones((B, K), device=device)
     out = {}
     for tag, table in (("bf16", t0), ("f32", f32)):
-        out[f"serve_{tag}"] = bag_case(
-            table, bag_ids(table.shape[0], B, K, gen, device), ones)
+        ids = bag_ids(table.shape[0], B, K, gen, device)
+        out[f"serve_{tag}"] = bag_case(table, ids, ones)
+        out[f"rules_{tag}"] = bag_rule_case(table, ids, ones)
     w = torch.rand((BAG_DEPLOY_B, BAG_DEPLOY_K), generator=gen, device=device)
     for tag, table in (("bf16", t19), ("f32", f32)):
         out[f"deploy_{tag}"] = bag_case(
@@ -2272,8 +2328,8 @@ def route_grads(cfg, params: dict, batch: dict, bag: Callable) -> dict:
               for n in names}
     outs = []
 
-    def recording(table, ids, w):
-        out = bag(table, ids, w)
+    def recording(table, ids, w, id_rule="clip"):
+        out = bag(table, ids, w, id_rule=id_rule)
         outs.append((ids, out))
         return out
 
@@ -3105,6 +3161,155 @@ def lm_train_phase(device, kernels) -> dict:
     }
 
 
+def one_step(trainer, batch: dict, device) -> dict:
+    """One ``Trainer`` step on ``batch``: its host time (synchronised),
+    its loss, and the peak allocation above what was held before it."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    trainer.fit(lambda _: batch, trainer.step_num + 1)
+    torch.cuda.synchronize()
+    return {"s": time.perf_counter() - t,
+            "loss": trainer.history[-1]["loss"],
+            "held_bytes": held,
+            "peak_bytes": torch.cuda.max_memory_allocated(device),
+            "step_peak_bytes": torch.cuda.max_memory_allocated(device) - held}
+
+
+def mesh_phase(device, kernels) -> dict:
+    """The sharding slice on a one-rank NCCL group, set up from a
+    FileStore in a temporary directory (no network): ``compressed_psum``
+    against ``dequantize_int8(*quantize_int8(x))`` bit for bit, a bf16
+    checkpoint of CUDA tensors saved and restored bit for bit, and one
+    granite-3-2b training step at its published widths (the bundle's
+    ``train_4k`` optimizer and microbatches, LM_TRAIN_BATCH x
+    LM_TRAIN_SEQ) on ``make_host_mesh()`` against the same step without
+    a mesh, from the same params and batch: the loss and every updated
+    param bit for bit, the step's peak at most MESH_PEAK_RATIO of the
+    unsharded step's, and the wgmma flash kernel launched by it."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs.registry import get_bundle
+    from repro_torch.distributed.compression import (
+        compressed_psum,
+        dequantize_int8,
+        quantize_int8,
+    )
+    from repro_torch.distributed.hooks import use_mesh
+    from repro_torch.distributed.sharding import is_sharded, place
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import synth_lm_batches
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import flatten_with_path, leaves, path_name, tree_map
+
+    t0 = time.perf_counter()
+    failures = free_check("mesh", device)
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device(
+                "cuda", torch.cuda.current_device()))
+        try:
+            mesh = make_host_mesh()
+            out["mesh"] = {"shape": list(mesh.shape),
+                           "axes": list(mesh.mesh_dim_names),
+                           "backend": dist.get_backend()}
+            gen = torch.Generator(device=device).manual_seed(61)
+            x = torch.randn(MESH_PSUM_SHAPE, generator=gen, device=device)
+            psum = compressed_psum(x)
+            out["psum_bit_identical"] = bool(torch.equal(
+                psum, dequantize_int8(*quantize_int8(x))))
+            del x, psum
+            if not out["psum_bit_identical"]:
+                failures.append("mesh: compressed_psum on one rank differs "
+                                "from dequantize(quantize(x))")
+
+            tree = {"w": torch.randn((4096, 2048), generator=gen,
+                                     device=device).to(torch.bfloat16),
+                    "b": torch.randn((2048,), generator=gen,
+                                     device=device).to(torch.bfloat16),
+                    "s": torch.randn((7,), generator=gen, device=device)}
+            ck = os.path.join(tmp, "ckpt")
+            save_checkpoint(ck, 1, tree)
+            back, _, _, _ = load_checkpoint(ck, tree, device=device)
+            out["bf16_checkpoint_bit_identical"] = all(
+                a.dtype == b.dtype and a.device == b.device and torch.equal(
+                    a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                    b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+                for a, b in zip(leaves(back), leaves(tree)))
+            del tree, back
+            if not out["bf16_checkpoint_bit_identical"]:
+                failures.append("mesh: a bf16 checkpoint of CUDA tensors "
+                                "did not restore bit for bit")
+
+            bundle = get_bundle("granite-3-2b")
+            cfg, mb = bundle.config, bundle.microbatches
+            params = bundle.init(torch.Generator(device=device).manual_seed(0))
+            batch = {k: torch.as_tensor(v, device=device) for k, v in
+                     synth_lm_batches(cfg.vocab, LM_TRAIN_BATCH,
+                                      LM_TRAIN_SEQ)(0).items()}
+            tc = TrainerConfig(opt=bundle.opt, microbatches=mb, log_every=1)
+            plain_tr = Trainer(bundle.loss_fn(), params, tc, device=device)
+            plain = one_step(plain_tr, batch, device)
+            plain_params = plain_tr.params
+            del plain_tr
+            log(f"mesh: unsharded step {plain['s']:.2f} s, loss "
+                f"{plain['loss']:.6f}, step peak "
+                f"{plain['step_peak_bytes']:,} B")
+
+            placed = tree_map(place, params, bundle.param_shardings(mesh))
+            mesh_tr = Trainer(bundle.loss_fn(), placed, tc, device=device)
+            del placed, params
+            for k in kernels:
+                k.launches = 0
+            with use_mesh(mesh):
+                sharded = one_step(mesh_tr, batch, device)
+            launches = {k.symbol: k.launches for k in kernels}
+            log(f"mesh: one-rank mesh step {sharded['s']:.2f} s, loss "
+                f"{sharded['loss']:.6f}, step peak "
+                f"{sharded['step_peak_bytes']:,} B")
+            differ = [path_name(p) for (p, a), b in zip(
+                flatten_with_path(mesh_tr.params), leaves(plain_params))
+                if not (is_sharded(a) and torch.equal(a.to_local(), b))]
+            same_loss = sharded["loss"] == plain["loss"]
+            ratio = sharded["step_peak_bytes"] / plain["step_peak_bytes"]
+            expect = 2 * cfg.n_layers * mb
+            out.update({
+                "arch": cfg.name, "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ],
+                "microbatches": mb, "unsharded": plain, "sharded": sharded,
+                "loss_bit_identical": same_loss,
+                "params_differing": differ[:10],
+                "n_params_differing": len(differ),
+                "step_peak_ratio": ratio, "launches": launches,
+                "expected_flash_wgmma_launches": expect})
+            if not same_loss or differ:
+                failures.append(
+                    f"mesh: the one-rank mesh step differs from the unsharded "
+                    f"one: loss {sharded['loss']!r} vs {plain['loss']!r}, "
+                    f"{len(differ)} params differ ({differ[:3]})")
+            if ratio > MESH_PEAK_RATIO:
+                failures.append(f"mesh: the mesh step's peak is {ratio:.4f} "
+                                f"of the unsharded step's (at most "
+                                f"{MESH_PEAK_RATIO})")
+            if launches.get("flash_attention_wgmma") != expect:
+                failures.append(
+                    f"mesh: flash_attention_wgmma launched "
+                    f"{launches.get('flash_attention_wgmma')} times in the "
+                    f"mesh step, {expect} expected")
+            del mesh_tr, plain_params, batch
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["failures"] = failures
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def path_attention_phase(paths: Dict[str, dict], device) -> Dict[str, dict]:
     """The attention kernels against their plain versions at the largest
     shapes the MoE serving and LM training paths gave them (bf16): the
@@ -3592,7 +3797,10 @@ def main(argv: Sequence[str] = ()) -> int:
     del dlrm_params
     for where, case in bags.items():
         log(f"kernel embedding_bag {where}: " + json.dumps(case))
-        if not case["within_tolerance"]:
+        if where.startswith("rules") and not case["within_tolerance"]:
+            failures.append(f"embedding_bag's id rules differ from its plain "
+                            f"version's at {where}: {json.dumps(case)}")
+        elif not case["within_tolerance"]:
             failures.append(f"embedding_bag disagrees with its plain version "
                             f"at {where} shape {case['shape']}: error "
                             f"{case['max_err_ratio']:.3g} times its limit")
@@ -3641,6 +3849,10 @@ def main(argv: Sequence[str] = ()) -> int:
         {k: v for k, v in lm["grad_check"].items() if k != "rel_l2"}))
     failures += lm["failures"]
     log(f"lm train phase: {lm['seconds']:.1f} s")
+    mesh = mesh_phase(device, serve_kernels)
+    log("mesh: " + json.dumps(mesh))
+    failures += mesh["failures"]
+    log(f"mesh phase: {mesh['seconds']:.1f} s")
     paths = {"moe_serve": moe, "moe_serve_qwen3": qwen3, "lm_train": lm}
     path_attn = path_attention_phase(paths, device)
     for name, cases in path_attn.items():
@@ -3668,7 +3880,7 @@ def main(argv: Sequence[str] = ()) -> int:
     # path) and LM training (forward and remat recompute)
     launch_paths = {"serve": serve, "parity": parity, "moe_serve": moe,
                     "moe_serve_qwen3": qwen3, "moe_parity": mparity,
-                    "lm_train": lm}
+                    "lm_train": lm, "mesh": mesh}
     by_path = {k.symbol: {path: rep["launches"].get(k.symbol, 0)
                           for path, rep in launch_paths.items()}
                for k in serve_kernels}
@@ -3744,7 +3956,8 @@ def main(argv: Sequence[str] = ()) -> int:
              "recsys": recsys, "recsys_parity": rparity,
              "embedding_bag": bags, "recsys_train": train,
              "moe_serve": moe, "moe_serve_qwen3": qwen3,
-             "moe_parity": mparity, "lm_train": lm, "gnn_train": gnn,
+             "moe_parity": mparity, "lm_train": lm, "mesh": mesh,
+             "gnn_train": gnn,
              "kernels": line["kernels"], "failures": failures}, indent=1))
     if failures:
         for f in failures:

@@ -3,13 +3,15 @@
 phases alone on one CUDA card, to iterate on them without the whole smoke
 run.
 
-    python3 scripts/smoke_phases.py moe,qwen3,mparity,lm,guard,attn,gnn \
+    python3 scripts/smoke_phases.py moe,qwen3,mparity,lm,mesh,guard,attn,gnn \
         [--seed 0] [--out build/smoke_phases.json]
 
 Phases: ``moe`` (Moonlight-16B-A3B served at its full config), ``qwen3``
 (Qwen3-235B-A22B widths at 8 layers), ``mparity`` (both MoE configs at
 REDUCED, card against CPU), ``lm`` (granite-3-2b trained at its published
-widths), ``guard`` (the attention wrappers' grad guard and the flash
+widths), ``mesh`` (granite-3-2b's step on a one-rank NCCL mesh against
+the unsharded step, ``compressed_psum`` and a bf16 checkpoint on the
+card), ``guard`` (the attention wrappers' grad guard and the flash
 ``Function``), ``attn`` (both attention kernels at the shapes the
 ``moe``, ``qwen3`` and ``lm`` phases gave them), ``gnn`` (MACE trained at
 its published widths in the GNN bundle's four cells, data from
@@ -30,14 +32,14 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("moe", "qwen3", "mparity", "lm", "guard", "attn", "gnn")
+PHASES = ("moe", "qwen3", "mparity", "lm", "mesh", "guard", "attn", "gnn")
 PATH_NAMES = {"moe": "moe_serve", "qwen3": "moe_serve_qwen3", "lm": "lm_train"}
 SUMMARY_KEYS = ("tokens_per_s", "prefill", "decode_step", "dropped",
                 "peak_mem_bytes", "serve_peak_mem_bytes", "launches", "step",
                 "grad_check", "configs", "reduced_checks", "backward",
                 "adamw_ms", "setup_s", "split_s", "checks",
                 "reduced_checks", "hand_kernel_launches", "seconds",
-                "failures")
+                "unsharded", "sharded", "step_peak_ratio", "failures")
 
 
 def main(argv=None) -> int:
@@ -80,6 +82,7 @@ def main(argv=None) -> int:
         "qwen3": lambda: cs.moe_qwen3_phase(device, kernels),
         "mparity": lambda: cs.moe_parity_phase(device, kernels),
         "lm": lambda: cs.lm_train_phase(device, kernels),
+        "mesh": lambda: cs.mesh_phase(device, kernels),
         "guard": lambda: {"failures": cs.attention_grad_guard(device)},
         "attn": lambda: {"failures": [], "cases": cs.path_attention_phase(
             {PATH_NAMES[k]: out[k] for k in PATH_NAMES if k in out},

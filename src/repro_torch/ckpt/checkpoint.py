@@ -16,10 +16,17 @@ job continues from the exact batch.  :class:`CheckpointManager` copies
 the trees to the host and writes them on a worker thread, keeping the
 newest ``keep``.
 
-Leaves are written as numpy arrays.  numpy has no bfloat16 without the
-``ml_dtypes`` package, which the port does not use, so a bf16 leaf raises
-``TypeError``: training keeps f32 masters, and its checkpoints hold f32
-and int32 leaves only.
+Leaves are written as ``.npy`` files.  numpy has no bfloat16 without the
+``ml_dtypes`` package, which the port does not use, so a bf16 leaf is
+written as its uint16 bits under the header that ``ml_dtypes`` gives the
+reference's file (``'descr': '<V2'``, manifest dtype ``bfloat16``): the
+same bytes and hash.  A ``V2`` leaf whose manifest says ``bfloat16`` loads
+back as ``torch.bfloat16``, bit for bit.
+
+On a mesh (leaves that are DTensors, :mod:`repro_torch.distributed.sharding`)
+every rank gathers each leaf and rank 0 writes it, so the files equal an
+unsharded save's; a load given ``shardings`` places each leaf it reads on
+the current mesh, whatever mesh wrote it (elastic restore).
 """
 
 from __future__ import annotations
@@ -36,22 +43,61 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import full_tensor, is_sharded, place
 from repro_torch.tree import flatten_with_path, path_name, tree_map, unflatten
 
+BF16 = "bfloat16"
+BF16_DESCR = "<V2"   # what ml_dtypes' bfloat16 writes into a .npy header
 
-def _host(leaf: Any) -> np.ndarray:
-    """A host copy of a tensor leaf (arrays pass as they are)."""
+
+class BF16Bits:
+    """A bf16 leaf on the host: its uint16 bit patterns."""
+
+    def __init__(self, bits: np.ndarray):
+        self.bits = bits
+        self.shape = bits.shape
+        self.dtype = BF16
+
+
+def _host(leaf: Any):
+    """A host copy of a leaf: a numpy array, or :class:`BF16Bits` for a
+    bf16 tensor (arrays and bits pass as they are).  A DTensor is
+    gathered first, on every rank."""
+    leaf = full_tensor(leaf)
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise TypeError(
-                "a bfloat16 leaf has no numpy dtype without ml_dtypes; "
-                "checkpoints hold f32 masters")
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return BF16Bits(t.view(torch.int16).numpy().view(np.uint16))
+        return t.numpy()
+    if isinstance(leaf, BF16Bits):
+        return leaf
     return np.asarray(leaf)
 
 
-def _flatten(tree: Any) -> Dict[str, np.ndarray]:
+def _flatten(tree: Any) -> Dict[str, Any]:
     return {path_name(p): _host(leaf) for p, leaf in flatten_with_path(tree)}
+
+
+def _write(path: str, arr) -> None:
+    """``np.save``'s bytes; a bf16 leaf under the reference's header."""
+    if not isinstance(arr, BF16Bits):
+        np.save(path, arr)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, {
+            "descr": BF16_DESCR, "fortran_order": False,
+            "shape": tuple(arr.shape)})
+        f.write(np.ascontiguousarray(arr.bits, dtype="<u2").tobytes())
+
+
+def _read(path: str, dtype: str) -> torch.Tensor:
+    """A leaf's file as a CPU tensor: a ``V2`` leaf whose manifest dtype
+    is bfloat16 as ``torch.bfloat16``, bit for bit."""
+    arr = np.load(path)
+    if dtype == BF16 and arr.dtype == np.dtype("V2"):
+        bits = np.ascontiguousarray(arr).view("<u2").astype(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _sha(path: str) -> str:
@@ -72,7 +118,14 @@ def save_checkpoint(
     data_cursor: int = 0,
     extra: Optional[Dict] = None,
 ) -> str:
-    """Atomic checkpoint write; returns the published path."""
+    """Atomic checkpoint write; returns the published path.  Trees of
+    DTensors are gathered on every rank of their mesh, and only rank 0
+    writes (the others return the path it publishes)."""
+    if _mesh_rank(params, opt_state) > 0:
+        _flatten(params)
+        if opt_state is not None:
+            _flatten(opt_state)
+        return os.path.join(directory, f"step_{step:08d}")
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=directory)
@@ -87,7 +140,7 @@ def save_checkpoint(
             continue
         for name, arr in _flatten(tree).items():
             fname = f"{prefix}__{name.replace('/', '__')}.npy"
-            np.save(os.path.join(tmp, fname), arr)
+            _write(os.path.join(tmp, fname), arr)
             manifest["leaves"][f"{prefix}/{name}"] = {
                 "file": fname,
                 "shape": list(arr.shape),
@@ -100,6 +153,16 @@ def save_checkpoint(
         shutil.rmtree(final)
     os.rename(tmp, final)
     return final
+
+
+def _mesh_rank(*trees) -> int:
+    """This process's rank in the mesh of the trees' DTensors (0 where
+    they hold none)."""
+    for tree in trees:
+        for _, leaf in flatten_with_path(tree):
+            if is_sharded(leaf):
+                return leaf.device_mesh.get_rank()
+    return 0
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -115,11 +178,19 @@ def load_checkpoint(
     opt_template: Any = None,
     step: Optional[int] = None,
     device: DeviceLike = None,
+    shardings: Any = None,
+    opt_shardings: Any = None,
 ) -> Tuple[Any, Any, int, int]:
     """Restore ``(params, opt_state, step, data_cursor)`` as tensors on
     ``device`` (None: the card), in the templates' structures; the latest
     step unless ``step`` is given.  A hash or shape that does not match
-    the manifest raises ``AssertionError``, as in the reference."""
+    the manifest raises ``AssertionError``, as in the reference.
+
+    ``shardings`` and ``opt_shardings`` (trees of
+    :class:`~repro_torch.distributed.sharding.NamedSharding` matching the
+    templates) restore elastically onto the current mesh, as the
+    reference's do: each rank reads every file and keeps its own shard as
+    a DTensor, whatever mesh wrote the checkpoint."""
     dev = resolve_device(device)
     step = step if step is not None else latest_step(directory)
     assert step is not None, f"no checkpoint found in {directory}"
@@ -127,29 +198,34 @@ def load_checkpoint(
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
 
-    def restore(prefix, template):
+    def restore(prefix, template, shard_tree):
         if template is None:
             return None
+        flat = flatten_with_path(template)
+        shards = ([s for _, s in flatten_with_path(shard_tree)]
+                  if shard_tree is not None else [None] * len(flat))
         out = []
-        for pth, _ in flatten_with_path(template):
+        for (pth, _), shard in zip(flat, shards):
             name = path_name(pth)
             meta = manifest["leaves"][f"{prefix}/{name}"]
             fpath = os.path.join(path, meta["file"])
             assert _sha(fpath) == meta["sha"], f"hash mismatch for {name}"
-            arr = np.load(fpath)
-            assert list(arr.shape) == meta["shape"]
-            out.append(torch.from_numpy(arr).to(dev))
+            t = _read(fpath, meta["dtype"])
+            assert list(t.shape) == meta["shape"]
+            t = t.to(dev)
+            out.append(t if shard is None else place(t, shard))
         return unflatten(template, out)
 
-    params = restore("params", params_template)
-    opt = restore("opt", opt_template)
+    params = restore("params", params_template, shardings)
+    opt = restore("opt", opt_template, opt_shardings)
     return params, opt, manifest["step"], manifest["data_cursor"]
 
 
 class CheckpointManager:
     """Keeps the last ``keep`` checkpoints; optional async (threaded)
     saves.  A save copies the trees to the host before it returns, so the
-    caller may update its tensors in place while the thread writes."""
+    caller may update its tensors in place while the thread writes; on a
+    mesh every rank gathers and rank 0 writes."""
 
     def __init__(self, directory: str, keep: int = 3, async_save: bool = True):
         self.directory = directory
@@ -169,8 +245,11 @@ class CheckpointManager:
 
     def save(self, step: int, params: Any, opt_state: Any = None,
              data_cursor: int = 0) -> None:
+        rank = _mesh_rank(params, opt_state)
         host_params = tree_map(_host, params)
         host_opt = tree_map(_host, opt_state) if opt_state is not None else None
+        if rank > 0:   # gathered with rank 0, which writes
+            return
 
         def work():
             try:

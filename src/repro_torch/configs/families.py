@@ -1,6 +1,4 @@
-"""Family bundles, the port of ``repro.configs.families`` without its
-sharding rules and abstract input specs (a mesh is ROADMAP.md queue 1,
-item 12).
+"""Family bundles, the port of ``repro.configs.families``.
 
   * LM (:class:`LMBundle`, the reference's ``lm_bundle``): the config,
     its init, the ``train_4k`` loss and train step with the config's
@@ -18,20 +16,31 @@ item 12).
     dataset's config, its init, its loss and train step under the
     bundle's optimizer, and the shapes of its batch; the bundle's full
     and REDUCED sizes.
+
+Every bundle also carries the reference's sharding surface
+(:class:`_Sharded`): its family's ``rules``, ``param_shardings(mesh)``
+and ``opt_shardings(mesh)``, ``abstract_params()`` and
+``abstract_opt()`` (meta tensors: no memory), and for each cell
+``abstract_inputs(cell)`` and ``input_sharding(cell, mesh)``, the
+reference's ``CellSpec.inputs`` and ``input_sharding``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, ClassVar, Dict, Optional, Tuple
 
 import torch
+from torch.overrides import TorchFunctionMode
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import NamedSharding, P
 from repro_torch.models import mace as M
 from repro_torch.models import transformer as TF
 from repro_torch.models.gnn_common import NeighborSampler
-from repro_torch.train.optim import OptConfig
+from repro_torch.train.optim import OptConfig, adamw_init
 from repro_torch.train.trainer import TrainerConfig, build_train_step
+from repro_torch.tree import tree_map
 
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
@@ -51,6 +60,67 @@ RECSYS_OPT = OptConfig(lr=1e-3, weight_decay=1e-5, schedule="const",
                        warmup_steps=100, total_steps=100_000)
 
 
+Shape = Tuple[Tuple[int, ...], torch.dtype]
+
+
+class _MetaFactories(TorchFunctionMode):
+    """Inside, a factory call that names its device makes a meta tensor,
+    and a draw takes no generator: an init runs without memory."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+        kwargs.pop("generator", None)
+        return func(*args, **kwargs)
+
+
+def abstract(draw: Callable[[torch.Generator], Any]) -> Any:
+    """``draw(gen)`` as meta tensors: the shapes and dtypes of what it
+    would draw (the reference's ``jax.eval_shape``)."""
+    with torch.device("meta"), _MetaFactories():
+        return draw(torch.Generator())
+
+
+def meta_inputs(inputs: Dict[str, Shape]) -> Dict[str, torch.Tensor]:
+    """``{name: (shape, dtype)}`` as meta tensors."""
+    return {k: torch.empty(shape, dtype=dt, device="meta")
+            for k, (shape, dt) in inputs.items()}
+
+
+def batch_sharded(mesh: Any, tree: Any) -> Any:
+    """Every leaf's dim 0 over the batch axes (a scalar replicated): the
+    reference's ``P(batch_spec(mesh)[0], None, ...)`` cell specs."""
+    b = shd.batch_spec(mesh)[0]
+    return tree_map(lambda leaf: NamedSharding(
+        mesh, P(b, *([None] * (leaf.dim() - 1))) if leaf.dim() else P()),
+        tree)
+
+
+class _Sharded:
+    """The reference bundle's sharding surface; a bundle gives ``rules``,
+    ``abstract_params()`` and the cells' ``abstract_inputs(cell)``."""
+
+    rules: ClassVar[list]
+
+    def abstract_opt(self) -> Any:
+        return adamw_init(self.abstract_params())
+
+    def param_shardings(self, mesh: Any) -> Any:
+        return shd.shard_by_rules(self.abstract_params(), mesh, self.rules)
+
+    def opt_shardings(self, mesh: Any) -> Dict:
+        pshard = self.param_shardings(mesh)
+        return {"mu": pshard, "nu": pshard,
+                "step": NamedSharding(mesh, P())}
+
+    def input_sharding(self, cell: str, mesh: Any) -> Dict:
+        """``{"batch": NamedSharding tree}``: dim 0 of every input over
+        the batch axes."""
+        return {"batch": batch_sharded(mesh,
+                                       self.abstract_inputs(cell)["batch"])}
+
+
 @dataclasses.dataclass(frozen=True)
 class RecsysServing:
     name: str
@@ -62,6 +132,10 @@ class RecsysServing:
     batch_sizes: Dict[str, int]
     n_candidates: int       # candidates of one retrieval call
     serve_candidates: Optional[int] = None  # per row, where scoring takes them
+    # the reference's abstract inputs: train(B), serve(B), retrieval()
+    train_inputs: Optional[Callable[[int], Dict[str, Shape]]] = None
+    serve_inputs: Optional[Callable[[int], Dict[str, Shape]]] = None
+    retrieval_inputs: Optional[Callable[[], Dict[str, Shape]]] = None
 
 
 def _train_fn(loss_fn: Callable, opt: OptConfig, microbatches: int = 1):
@@ -70,7 +144,7 @@ def _train_fn(loss_fn: Callable, opt: OptConfig, microbatches: int = 1):
 
 
 @dataclasses.dataclass(frozen=True)
-class LMBundle:
+class LMBundle(_Sharded):
     """An LM arch's cells.  ``shapes[cell]`` is the (batch, sequence) of
     ``train_4k`` and ``prefill_32k`` and the (slots, S_max) of the two
     decode cells; ``train_4k`` accumulates over ``microbatches``."""
@@ -80,6 +154,35 @@ class LMBundle:
     microbatches: int = 1
     opt: OptConfig = OptConfig()
     family: str = "lm"
+    rules: ClassVar[list] = shd.LM_RULES
+
+    def abstract_params(self):
+        return abstract(lambda g: TF.init_params(self.config, g, masters=True))
+
+    def abstract_inputs(self, cell: str) -> Dict:
+        """The cell's inputs as meta tensors.  A decode cell's cache is
+        the port's head-major (L, B, n_kv, S_max, D), where the
+        reference's is (L, B, S_max, n_kv, D)."""
+        cfg, (B, S) = self.config, self.shapes[cell]
+        i32 = torch.int32
+        if cell == "train_4k":
+            return {"batch": meta_inputs({"tokens": ((B, S), i32),
+                                          "labels": ((B, S), i32)})}
+        if cell == "prefill_32k":
+            return {"batch": meta_inputs({"tokens": ((B, S), i32)})}
+        kv = ((cfg.n_layers, B, cfg.n_kv_heads, S, cfg.d_head), cfg.dtype)
+        return {"batch": {"token": torch.empty((B,), dtype=i32, device="meta"),
+                          "cache": meta_inputs({"k": kv, "v": kv,
+                                                "len": ((B,), i32)})}}
+
+    def input_sharding(self, cell: str, mesh: Any) -> Dict:
+        if cell in ("train_4k", "prefill_32k"):
+            return super().input_sharding(cell, mesh)
+        b = shd.batch_spec(mesh)[0]
+        kv = NamedSharding(mesh, P(None, b, None, "model", None))  # S on model
+        return {"batch": {"token": NamedSharding(mesh, P(b)),
+                          "cache": {"k": kv, "v": kv,
+                                    "len": NamedSharding(mesh, P(b))}}}
 
     @property
     def cells(self) -> Tuple[str, ...]:
@@ -107,6 +210,8 @@ def lm_bundle(name: str, cfg: TF.TransformerConfig,
               shapes: Optional[Dict[str, Tuple[int, int]]] = None,
               opt: Optional[OptConfig] = None,
               microbatches: int = 1) -> LMBundle:
+    # padded head sharding everywhere, as the reference's bundle sets it
+    cfg = dataclasses.replace(cfg, att_shard="heads")
     return LMBundle(name=name, config=cfg,
                     shapes=dict(shapes or LM_CELL_SHAPES),
                     microbatches=microbatches, opt=opt or OptConfig())
@@ -140,13 +245,41 @@ def recsys_training(sv: RecsysServing, loss: Callable) -> RecsysTraining:
 
 
 @dataclasses.dataclass(frozen=True)
-class RecsysBundle:
+class RecsysBundle(_Sharded):
     """A recsys arch's four cells: ``serving`` has the three serve cells,
     ``training`` the ``train_batch`` cell."""
     name: str
     serving: RecsysServing
     training: RecsysTraining
     family: str = "recsys"
+    rules: ClassVar[list] = shd.RECSYS_RULES
+
+    def abstract_params(self):
+        return abstract(lambda g: self.training.init(self.config, g,
+                                                     masters=True))
+
+    def abstract_inputs(self, cell: str) -> Dict:
+        sv = self.serving
+        if cell == "train_batch":
+            inputs = sv.train_inputs(sv.batch_sizes[cell])
+        elif cell == "retrieval_cand":
+            inputs = sv.retrieval_inputs()
+        else:
+            inputs = sv.serve_inputs(sv.batch_sizes[cell])
+        return {"batch": meta_inputs(inputs)}
+
+    def input_sharding(self, cell: str, mesh: Any) -> Dict:
+        """Dim 0 over the batch axes; in ``retrieval_cand`` only for an
+        input of at least 1,000,000 rows (the candidates), as in the
+        reference."""
+        if cell != "retrieval_cand":
+            return super().input_sharding(cell, mesh)
+        b = shd.batch_spec(mesh)[0]
+        return {"batch": tree_map(lambda leaf: NamedSharding(
+            mesh, P(b, *([None] * (leaf.dim() - 1)))
+            if leaf.dim() and leaf.shape[0] >= 1_000_000
+            else P(*([None] * leaf.dim()))),
+            self.abstract_inputs(cell)["batch"])}
 
     @property
     def config(self) -> Any:
@@ -168,9 +301,6 @@ GNN_SIZES = {"cora": (2708, 10556), "products": (2_449_029, 61_859_140),
              "mb_seeds": (1024, (15, 10)), "mol": (128, 30, 64)}
 REDUCED_GNN_SIZES = {"cora": (128, 512), "products": (256, 1024),
                      "mb_seeds": (8, (3, 2)), "mol": (4, 10, 16)}
-
-Shape = Tuple[Tuple[int, ...], torch.dtype]
-
 
 @dataclasses.dataclass(frozen=True)
 class GNNCell:
@@ -196,9 +326,15 @@ class GNNCell:
         ``opt_state`` (updates them in place)."""
         return _train_fn(self.loss_fn(), self.opt)
 
+    def abstract_inputs(self) -> Dict:
+        return {"batch": meta_inputs(self.inputs)}
+
+    def input_sharding(self, mesh: Any) -> Dict:
+        return {"batch": batch_sharded(mesh, self.abstract_inputs()["batch"])}
+
 
 @dataclasses.dataclass(frozen=True)
-class GNNBundle:
+class GNNBundle(_Sharded):
     """MACE's four cells (``cell_specs``, in ``GNN_SHAPES`` order) and the
     sizes they were built at; ``init`` is the Cora cell's, as the
     reference bundle's is."""
@@ -207,6 +343,16 @@ class GNNBundle:
     sizes: Dict[str, tuple]
     cell_specs: Dict[str, GNNCell]
     family: str = "gnn"
+    rules: ClassVar[list] = shd.GNN_RULES
+
+    def abstract_params(self):
+        return abstract(self.cell_specs["full_graph_sm"].init)
+
+    def abstract_inputs(self, cell: str) -> Dict:
+        return self.cell_specs[cell].abstract_inputs()
+
+    def input_sharding(self, cell: str, mesh: Any) -> Dict:
+        return self.cell_specs[cell].input_sharding(mesh)
 
     @property
     def cells(self) -> Tuple[str, ...]:

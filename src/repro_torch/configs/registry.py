@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``--arch`` id -> config and bundle.
 
 The reference maps every id to a bundle (config, init, sharding rules,
-step functions).  So does the port, without the sharding rules
-(ROADMAP.md queue 1, item 12): the LM ids, dense and MoE (``get_config``
+step functions).  So does the port, each bundle with its family's rules,
+param and opt shardings and its cells' abstract inputs and input
+shardings (``configs.families``): the LM ids, dense and MoE (``get_config``
 gives their ``TransformerConfig``, ``get_bundle`` their
 :class:`~repro_torch.configs.families.LMBundle`), the GNN id ``mace``
 (its ``MACEConfig``, and a :class:`~repro_torch.configs.families.GNNBundle`

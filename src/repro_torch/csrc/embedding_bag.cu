@@ -26,8 +26,14 @@
 // rows are random, so the design keeps many independent 16-byte loads in
 // flight: one bag per group of lanes, 256-thread blocks, the ids of a step
 // loaded by the group at once and the inner loop unrolled so that several
-// row loads are issued before their sums are taken.  Ids are not checked
-// against the table's rows.
+// row loads are issued before their sums are taken.
+//
+// Out-of-range ids follow one of two rules, resolved once where lane j loads
+// the id (one compare and select each): clip, the rule of the Pallas kernel
+// and its oracle (a negative id wraps once by V, then is clamped to
+// [0, V)), and fill, the rule of jnp.take that the reference's DLRM lookups
+// follow (an id in [-V, 0) wraps; any other out-of-range id reads a NaN row,
+// which the sum propagates to every column of its bag).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -56,6 +62,13 @@ template <>
 struct Raw<2> {
   using type = unsigned short;
 };
+
+// the row an id reads under the rule, or -1 for a NaN row (fill only)
+__device__ __forceinline__ int resolve_id(int id, int V, bool fill) {
+  if (id < 0) id += V;  // no overflow: V > 0
+  if (fill) return id >= 0 && id < V ? id : -1;
+  return min(max(id, 0), V - 1);
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -92,7 +105,7 @@ template <typename T, int VB, int G>
 __global__ void __launch_bounds__(kThreads)
 embedding_bag_kernel(const T* __restrict__ table, const int* __restrict__ ids,
                      const float* __restrict__ weights, T* __restrict__ out,
-                     int B, int K, int D) {
+                     int B, int K, int D, int V, bool fill) {
   constexpr int kVec = VB / static_cast<int>(sizeof(T));
   constexpr int kBags = kThreads / G;  // bags a block
   const int sub = threadIdx.x % G;     // lane within the bag's group
@@ -116,7 +129,7 @@ embedding_bag_kernel(const T* __restrict__ table, const int* __restrict__ ids,
       int my_id = 0;
       float my_w = 0.f;
       if (valid && sub < n) {
-        my_id = bag_ids[k0 + sub];
+        my_id = resolve_id(bag_ids[k0 + sub], V, fill);
         my_w = bag_w[k0 + sub];
       }
 #pragma unroll 4
@@ -125,8 +138,13 @@ embedding_bag_kernel(const T* __restrict__ table, const int* __restrict__ ids,
         const float w = __shfl_sync(kFull, my_w, j, G);
         if (active) {
           float row[kVec];
-          load_f32<T, VB>(table + static_cast<long long>(id) * D + c * kVec,
-                          row);
+          if (id >= 0) {
+            load_f32<T, VB>(table + static_cast<long long>(id) * D + c * kVec,
+                            row);
+          } else {
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) row[e] = __int_as_float(0x7fc00000);
+          }
 #pragma unroll
           for (int e = 0; e < kVec; ++e)
             acc[e] = __fadd_rn(acc[e], __fmul_rn(row[e], w));
@@ -139,68 +157,85 @@ embedding_bag_kernel(const T* __restrict__ table, const int* __restrict__ ids,
 
 template <typename T, int VB, int G>
 int launch(const void* table, const void* ids, const void* weights, void* out,
-           int B, int K, int D, cudaStream_t stream) {
+           int B, int K, int D, int V, bool fill, cudaStream_t stream) {
   constexpr int kBags = kThreads / G;
   const long long blocks = (static_cast<long long>(B) + kBags - 1) / kBags;
   embedding_bag_kernel<T, VB, G><<<static_cast<unsigned>(blocks), kThreads, 0,
                                    stream>>>(
       static_cast<const T*>(table), static_cast<const int*>(ids),
-      static_cast<const float*>(weights), static_cast<T*>(out), B, K, D);
+      static_cast<const float*>(weights), static_cast<T*>(out), B, K, D, V,
+      fill);
   return static_cast<int>(cudaGetLastError());
 }
 
 // G: the least power of two >= the loads a row takes, at most 32
 template <typename T, int VB>
 int by_lanes(const void* table, const void* ids, const void* weights,
-             void* out, int B, int K, int D, cudaStream_t stream) {
+             void* out, int B, int K, int D, int V, bool fill,
+             cudaStream_t stream) {
   const int chunks = D / (VB / static_cast<int>(sizeof(T)));
   if (chunks <= 1)
-    return launch<T, VB, 1>(table, ids, weights, out, B, K, D, stream);
+    return launch<T, VB, 1>(table, ids, weights, out, B, K, D, V, fill,
+        stream);
   if (chunks <= 2)
-    return launch<T, VB, 2>(table, ids, weights, out, B, K, D, stream);
+    return launch<T, VB, 2>(table, ids, weights, out, B, K, D, V, fill,
+        stream);
   if (chunks <= 4)
-    return launch<T, VB, 4>(table, ids, weights, out, B, K, D, stream);
+    return launch<T, VB, 4>(table, ids, weights, out, B, K, D, V, fill,
+        stream);
   if (chunks <= 8)
-    return launch<T, VB, 8>(table, ids, weights, out, B, K, D, stream);
+    return launch<T, VB, 8>(table, ids, weights, out, B, K, D, V, fill,
+        stream);
   if (chunks <= 16)
-    return launch<T, VB, 16>(table, ids, weights, out, B, K, D, stream);
-  return launch<T, VB, 32>(table, ids, weights, out, B, K, D, stream);
+    return launch<T, VB, 16>(table, ids, weights, out, B, K, D, V, fill,
+        stream);
+  return launch<T, VB, 32>(table, ids, weights, out, B, K, D, V, fill,
+        stream);
 }
 
 // the widest load (16, 8, 4 bytes or one element) that divides the row's
 // byte width and both base addresses, so every row and output row is aligned
 template <typename T>
 int by_width(const void* table, const void* ids, const void* weights,
-             void* out, int B, int K, int D, cudaStream_t stream) {
+             void* out, int B, int K, int D, int V, bool fill,
+             cudaStream_t stream) {
   const unsigned long long row = static_cast<unsigned long long>(D) * sizeof(T);
   const unsigned long long a = row | reinterpret_cast<uintptr_t>(table) |
                                reinterpret_cast<uintptr_t>(out);
   if (a % 16 == 0)
-    return by_lanes<T, 16>(table, ids, weights, out, B, K, D, stream);
+    return by_lanes<T, 16>(table, ids, weights, out, B, K, D, V, fill,
+        stream);
   if (a % 8 == 0)
-    return by_lanes<T, 8>(table, ids, weights, out, B, K, D, stream);
+    return by_lanes<T, 8>(table, ids, weights, out, B, K, D, V, fill,
+        stream);
   if (a % 4 == 0)
-    return by_lanes<T, 4>(table, ids, weights, out, B, K, D, stream);
+    return by_lanes<T, 4>(table, ids, weights, out, B, K, D, V, fill,
+        stream);
   if constexpr (sizeof(T) == 2) {
     if (a % 2 == 0)
-      return by_lanes<T, 2>(table, ids, weights, out, B, K, D, stream);
+      return by_lanes<T, 2>(table, ids, weights, out, B, K, D, V, fill,
+        stream);
   }
   return static_cast<int>(cudaErrorMisalignedAddress);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  table: (V, D) contiguous; ids: (B, K) int32
-// in [0, V); weights: (B, K) float32; out: (B, D) in the table's dtype.
+// dtype: 0 float32, 1 bfloat16.  table: (V, D) contiguous; ids: (B, K) int32,
+// any value (rule: 0 clip, 1 fill); weights: (B, K) float32; out: (B, D) in
+// the table's dtype.
 extern "C" int embedding_bag(const void* table, const void* ids,
                              const void* weights, void* out, int dtype, int B,
-                             int K, int D, void* stream) {
+                             int K, int D, int V, int rule, void* stream) {
   if (B <= 0 || D <= 0) return static_cast<int>(cudaSuccess);
-  if (K < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 0 || V <= 0 || (rule != 0 && rule != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
+  const bool fill = rule == 1;
   if (dtype == 0)
-    return by_width<float>(table, ids, weights, out, B, K, D, st);
+    return by_width<float>(table, ids, weights, out, B, K, D, V, fill, st);
   if (dtype == 1)
-    return by_width<__nv_bfloat16>(table, ids, weights, out, B, K, D, st);
+    return by_width<__nv_bfloat16>(table, ids, weights, out, B, K, D, V, fill,
+                                   st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,2 +1,3 @@
-"""Distributed helpers of the port; for now the gradient compression that
-the trainer applies (``compression``)."""
+"""Distributed pieces of the port: the sharding rules and their DTensor
+placements (``sharding``), the mesh hooks of model code and losses
+(``hooks``), and gradient compression (``compression``)."""

@@ -1,0 +1,199 @@
+"""Activation sharding constraints and the data-parallel hooks of the
+losses, the port of ``repro.distributed.hooks``.
+
+The active mesh is a context (:func:`use_mesh`), the counterpart of the
+reference's ``with mesh:``; the trainer enters it for a step on a mesh
+and ``launch.train`` for ``fit``.  Model code calls
+``constrain(x, "batch", None, "model", ...)`` with logical entries; the
+hook resolves them against the active mesh as the reference does:
+
+  * "batch" -> the tuple of batch axes present (("pod","data") / ("data",))
+  * an axis name -> itself if the mesh has it, else replicated
+  * None -> replicated
+
+Outside any mesh the hook is a no-op, so the same model code runs
+everywhere.  Inside one it redistributes a DTensor to the resolved spec
+and returns a local tensor unchanged.  No path hands it a DTensor yet:
+a step on a mesh gathers the weights and the losses take their rows as
+local tensors before any model code runs, so every call is a no-op
+until the ``model`` axis computes (tensor parallelism, ROADMAP 12c).
+The calls stand at the reference's sites for that.
+
+A step on a mesh hands a loss its batch as DTensors sharded over the
+batch axes.  A loss takes its rows with :func:`local` (or the whole
+batch with :func:`gathered`, where rows are not independent, as in a
+graph) and ends in :func:`batch_mean`, which makes the value this rank's
+share of the mean over the global batch: the shares sum to it, and so do
+their gradients, whatever each rank's count of valid terms.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Any, Iterator, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import (
+    BATCH,
+    P,
+    PartitionSpec,
+    axis_sizes,
+    full_tensor,
+    local_shard,
+    placements,
+)
+from repro_torch.tree import tree_map
+
+BATCH_AXES = BATCH
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("active_mesh",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Any) -> Iterator[Any]:
+    """Make ``mesh`` the active mesh inside the block (in this thread or
+    task only, as JAX's mesh context is)."""
+    token = _ACTIVE.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE.reset(token)
+
+
+def active_mesh() -> Optional[Any]:
+    return _ACTIVE.get()
+
+
+def resolve_entries(names: Tuple[str, ...], entries) -> PartitionSpec:
+    """The spec that ``constrain`` gives ``entries`` on a mesh with axes
+    ``names``."""
+    spec = []
+    for e in entries:
+        if e == "batch":
+            batch = tuple(n for n in BATCH_AXES if n in names)
+            spec.append(
+                None if not batch else (batch[0] if len(batch) == 1 else batch)
+            )
+        elif e is None:
+            spec.append(None)
+        elif isinstance(e, str) and e in names:
+            spec.append(e)
+        else:
+            spec.append(None)
+    return P(*spec)
+
+
+def constrain(x, *entries):
+    mesh = active_mesh()
+    if mesh is None:
+        return x
+    spec = resolve_entries(tuple(axis_sizes(mesh)), entries)
+    if isinstance(x, DTensor):
+        return x.redistribute(x.device_mesh, placements(x.device_mesh, spec))
+    return x
+
+
+# ------------------------------------------------------- data parallelism ---
+def local(x: Any) -> Any:
+    """This rank's block of a DTensor; anything else as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def gathered(x: Any) -> Any:
+    """The whole of a DTensor on every rank; anything else as it is."""
+    return full_tensor(x)
+
+
+def local_batch(batch: Any) -> Any:
+    return tree_map(local, batch)
+
+
+def rows_like(y: torch.Tensor, like: Any) -> torch.Tensor:
+    """This rank's block of ``y``, a whole tensor whose leading dims are
+    those of ``like`` (a batch input, or a param for its gradient), cut
+    as ``like`` is (``y`` itself where ``like`` is no DTensor)."""
+    if not isinstance(like, DTensor):
+        return y
+    return local_shard(y, like.device_mesh, like.placements)
+
+
+def _batch_groups() -> List[Any]:
+    """The process groups of the active mesh's batch axes of more than
+    one rank."""
+    mesh = active_mesh()
+    if mesh is None:
+        return []
+    sizes = axis_sizes(mesh)
+    return [mesh.get_group(n) for n in BATCH_AXES
+            if n in sizes and sizes[n] > 1]
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the active mesh's batch axes (a new tensor; no
+    gradient flows through the sum), or ``x`` itself where they have one
+    rank."""
+    if not _batch_groups():
+        return x
+    return batch_sum_(x.detach().clone())
+
+
+def batch_sum_(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed in place over the active mesh's batch axes."""
+    for g in _batch_groups():
+        dist.all_reduce(x, group=g)
+    return x
+
+
+def batch_ranks() -> int:
+    """The count of ranks that the active mesh's batch axes split a batch
+    over (1 outside a mesh)."""
+    n = 1
+    for g in _batch_groups():
+        n *= dist.get_world_size(g)
+    return n
+
+
+class _BatchSum(torch.autograd.Function):
+    """A sum over the batch axes' groups (taken at the forward) whose
+    gradient is the sum of every rank's gradient, as a ``psum``'s."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        x = x.clone()
+        for g in groups:
+            dist.all_reduce(x, group=g)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        for g in ctx.groups:
+            dist.all_reduce(grad, group=g)
+        return grad, None
+
+
+def batch_pmean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the active mesh's batch axes, through which
+    the gradient flows back to every rank's ``x`` (``x`` itself where
+    they have one rank).  Every rank must call it, in the same order."""
+    groups = _batch_groups()
+    if not groups:
+        return x
+    return _BatchSum.apply(x, groups) / batch_ranks()
+
+
+def batch_mean(total: torch.Tensor, count) -> torch.Tensor:
+    """``total / max(count, 1)``: a mean over the batch.  On a mesh
+    whose batch axes split the batch, ``total`` and ``count`` are this
+    rank's and the count is summed over those axes first, so what
+    returns is this rank's share of the global mean (a rank that holds a
+    replicated batch counts it once for each rank, and its share is a
+    fraction of the whole)."""
+    count = torch.as_tensor(count, device=total.device)
+    return total / torch.clamp(batch_sum(count), min=1)

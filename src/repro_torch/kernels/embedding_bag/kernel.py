@@ -20,18 +20,23 @@ from repro_torch.kernels.cuda_lib import (
     CudaKernel,
     check_float_operand,
 )
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_fixed_plain
+from repro_torch.kernels.embedding_bag.ref import (
+    ID_RULES,
+    embedding_bag_fixed_plain,
+    resolve_ids,
+)
 
 EMBEDDING_BAG = CudaKernel(
     "embedding_bag",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4,
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6,
     source="src/repro_torch/csrc/embedding_bag.cu",
     replaces="src/repro/kernels/embedding_bag/kernel.py:40",
 )
 
 
 def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
-                        weights: torch.Tensor) -> torch.Tensor:
+                        weights: torch.Tensor,
+                        id_rule: str = "clip") -> torch.Tensor:
     """(B, D) bag sums in ``table.dtype``, differentiable in ``table`` and
     ``weights``.
 
@@ -39,9 +44,14 @@ def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
     int32 and ``weights`` (B, K) f32; all on one device.  The forward
     takes the kernel for CUDA tensors and :func:`embedding_bag_fixed_plain`
     for CPU tensors; the backward is :func:`embedding_bag_fixed_backward`
-    on both.  Ids must lie in ``[0, V)``: the kernel does not check them
-    (an id outside reads another row or faults), the plain version raises
-    on them, and the reference's gather clamps them."""
+    on both.  An id outside ``[0, V)`` is read under ``id_rule``, on the
+    card and on the CPU alike (:func:`~.ref.resolve_ids`): ``clip``, the
+    rule of the Pallas kernel and its oracle, or ``fill``, the rule of
+    ``jnp.take`` that the reference's DLRM lookups follow (a NaN row)."""
+    if id_rule not in ID_RULES:
+        raise ValueError(f"id_rule must be one of {ID_RULES}, got {id_rule!r}")
+    if table.shape[0] == 0 and ids.numel() > 0:
+        raise ValueError("ids index a table of no rows")
     check_float_operand(table, "table", 2)
     if not table.is_contiguous():
         raise ValueError("table must be contiguous")
@@ -60,19 +70,19 @@ def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
     if table.device.type != "cpu" and not (ids.is_contiguous()
                                            and weights.is_contiguous()):
         raise ValueError("ids and weights must be contiguous")
-    return _EmbeddingBagFixed.apply(table, ids, weights)
+    return _EmbeddingBagFixed.apply(table, ids, weights, id_rule)
 
 
-def _launch(table: torch.Tensor, ids: torch.Tensor,
-            weights: torch.Tensor) -> torch.Tensor:
-    (B, K), D = ids.shape, table.shape[1]
+def _launch(table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
+            id_rule: str = "clip") -> torch.Tensor:
+    (B, K), (V, D) = ids.shape, table.shape
     out = torch.empty((B, D), dtype=table.dtype, device=table.device)
     if B == 0 or D == 0:
         return out
     EMBEDDING_BAG.launch(
         table.device, (B, K, D),
         table.data_ptr(), ids.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        FLOAT_CODES[table.dtype], B, K, D,
+        FLOAT_CODES[table.dtype], B, K, D, V, ID_RULES.index(id_rule),
     )
     return out
 
@@ -81,23 +91,41 @@ def embedding_bag_fixed_backward(
     grad_out: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
     table_shape: Tuple[int, int], table_dtype: torch.dtype,
     table: Optional[torch.Tensor] = None,
+    id_rule: str = "clip",
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The bag's gradients, in plain PyTorch on either device:
-    ``grad_table = zeros(V, D, f32).index_add_(0, ids, w * grad_out)``
+    ``grad_table = zeros(V, D, f32).index_add_(0, rows, w * grad_out)``
     cast to ``table_dtype`` (the scatter-add that XLA makes of the
     reference's gather gradient), and, when ``table`` is given,
-    ``grad_weights[b, k] = sum_d grad_out[b, d] * table[ids[b, k], d]``
-    in f32."""
-    D = table_shape[1]
+    ``grad_weights[b, k] = sum_d grad_out[b, d] * table[rows[b, k], d]``
+    in f32.  ``rows`` are the ids as the forward read them under
+    ``id_rule``.  The table's gradient follows the reference's gradients
+    under either rule (``jax.grad`` of the oracle's clamping gather and
+    of ``take`` alike): a negative id in ``[-V, 0)`` lands on its wrapped
+    row, and an id out of range after the wrap adds nothing (its
+    scatter is dropped, not clamped).  Its weight's gradient reads the
+    row the forward read: the clamped one under ``clip``, NaN under
+    ``fill``."""
+    V, D = table_shape
     g = grad_out.float()
-    contrib = (weights[..., None] * g[:, None, :]).reshape(-1, D)
+    rows_idx, ok = resolve_ids(ids, V, id_rule)
+    contrib = weights[..., None] * g[:, None, :]
+    if id_rule == "clip":
+        _, ok_scatter = resolve_ids(ids, V, "fill")
+    else:
+        ok_scatter = ok
+    contrib = torch.where(ok_scatter[..., None], contrib, 0.0)
+    contrib = contrib.reshape(-1, D)
     grad_table = torch.zeros(table_shape, dtype=torch.float32,
                              device=grad_out.device)
-    grad_table.index_add_(0, ids.reshape(-1), contrib)
+    grad_table.index_add_(0, rows_idx.reshape(-1), contrib)
     grad_weights = None
     if table is not None:
-        rows = table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, D)
-        grad_weights = (rows.float() * g[:, None, :]).sum(-1)
+        rows = table.index_select(0, rows_idx.reshape(-1)).reshape(
+            *ids.shape, D).float()
+        if ok is not None:
+            rows = torch.where(ok[..., None], rows, float("nan"))
+        grad_weights = (rows * g[:, None, :]).sum(-1)
     return grad_table.to(table_dtype), grad_weights
 
 
@@ -109,12 +137,14 @@ class _EmbeddingBagFixed(torch.autograd.Function):
     ``Function`` that the card does."""
 
     @staticmethod
-    def forward(ctx, table, ids, weights):
+    def forward(ctx, table, ids, weights, id_rule):
         if table.device.type == "cpu":
-            out = embedding_bag_fixed_plain(table, ids, weights)
+            out = embedding_bag_fixed_plain(table, ids, weights,
+                                            id_rule=id_rule)
         else:
-            out = _launch(table, ids, weights)
+            out = _launch(table, ids, weights, id_rule)
         ctx.table_shape, ctx.table_dtype = tuple(table.shape), table.dtype
+        ctx.id_rule = id_rule
         ctx.save_for_backward(ids, weights,
                               table if ctx.needs_input_grad[2] else None)
         return out
@@ -123,6 +153,7 @@ class _EmbeddingBagFixed(torch.autograd.Function):
     def backward(ctx, grad_out):
         ids, weights, table = ctx.saved_tensors
         grad_table, grad_weights = embedding_bag_fixed_backward(
-            grad_out, ids, weights, ctx.table_shape, ctx.table_dtype, table)
+            grad_out, ids, weights, ctx.table_shape, ctx.table_dtype, table,
+            ctx.id_rule)
         return (grad_table if ctx.needs_input_grad[0] else None, None,
-                grad_weights)
+                grad_weights, None)

@@ -9,19 +9,47 @@ from __future__ import annotations
 import torch
 
 
+ID_RULES = ("clip", "fill")
+
+
+def resolve_ids(ids: torch.Tensor, V: int, id_rule: str = "clip"):
+    """``(rows, ok)``: the table row each id reads under ``id_rule``, and
+    for ``fill`` a mask of the ids that read one (None for ``clip``).
+
+    ``clip`` is the rule of the Pallas kernel and its oracle: a negative
+    id wraps once by ``V``, then is clamped to ``[0, V)``.  ``fill`` is
+    ``jnp.take``'s: an id in ``[-V, 0)`` wraps, any other id outside the
+    table reads a NaN row (its entry of ``rows`` is 0, masked out)."""
+    if id_rule not in ID_RULES:
+        raise ValueError(f"id_rule must be one of {ID_RULES}, got {id_rule!r}")
+    i = ids.long()
+    i = torch.where(i < 0, i + V, i)
+    if id_rule == "clip":
+        return i.clamp(0, V - 1), None
+    ok = (i >= 0) & (i < V)
+    return torch.where(ok, i, 0), ok
+
+
 def embedding_bag_fixed_plain(
     table: torch.Tensor,    # (V, D)
     ids: torch.Tensor,      # (B, K)
     weights: torch.Tensor,  # (B, K)
     mode: str = "sum",
+    id_rule: str = "clip",
 ) -> torch.Tensor:
     """``out[b] = sum_k w[b, k] * table[ids[b, k]]`` in f32, cast to
-    ``table.dtype``.  ``mode="mean"`` divides the f32 sum by
-    ``max(sum_k w[b, k], 1e-9)`` first, the oracle of
-    ``repro.kernels.embedding_bag.ref``; the kernel computes ``sum``."""
+    ``table.dtype``, each id read under ``id_rule`` (:func:`resolve_ids`;
+    a NaN row in ``fill`` mode makes its bag NaN).  ``mode="mean"``
+    divides the f32 sum by ``max(sum_k w[b, k], 1e-9)`` first, the
+    oracle of ``repro.kernels.embedding_bag.ref``; the kernel computes
+    ``sum``."""
     if mode not in ("sum", "mean"):
         raise ValueError(mode)
-    out = (table[ids.long()].float() * weights[..., None].float()).sum(1)
+    rows_idx, ok = resolve_ids(ids, table.shape[0], id_rule)
+    rows = table[rows_idx].float()
+    if ok is not None:
+        rows = torch.where(ok[..., None], rows, float("nan"))
+    out = (rows * weights[..., None].float()).sum(1)
     if mode == "mean":
         out = out / weights.float().sum(1).clamp(min=1e-9)[:, None]
     return out.to(table.dtype)

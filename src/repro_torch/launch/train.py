@@ -8,26 +8,37 @@ Trains the arch's reduced configuration (``--full``: the published one)
 from f32 masters drawn from seed 0, with the reference launcher's
 optimizer (``OptConfig(lr=3e-3, schedule="wsd", warmup_steps=20)``) on
 ``synth_lm_batches``, the reference's seeded Zipf batches.  ``--device``
-takes the place of the reference's ``--mesh``: a mesh other than
-``host`` is ROADMAP.md queue 1, item 12, and raises.  A recsys or GNN id
-exits with the reference's message.
+picks the card or the CPU.  ``--mesh single|multi`` trains on the
+production mesh, (16, 16) or (2, 16, 16) ranks, as the reference does:
+under ``torchrun`` with that many processes (a world of another size
+raises the mesh's ``ValueError``), params placed by the bundle's
+``param_shardings`` and ``fit`` inside the mesh context
+(``launch.mesh``, ``distributed.sharding``).  A recsys or GNN id exits
+with the reference's message.
+
+    torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
+        --arch granite-3-2b --full --mesh single
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import ARCH_IDS, family, get_bundle
 from repro_torch.device import resolve_device
+from repro_torch.distributed.hooks import use_mesh
+from repro_torch.distributed.sharding import place
 from repro_torch.models.transformer import lm_loss
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 
 
 def synth_lm_batches(vocab: int, batch: int, seq: int
@@ -64,21 +75,32 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     ap.add_argument("--compress-grads", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: sharding over a mesh is not ported yet "
-            "(ROADMAP.md queue 1, item 12)")
     if family(args.arch) != "lm":
         raise SystemExit(
             f"{args.arch} is a {family(args.arch)} arch; this launcher drives "
             "the LM family (see examples/ for the others)"
         )
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh != "host":
+        from repro_torch.launch.mesh import make_production_mesh
+
+        if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+            if device.type == "cuda":   # one card a process, as torchrun
+                device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+                torch.cuda.set_device(device)
+            dist.init_process_group(
+                "nccl" if device.type == "cuda" else "gloo")
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device=device)
     bundle = get_bundle(args.arch, reduced=not args.full)
     cfg = bundle.config
     params = bundle.init(torch.Generator(device=device).manual_seed(0))
     n = sum(t.numel() for t in leaves(params))
-    print(f"arch={args.arch} params={n/1e6:.1f}M device={device}")
+    print(f"arch={args.arch} params={n/1e6:.1f}M device={device} "
+          f"mesh={args.mesh}")
+    if mesh is not None:
+        params = tree_map(place, params, bundle.param_shardings(mesh))
 
     trainer = Trainer(
         lambda p, b: lm_loss(cfg, p, b["tokens"], b["labels"])[0],
@@ -100,7 +122,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
 
     batches = synth_lm_batches(cfg.vocab, args.batch, args.seq)
     t0 = time.time()
-    last = trainer.fit(batches, args.steps)
+    if mesh is not None:
+        with use_mesh(mesh):
+            last = trainer.fit(batches, args.steps)
+    else:
+        last = trainer.fit(batches, args.steps)
     dt = time.time() - t0
     print(f"done: {trainer.step_num} steps in {dt:.1f}s, metrics={last}")
     return trainer

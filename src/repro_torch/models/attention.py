@@ -35,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.hooks import constrain
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention_differentiable,
 )
@@ -60,8 +61,8 @@ def mha(
     q_offset: int = 0,
 ) -> torch.Tensor:
     B, Sq, H, D = q.shape
-    k = expand_kv(k, H)
-    v = expand_kv(v, H)
+    k = constrain(expand_kv(k, H), "batch", None, "model", None)
+    v = constrain(expand_kv(v, H), "batch", None, "model", None)
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(D)
     if causal:
         qpos = torch.arange(Sq, device=q.device) + q_offset
@@ -77,7 +78,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the flash kernel; (B, S, H, D) out, differentiable (the kernel's
     ``autograd.Function``, whose backward is plain PyTorch).  The kernel
     reads the (B, H, S, D) views through their strides, so nothing is
-    transposed in memory on the way in."""
+    transposed in memory on the way in.  K and V are constrained as the
+    reference's flash path constrains them, unexpanded: the kernel groups
+    query heads over KV heads."""
+    k = constrain(k, "batch", None, "model", None)
+    v = constrain(v, "batch", None, "model", None)
     out = flash_attention_differentiable(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal)
     return out.transpose(1, 2)

@@ -36,9 +36,14 @@ einsums outside any Pallas kernel; the port is plain PyTorch (gathers,
     gradient for every chunk.
   * The last layer keeps only its invariant channels, (N, k): the
     readout reads nothing else.
-  * ``constrain(...)``, the reference's activation-sharding hook, is a
-    no-op outside a mesh and is dropped here (ROADMAP.md queue 1, item
-    12).
+  * ``constrain(...)``, the reference's activation-sharding hook, sits
+    where the reference's does (Y, rbf, R, the gathered h, the messages,
+    A and each layer's output); it is a no-op outside a mesh, and on one
+    it leaves the port's local tensors as they are.
+  * Under a mesh the losses gather the graph's inputs
+    (``hooks.gathered``), run the forward whole on every rank, and take
+    their share of the loss over this rank's rows of the labels
+    (``hooks.rows_like``, ``hooks.batch_mean``).
 
 Gradients reach the parameters and the node inputs, not the positions:
 the reference's losses take none with respect to them, and a call that
@@ -57,6 +62,13 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from repro_torch.distributed.hooks import (
+    batch_mean,
+    constrain,
+    gathered,
+    local,
+    rows_like,
+)
 from repro_torch.nn.layers import dense_init, mlp_apply, mlp_init
 from repro_torch.tree import flatten_with_path, leaves, unflatten
 
@@ -254,8 +266,8 @@ def _radial(radial: Params, rbf: torch.Tensor, k: int) -> torch.Tensor:
     per_irrep = {last: {"w": _per_irrep(w.view(-1, k, 3)).reshape(
                             w.shape[0], k * N_IRREPS),
                         "b": _per_irrep(b.view(k, 3)).reshape(k * N_IRREPS)}}
-    return mlp_apply({**radial, **per_irrep}, rbf,
-                     dtype=torch.float32).view(-1, k, N_IRREPS)
+    R = mlp_apply({**radial, **per_irrep}, rbf, dtype=torch.float32)
+    return constrain(R, "batch", None).view(-1, k, N_IRREPS)
 
 
 def edge_message(lp: Params, hs: torch.Tensor, Y: torch.Tensor,
@@ -279,7 +291,7 @@ def node_update(lp: Params, h: torch.Tensor, A: torch.Tensor,
     B2 = gaunt_product(A, A, C)
     B3 = gaunt_product(B2, A, C)
     m = _mix(lp["w1"], A) + _mix(lp["w2"], B2) + _mix(lp["w3"], B3)
-    out = _mix(lp["self"], h) + m
+    out = constrain(_mix(lp["self"], h) + m, "batch", None, None)
     return out[:, :, 0] if last else out
 
 
@@ -313,10 +325,10 @@ def _aggregate(lp: Params, h: torch.Tensor, e: _Edges) -> torch.Tensor:
     A = torch.zeros((h.shape[0], h.shape[1], N_IRREPS), dtype=torch.float32,
                     device=h.device)
     for b0, b1 in _edge_blocks(e.src.shape[0], e.chunk):
-        hs = h.index_select(0, e.src[b0:b1])
-        A.index_add_(0, e.dst[b0:b1],
-                     edge_message(lp, hs, e.Y[b0:b1], e.rbf[b0:b1], e.C))
-    return A
+        hs = constrain(h.index_select(0, e.src[b0:b1]), "batch", None, None)
+        msg = edge_message(lp, hs, e.Y[b0:b1], e.rbf[b0:b1], e.C)
+        A.index_add_(0, e.dst[b0:b1], constrain(msg, "batch", None, None))
+    return constrain(A, "batch", None, None)
 
 
 class _Layer(torch.autograd.Function):
@@ -458,6 +470,8 @@ def mace_forward(
     rbf = rbf * (r > 1e-6)[:, None]
     if edge_mask is not None:
         rbf = rbf * edge_mask[:, None]
+    Y = constrain(Y, "batch", None)
+    rbf = constrain(rbf, "batch", None)
     del rvec, x, y, z, r, u
     edges = _padded_edges(cfg, Y, rbf, src, dst, C)
     del Y, rbf
@@ -474,27 +488,30 @@ def mace_forward(
 
 # ------------------------------------------------------------- objectives ---
 def mace_node_xent(cfg: MACEConfig, p: Params, batch: Dict) -> torch.Tensor:
+    g = {k: gathered(v) for k, v in batch.items()}
     out = mace_forward(
-        cfg, p, batch["feat"], batch["pos"], batch["edges_src"],
-        batch["edges_dst"], batch.get("edge_mask"),
+        cfg, p, g["feat"], g["pos"], g["edges_src"],
+        g["edges_dst"], g.get("edge_mask"),
     )
-    logits = out.float()
-    labels = batch["labels"]
-    mask = batch.get("label_mask")
+    logits = rows_like(out, batch["labels"]).float()
+    labels = local(batch["labels"])
+    mask = local(batch.get("label_mask"))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long().clamp(min=0)[:, None])[:, 0]
     nll = logz - gold
     if mask is not None:
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return nll.mean()
+        return batch_mean(torch.sum(nll * mask), torch.sum(mask))
+    return batch_mean(torch.sum(nll), nll.shape[0])
 
 
 def mace_energy_mse(cfg: MACEConfig, p: Params, batch: Dict) -> torch.Tensor:
+    g = {k: gathered(v) for k, v in batch.items()}
     out = mace_forward(
-        cfg, p, batch["species"], batch["pos"], batch["edges_src"],
-        batch["edges_dst"], batch.get("edge_mask"),
+        cfg, p, g["species"], g["pos"], g["edges_src"],
+        g["edges_dst"], g.get("edge_mask"),
     )[:, 0]
-    n_graphs = batch["energy"].shape[0]
+    n_graphs = g["energy"].shape[0]
     energies = torch.zeros(n_graphs, dtype=out.dtype, device=out.device)
-    energies = energies.index_add(0, batch["graph_of"], out)
-    return torch.mean((energies - batch["energy"]) ** 2)
+    energies = energies.index_add(0, g["graph_of"], out)
+    sq = rows_like((energies - g["energy"]) ** 2, batch["energy"])
+    return batch_mean(torch.sum(sq), sq.shape[0])

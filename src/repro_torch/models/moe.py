@@ -27,6 +27,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.hooks import constrain
 from repro_torch.nn.layers import dense_init
 
 
@@ -189,7 +190,8 @@ def _sorted_dispatch_apply(
     xe = torch.zeros((G * (E * C + 1), d), dtype=dtype, device=dev).index_put(
         (rows,), xt.reshape(-1, d))
     xe = xe.reshape(G, E * C + 1, d)[:, : E * C].reshape(G, E, C, d)
-    ye = _experts(p, xe, dtype)
+    xe = constrain(xe, "batch", "model", None, None)
+    ye = constrain(_experts(p, xe, dtype), "batch", "model", None, None)
     # gather back + weighted combine into token order
     ye_flat = ye.reshape(G, E * C, d)
     yt = torch.gather(ye_flat, 1,
@@ -207,15 +209,26 @@ def moe_apply(
     x: torch.Tensor,  # (B, S, d)
     cfg: MoEConfig,
     dtype: torch.dtype = torch.bfloat16,
+    ranks: int = 1,
 ) -> Tuple[torch.Tensor, Dict]:
     """(B, S, d) expert output in ``x.dtype`` and the aux values
-    ``dropped_tokens`` and ``balance_loss`` (f32 0-d tensors) and
-    ``experts`` (the picks)."""
+    ``dropped_tokens`` and ``balance_loss`` (f32 0-d tensors),
+    ``experts`` (the picks), and the balance term's factors
+    ``gate_mean`` and ``route_frac`` ((E,) means over the groups), for a
+    caller that takes it over more tokens than ``x``'s.
+
+    ``ranks`` is the count of batch ranks whose ``x`` make up the batch
+    (a step on a mesh): the group size is cut from all ``ranks * B * S``
+    tokens, as the reference cuts it from the global batch, and a group
+    may not span two ranks."""
     B, S, d = x.shape
     N = B * S
-    Tg = min(cfg.group_tokens, N)
-    while N % Tg:  # largest group size <= group_tokens that divides N
+    Tg = min(cfg.group_tokens, N * ranks)
+    while (N * ranks) % Tg:  # largest group size <= group_tokens dividing it
         Tg -= 1
+    if N % Tg:
+        raise ValueError(f"a dispatch group of {Tg} tokens would span ranks "
+                         f"of {N} tokens each")
     G = N // Tg
     xg = x.reshape(G, Tg, d)
     E = cfg.n_experts
@@ -228,6 +241,7 @@ def moe_apply(
         y, aux = _sorted_dispatch_apply(p, xg, gates, cfg, C, dtype)
         me = gates.mean(dim=(0, 1))
         aux["balance_loss"] = E * torch.sum(me * me)  # proxy (no dispatch tensor)
+        aux["gate_mean"] = aux["route_frac"] = me
         if cfg.n_shared_experts:
             y = y + _shared(p, xg, dtype)
         return y.reshape(B, S, d).to(x.dtype), aux
@@ -238,9 +252,14 @@ def moe_apply(
     me = gates.mean(dim=(0, 1))
     ce = dispatch.sum(dim=(1, 3)).mean(dim=0) / Tg
     aux["balance_loss"] = E * torch.sum(me * ce)
+    aux["gate_mean"], aux["route_frac"] = me, ce
 
+    # expert-parallel placement: groups follow the batch axes, experts the
+    # model axis
+    xg = constrain(xg, "batch", None, None)
     xe = torch.einsum("gtec,gtd->gecd", dispatch.to(dtype), xg.to(dtype))
-    ye = _experts(p, xe, dtype)
+    xe = constrain(xe, "batch", "model", None, None)
+    ye = constrain(_experts(p, xe, dtype), "batch", "model", None, None)
     y = torch.einsum("gtec,gecd->gtd", combine.to(dtype), ye)
     if cfg.n_shared_experts:
         y = y + _shared(p, xg, dtype)

@@ -24,6 +24,11 @@ reference.
 
 Top-k keeps the lower index first among equal scores, as
 ``jax.lax.top_k`` does (``top_ids``).
+
+On a mesh (a step of ``train.trainer`` over DTensor params) each loss
+takes this rank's rows of its batch and returns its share of the global
+mean (``distributed.hooks``); two-tower's in-batch negatives are the
+whole batch's, so its towers run on the gathered batch.
 """
 
 from __future__ import annotations
@@ -43,6 +48,13 @@ from repro_torch.nn.layers import (
     mlp_init,
     rms_norm,
     softmax_xent,
+)
+from repro_torch.distributed.hooks import (
+    active_mesh,
+    batch_mean,
+    gathered,
+    local_batch,
+    rows_like,
 )
 from repro_torch.sparse.embedding import embedding_lookup
 
@@ -69,8 +81,9 @@ def bce_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     is 1, as ``jnp.abs``'s is (``torch.abs``'s is 0)."""
     lf = logits.float()
     abs_lf = torch.where(lf >= 0, lf, -lf)
-    return torch.mean(torch.maximum(lf, torch.zeros_like(lf)) - lf * labels
-                      + torch.log1p(torch.exp(-abs_lf)))
+    x = (torch.maximum(lf, torch.zeros_like(lf)) - lf * labels
+         + torch.log1p(torch.exp(-abs_lf)))
+    return batch_mean(torch.sum(x), x.numel())
 
 
 def param_dtype(cfg: Any, masters: bool) -> torch.dtype:
@@ -119,7 +132,10 @@ def dlrm_init(cfg: DLRMConfig, gen: torch.Generator,
 def dlrm_forward(cfg: DLRMConfig, p: Params, batch: Dict) -> torch.Tensor:
     """(B,) scores from ``dense`` (B, 13) and ``sparse`` (B, 26) ids: one
     embedding-bag launch a table, then the dot interaction of the 27
-    vectors in f32 and the top MLP."""
+    vectors in f32 and the top MLP.  The bags read ids under the ``fill``
+    rule of the reference's ``embedding_lookup`` (``jnp.take``): an id
+    in ``[-rows, 0)`` wraps, any other id outside its table gives a NaN
+    row and so a NaN score."""
     dense_x = batch["dense"]
     sparse = batch["sparse"]
     B = dense_x.shape[0]
@@ -130,7 +146,7 @@ def dlrm_forward(cfg: DLRMConfig, p: Params, batch: Dict) -> torch.Tensor:
     ones = torch.ones((B, 1), dtype=torch.float32, device=dense_x.device)
     embs = [
         embedding_bag_fixed(p["tables"][f"t{i}"]["table"], cols[i, :, None],
-                            ones).to(cfg.dtype)
+                            ones, id_rule="fill").to(cfg.dtype)
         for i in range(cfg.n_sparse)
     ]
     z = torch.stack([d] + embs, dim=1)                           # (B, 27, D)
@@ -144,6 +160,7 @@ def dlrm_forward(cfg: DLRMConfig, p: Params, batch: Dict) -> torch.Tensor:
 
 
 def dlrm_loss(cfg: DLRMConfig, p: Params, batch: Dict) -> torch.Tensor:
+    batch = local_batch(batch)
     return bce_logits(dlrm_forward(cfg, p, batch), batch["label"])
 
 
@@ -218,6 +235,7 @@ def din_forward(cfg: DINConfig, p: Params, batch: Dict) -> torch.Tensor:
 
 
 def din_loss(cfg: DINConfig, p: Params, batch: Dict) -> torch.Tensor:
+    batch = local_batch(batch)
     return bce_logits(din_forward(cfg, p, batch), batch["label"])
 
 
@@ -305,6 +323,7 @@ def sasrec_loss(cfg: SASRecConfig, p: Params, batch: Dict) -> torch.Tensor:
     """Next-item prediction, full softmax over items, computed in
     chunks of C positions (5 where S allows, as the reference's scan) so
     (B, S, n_items) logits are never materialized."""
+    batch = local_batch(batch)
     h = sasrec_backbone(cfg, p, batch["seq"])                        # (B, S, d)
     B, S, d = h.shape
     C = 5 if S % 5 == 0 else 1
@@ -318,7 +337,7 @@ def sasrec_loss(cfg: SASRecConfig, p: Params, batch: Dict) -> torch.Tensor:
         cnt = (ll != -1).sum().to(torch.int32)
         tot = tot + softmax_xent(logits, ll) * cnt
         n = n + cnt
-    return tot / torch.clamp(n, min=1)
+    return batch_mean(tot, n)
 
 
 def sasrec_score(cfg: SASRecConfig, p: Params, batch: Dict) -> torch.Tensor:
@@ -392,12 +411,21 @@ def item_embed(cfg: TwoTowerConfig, p: Params, item_id,
 
 
 def twotower_loss(cfg: TwoTowerConfig, p: Params, batch: Dict) -> torch.Tensor:
-    """In-batch sampled softmax (the RecSys'19 retrieval objective)."""
-    u = user_embed(cfg, p, batch)                                   # (B, d)
-    i = item_embed(cfg, p, batch["item_id"], batch["item_cat"])     # (B, d)
+    """In-batch sampled softmax (the RecSys'19 retrieval objective).  On
+    a mesh every row's negatives are the whole batch's items, so the
+    towers run on the gathered batch and this rank takes its rows'
+    share of the loss."""
+    g = {k: gathered(v) for k, v in batch.items()}
+    u = user_embed(cfg, p, g)                                       # (B, d)
+    i = item_embed(cfg, p, g["item_id"], g["item_cat"])             # (B, d)
     logits = torch.einsum("bd,cd->bc", u, i).float() / cfg.temperature
     labels = torch.arange(u.shape[0], device=u.device)
-    return softmax_xent(logits[:, None, :], labels[:, None])
+    if active_mesh() is None:
+        return softmax_xent(logits[:, None, :], labels[:, None])
+    rows = rows_like(logits, batch["user_id"])
+    mine = softmax_xent(rows[:, None, :],
+                        rows_like(labels, batch["user_id"])[:, None])
+    return batch_mean(mine * rows.shape[0], rows.shape[0])
 
 
 def twotower_score(cfg: TwoTowerConfig, p: Params, batch: Dict) -> torch.Tensor:

@@ -41,6 +41,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.hooks import (
+    batch_mean,
+    batch_pmean,
+    batch_ranks,
+    constrain,
+    local,
+)
 from repro_torch.models.attention import (
     attention,
     slot_block_table,
@@ -68,8 +75,10 @@ AUX_SUMS = ("dropped_tokens", "balance_loss")   # MoE aux values, per layer
 class TransformerConfig:
     """The reference's configuration.  ``flash_chunk`` is carried so
     configs compare field for field; nothing reads it (the flash kernel
-    has no chunk).  The reference's ``att_shard`` (a sharding knob) is
-    left out."""
+    has no chunk).  ``att_shard`` ("heads", "seq" or "none") is carried
+    for the same comparison: it picks the attention activations'
+    ``constrain``, as in the reference, and every such call is a no-op
+    until the ``model`` axis computes (``distributed.hooks``)."""
 
     name: str
     n_layers: int
@@ -88,6 +97,7 @@ class TransformerConfig:
     remat: str = "dots"          # none | dots | full
     loss_chunk: int = 512
     flash_chunk: int = 1024
+    att_shard: str = "heads"     # heads | seq | none
 
     @property
     def params_dense(self) -> int:
@@ -201,6 +211,14 @@ def _embed(cfg: TransformerConfig, params: Params,
     return params["embed"]["table"][tokens].to(cfg.dtype)
 
 
+def _constrain_qkv(cfg: TransformerConfig, q, k, v):
+    """Attention activation sharding, as the reference's: heads on the
+    model axis (K/V are constrained inside the attention ops)."""
+    if cfg.att_shard in ("heads", "seq"):
+        q = constrain(q, "batch", None, "model", None)
+    return q, k, v
+
+
 def _qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor):
     dt = cfg.dtype
     h = h.to(dt)
@@ -223,7 +241,7 @@ def _out(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
     projected by ``wo``."""
     B, S = o.shape[:2]
     o = o.reshape(B, S, cfg.n_heads * cfg.d_head) @ lp["wo"]["w"].to(cfg.dtype)
-    return x + o.to(x.dtype)
+    return constrain(x + o.to(x.dtype), "batch", None, None)
 
 
 def _attend(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
@@ -234,17 +252,18 @@ def _attend(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
     q, k, v = _qkv(cfg, lp, h)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q, k, v = _constrain_qkv(cfg, q, k, v)
     return _out(cfg, lp, x, attention(q, k, v, causal=True)), k, v
 
 
-def _ffn(cfg: TransformerConfig, lp: Params,
-         x: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+def _ffn(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
+         ranks: int = 1) -> Tuple[torch.Tensor, Dict]:
     """``x`` plus its SwiGLU MLP or MoE layer, and the MoE's aux values
-    (empty for a dense layer)."""
+    (empty for a dense layer); ``ranks`` as ``moe_apply`` takes it."""
     h = rms_norm(lp["ln2"], x, cfg.rms_eps)
     dt = cfg.dtype
     if cfg.moe is not None:
-        y, aux = moe_apply(lp["moe"], h, cfg.moe, dtype=dt)
+        y, aux = moe_apply(lp["moe"], h, cfg.moe, dtype=dt, ranks=ranks)
     else:
         m = lp["mlp"]
         h = h.to(dt)
@@ -256,10 +275,11 @@ def _ffn(cfg: TransformerConfig, lp: Params,
 
 
 def _block_fwd(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
-               cos: torch.Tensor, sin: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+               cos: torch.Tensor, sin: torch.Tensor,
+               ranks: int = 1) -> Tuple[torch.Tensor, Dict]:
     """One block: attention then the MLP or MoE, with the aux values."""
     x, _, _ = _attend(cfg, lp, x, cos, sin)
-    return _ffn(cfg, lp, x)
+    return _ffn(cfg, lp, x, ranks)
 
 
 def _remat(cfg: TransformerConfig, fn):
@@ -278,16 +298,27 @@ def backbone(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
              ) -> Tuple[torch.Tensor, Dict]:
     """Embed + all blocks + final norm.  Returns (B, S, d) hidden and
     the aux values summed over layers (MoE: ``dropped_tokens``,
-    ``balance_loss``)."""
+    ``balance_loss``).
+
+    Where the active mesh's batch axes split the batch over more than one
+    rank, the MoE groups are cut as from the global batch and each
+    layer's ``balance_loss`` is the global batch's, from the means of its
+    factors over the ranks (``hooks.batch_pmean``, outside the
+    recomputed block); ``dropped_tokens`` stays this rank's."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = _embed(cfg, params, tokens)
+    x = constrain(_embed(cfg, params, tokens), "batch", None, None)
     cos, sin = rope_tables(positions, cfg.d_head, cfg.rope_theta)
-    body = _remat(cfg, lambda lp, xx: _block_fwd(cfg, lp, xx, cos, sin))
+    ranks = batch_ranks()
+    body = _remat(cfg, lambda lp, xx: _block_fwd(cfg, lp, xx, cos, sin,
+                                                 ranks))
     sums: Dict = {}
     for lp in _unstack(params["block"], cfg.n_layers):
         x, aux = body(lp, x)
+        if ranks > 1 and "gate_mean" in aux:
+            aux["balance_loss"] = cfg.moe.n_experts * torch.sum(
+                batch_pmean(aux["gate_mean"]) * batch_pmean(aux["route_frac"]))
         for key in AUX_SUMS:
             if key in aux:
                 sums[key] = sums[key] + aux[key] if key in sums else aux[key]
@@ -309,7 +340,7 @@ def _unembed_chunk(cfg: TransformerConfig, params: Params,
 
 def _chunk_nll(h: torch.Tensor, w: torch.Tensor,
                labels: torch.Tensor) -> torch.Tensor:
-    return softmax_xent(h @ w, labels)
+    return softmax_xent(constrain(h @ w, "batch", None, "model"), labels)
 
 
 def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
@@ -317,7 +348,14 @@ def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     """Chunked-softmax LM loss: the logits of ``loss_chunk`` positions at
     a time, each chunk recomputed in the backward pass, so (B, S, vocab)
     is never materialized.  MoE configs add ``0.01 * balance_loss /
-    n_layers``."""
+    n_layers``.
+
+    Given DTensor tokens and labels (a step on a mesh), it takes this
+    rank's rows and returns its share of the global loss
+    (``hooks.batch_mean``); every rank holds the global balance term
+    (``backbone``), so its share is that over the count of batch
+    ranks."""
+    tokens, labels = local(tokens), local(labels)
     h, aux = backbone(cfg, params, tokens)
     B, S, d = h.shape
     C = min(cfg.loss_chunk, S)
@@ -331,9 +369,9 @@ def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
         cnt = (ll != -1).sum()
         tot = tot + nll * cnt
         n = n + cnt
-    loss = tot / torch.clamp(n, min=1)
+    loss = batch_mean(tot, n)
     if "balance_loss" in aux:
-        loss = loss + 0.01 * aux["balance_loss"] / cfg.n_layers
+        loss = loss + 0.01 * aux["balance_loss"] / cfg.n_layers / batch_ranks()
     return loss, aux
 
 
@@ -423,6 +461,7 @@ def decode_step(cfg: TransformerConfig, params: Params, token: torch.Tensor,
         q, k, v = _qkv(cfg, lp, h)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+        q, k, v = _constrain_qkv(cfg, q, k, v)
         kc[bidx, :, slot] = torch.where(room, k[:, 0].to(kc.dtype),
                                         kc[bidx, :, slot])
         vc[bidx, :, slot] = torch.where(room, v[:, 0].to(vc.dtype),

@@ -6,10 +6,12 @@ None of them is a Pallas kernel in the reference, so plain PyTorch is
 their port.  The fused fixed-size bag that DLRM's lookups go through is
 ``repro_torch.kernels.embedding_bag``.
 
-Ids of a lookup must lie in ``[0, vocab)``: PyTorch raises on an id
-outside the table on the CPU and does not check it on the card, where
-JAX would clamp or fill.  ``segment_softmax`` takes any segment id and
-returns what the reference returns.
+Out-of-range ids give the reference's values, with one compare and
+select an id and no host check: a lookup follows ``jnp.take``'s fill rule
+(an id in ``[-vocab, 0)`` wraps, any other id outside the table reads a
+NaN row), and a segment id outside ``[0, num_segments)`` is dropped, as
+``jax.ops.segment_sum`` drops it.  ``segment_softmax`` takes any segment
+id and returns what the reference returns.
 """
 
 from __future__ import annotations
@@ -21,9 +23,16 @@ import torch
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
                      dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Plain row gather: ``(...)`` ids -> ``(..., dim)`` in ``dtype``."""
-    rows = table.index_select(0, ids.reshape(-1))
-    return rows.reshape(*ids.shape, table.shape[1]).to(dtype)
+    """Plain row gather: ``(...)`` ids -> ``(..., dim)`` in ``dtype``, an
+    id in ``[-vocab, 0)`` wrapped and a row of NaN for any other id
+    outside the table (``jnp.take``'s fill rule)."""
+    V = table.shape[0]
+    i = ids.reshape(-1).long()
+    i = torch.where(i < 0, i + V, i)
+    ok = (i >= 0) & (i < V)
+    rows = table.index_select(0, torch.where(ok, i, 0)).to(dtype)
+    rows = torch.where(ok[:, None], rows, float("nan"))
+    return rows.reshape(*ids.shape, table.shape[1])
 
 
 def embedding_bag(
@@ -36,21 +45,26 @@ def embedding_bag(
     dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """EmbeddingBag over ragged bags given by explicit segment ids: rows
-    are cast to ``dtype`` before the weights, as in the reference, and
-    summed into their segment in ``dtype``; ``mean`` divides by the bag's
-    size (at least 1, so an empty bag stays zero)."""
+    (:func:`embedding_lookup`'s) are cast to ``dtype`` before the
+    weights, as in the reference, and summed into their segment in
+    ``dtype``; ``mean`` divides by the bag's size (at least 1, so an
+    empty bag stays zero).  An id whose segment lies outside
+    ``[0, num_segments)``, negative included, is dropped from both the
+    sum and the count (it lands in one extra row that is cut off)."""
     if mode not in ("sum", "mean"):
         raise ValueError(mode)
     rows = embedding_lookup(table, ids, dtype)
     if weights is not None:
         rows = rows * weights[:, None].to(dtype)
+    n = num_segments
     seg = segment_ids.long()
-    out = torch.zeros((num_segments, table.shape[1]), dtype=dtype,
-                      device=table.device).index_add_(0, seg, rows)
+    seg = torch.where((seg >= 0) & (seg < n), seg, n)
+    out = torch.zeros((n + 1, table.shape[1]), dtype=dtype,
+                      device=table.device).index_add_(0, seg, rows)[:n]
     if mode == "mean":
-        cnt = torch.zeros(num_segments, dtype=dtype, device=table.device)
+        cnt = torch.zeros(n + 1, dtype=dtype, device=table.device)
         cnt.index_add_(0, seg, torch.ones_like(seg, dtype=dtype))
-        out = out / cnt.clamp(min=1)[:, None]
+        out = out / cnt[:n].clamp(min=1)[:, None]
     return out
 
 

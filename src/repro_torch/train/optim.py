@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -98,17 +98,21 @@ def _update_leaf(cfg: OptConfig, p, g, mu, nu, scale, lr, bc1, bc2,
 
 
 def adamw_update(cfg: OptConfig, grads: Any, state: Dict, params: Any,
-                 donate: bool = False) -> Tuple[Any, Dict, Dict]:
+                 donate: bool = False,
+                 grad_norm: Optional[torch.Tensor] = None
+                 ) -> Tuple[Any, Dict, Dict]:
     """One AdamW step: ``(params, state, {"grad_norm", "lr"})``.
 
-    Gradients are clipped to ``cfg.clip_norm`` by their global norm.
+    Gradients are clipped to ``cfg.clip_norm`` by their global norm
+    (``grad_norm`` where the caller took it, as a step on a mesh does over
+    the whole gradients before it updates its shards).
     With ``donate``, ``params``, ``mu`` and ``nu`` are updated in place
     and returned, as a JAX step that donates its buffers reuses them: one
     leaf's temporaries at a time beside the state, where a new tree would
     hold the state twice (at DLRM-MLPerf's widths 36 GB of it).  The
     values are the same either way."""
     step = state["step"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
     lr = schedule_lr(cfg, step)
     bc1 = 1 - cfg.b1 ** step.to(torch.float32)

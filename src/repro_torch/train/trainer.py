@@ -9,7 +9,9 @@ the port of ``repro.train.trainer``.
     their count, as the reference's scan does,
   * optional int8 gradient compression before the optimizer,
   * periodic async checkpoints and resume from (step, data cursor): a
-    restarted run continues from the exact batch.
+    restarted run continues from the exact batch,
+  * a step on a mesh, taken where the params are DTensors
+    (:mod:`repro_torch.distributed.sharding`): see :func:`build_train_step`.
 """
 
 from __future__ import annotations
@@ -27,7 +29,30 @@ from repro_torch.ckpt.checkpoint import (
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.compression import compress_tree
-from repro_torch.train.optim import OptConfig, adamw_init, adamw_update
+from repro_torch.distributed.hooks import (
+    batch_sum,
+    batch_sum_,
+    local,
+    rows_like,
+    use_mesh,
+)
+from repro_torch.distributed.sharding import (
+    P,
+    NamedSharding,
+    full_tensor,
+    is_sharded,
+    mesh_of,
+    place,
+    rewrap,
+    shard_batch,
+    sharding_of,
+)
+from repro_torch.train.optim import (
+    OptConfig,
+    adamw_init,
+    adamw_update,
+    global_norm,
+)
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -66,9 +91,31 @@ def build_train_step(
     ``cfg.microbatches``.  With ``donate`` (the reference's default) the
     step updates ``params`` and ``opt_state`` in place and returns them,
     as a JAX step reuses donated buffers: the caller must not expect the
-    old values in them afterwards."""
+    old values in them afterwards.
 
-    def step(params, opt_state, batch):
+    Where ``params`` are DTensors (and ``opt_state`` is laid out as
+    :func:`opt_init` lays it), the step runs on their mesh, inside
+    :func:`~repro_torch.distributed.hooks.use_mesh`, with ``batch`` the
+    global batch on every rank:
+
+      * it gathers the params it computes with (on a mesh of one rank,
+        their local tensors: nothing is copied) — compute over ``model``
+        is not tensor-parallel;
+      * each microbatch (rows in the global batch's order, as in the
+        reference) is placed by ``shard_batch`` over the batch axes, and
+        the loss, which takes its rows with ``hooks.local`` and ends in
+        ``hooks.batch_mean``, is this rank's share of the global loss:
+        its gradient is this rank's part of the global gradient, whatever
+        each rank's count of valid terms;
+      * the shares and gradients are summed over the batch axes (an
+        all-reduce), compressed where asked (each leaf whole, as the
+        reference's ``compress_tree``), and each rank's AdamW updates its
+        own shards with the global gradient norm.
+
+    Plain params are the mesh-less case of the same step: every gather,
+    cut and sum above is then the identity."""
+
+    def grads_of(params, batch, placed: Callable[[Any], Any]):
         mb = cfg.microbatches
         if mb > 1:
             micro = tree_map(
@@ -80,7 +127,7 @@ def build_train_step(
                                    device=leaves(params)[0].device)
             for i in range(mb):
                 loss, g = value_and_grad(
-                    loss_fn, params, tree_map(lambda x: x[i], micro))
+                    loss_fn, params, placed(tree_map(lambda x: x[i], micro)))
                 for a, b in zip(leaves(grads), leaves(g)):
                     a.add_(b.float())
                 del g
@@ -88,20 +135,53 @@ def build_train_step(
             loss = loss_sum / mb
             for a in leaves(grads):
                 a.div_(mb)
-        else:
-            loss, grads = value_and_grad(loss_fn, params, batch)
-        if cfg.compress_grads:
-            grads = compress_tree(grads)
-        params, opt_state, om = adamw_update(cfg.opt, grads, opt_state,
-                                             params, donate=donate)
-        return params, opt_state, {"loss": loss, **om}
+            return loss, grads
+        return value_and_grad(loss_fn, params, placed(batch))
+
+    def step(params, opt_state, batch):
+        mesh = mesh_of(params)
+
+        def placed(b):
+            if mesh is None:
+                return b
+            return tree_map(place, b, shard_batch(b, mesh))
+
+        with use_mesh(mesh):
+            full = tree_map(full_tensor, params)
+            loss, grads = grads_of(full, batch, placed)
+            del full
+            loss = batch_sum(loss)
+            grads = tree_map(batch_sum_, grads)
+            if cfg.compress_grads:
+                grads = compress_tree(grads)
+            gn = global_norm(grads)
+            shards = tree_map(rows_like, grads, params)
+            del grads
+            new_p, new_s, om = adamw_update(
+                cfg.opt, shards, tree_map(local, opt_state),
+                tree_map(local, params), donate=donate, grad_norm=gn)
+        return (tree_map(rewrap, new_p, params),
+                tree_map(rewrap, new_s, opt_state), {"loss": loss, **om})
 
     return step
 
 
+def opt_init(params: Any) -> Dict:
+    """``adamw_init`` of ``params``; where they are DTensors, ``mu`` and
+    ``nu`` laid out as the params and ``step`` replicated on their mesh
+    (the reference's ``opt_shardings``)."""
+    state = adamw_init(tree_map(local, params))
+    return {"mu": tree_map(rewrap, state["mu"], params),
+            "nu": tree_map(rewrap, state["nu"], params),
+            "step": place(state["step"], NamedSharding(mesh_of(params), P()))}
+
+
 def _tensor(x: Any, device: torch.device, copy: bool = False) -> torch.Tensor:
     """A tensor or array leaf as a tensor on ``device``; with ``copy``
-    never one that shares memory with ``x``."""
+    never one that shares memory with ``x``.  A DTensor stays one, its
+    local block copied."""
+    if is_sharded(x):
+        return rewrap(_tensor(x.to_local(), device, copy), x)
     if isinstance(x, torch.Tensor):
         return x.detach().to(device, copy=copy)
     if copy:
@@ -113,7 +193,8 @@ class Trainer:
     """Trains ``params`` (a tree of tensors or arrays, copied to
     ``device``; None means the card) with ``loss_fn`` under ``cfg``.  Its
     step donates the copy, so the caller's tensors are left as they
-    were."""
+    were.  Params placed on a mesh (DTensors, ``sharding.place``) train
+    there: the step and the checkpoints run on their mesh."""
 
     def __init__(
         self,
@@ -127,7 +208,8 @@ class Trainer:
         self.loss_fn = loss_fn
         self.params = tree_map(lambda p: _tensor(p, self.device, copy=True),
                                params)
-        self.opt_state = adamw_init(self.params)
+        self.mesh = mesh_of(self.params)
+        self.opt_state = opt_init(self.params)
         self.step_num = 0
         self.data_cursor = 0
         self._step = build_train_step(loss_fn, cfg, donate=True)
@@ -139,12 +221,21 @@ class Trainer:
         self.history = []
 
     # -- resume ----------------------------------------------------------------
-    def try_resume(self) -> bool:
+    def try_resume(self, shardings: Any = None,
+                   opt_shardings: Any = None) -> bool:
+        """Restore the latest checkpoint, if any.  On a mesh the leaves
+        are placed as the trainer's own are, unless ``shardings`` and
+        ``opt_shardings`` say otherwise (the reference's elastic
+        restore)."""
         if not self.cfg.ckpt_dir or latest_step(self.cfg.ckpt_dir) is None:
             return False
+        if self.mesh is not None and shardings is None:
+            shardings = tree_map(sharding_of, self.params)
+            opt_shardings = tree_map(sharding_of, self.opt_state)
         self.params, self.opt_state, self.step_num, self.data_cursor = (
             load_checkpoint(self.cfg.ckpt_dir, self.params, self.opt_state,
-                            device=self.device)
+                            device=self.device, shardings=shardings,
+                            opt_shardings=opt_shardings)
         )
         return True
 

@@ -275,7 +275,7 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
 
 
 def test_launcher_refuses_mesh_and_other_families():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         port_launch.main(["--device", "cpu", "--mesh", "single"])
     with pytest.raises(SystemExit, match="recsys arch"):
         port_launch.main(["--device", "cpu", "--arch", "dlrm-mlperf"])

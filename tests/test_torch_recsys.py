@@ -303,21 +303,23 @@ def test_dlrm_retrieval_scores_in_chunks(monkeypatch):
 
 def test_dlrm_forward_goes_through_embedding_bag(monkeypatch):
     """One ``embedding_bag_fixed`` call a table, each a (B, 1) bag of
-    int32 ids with weight 1."""
+    int32 ids with weight 1, read under the ``fill`` rule of the
+    reference's ``embedding_lookup``."""
     _, _, sv, pparams = _models("dlrm-mlperf", "bf16")
     calls = []
     bag = port_rs.embedding_bag_fixed
 
-    def spy(table, ids, weights):
-        calls.append((tuple(ids.shape), ids.dtype, bool((weights == 1).all())))
-        return bag(table, ids, weights)
+    def spy(table, ids, weights, id_rule="clip"):
+        calls.append((tuple(ids.shape), ids.dtype, bool((weights == 1).all()),
+                      id_rule))
+        return bag(table, ids, weights, id_rule=id_rule)
 
     monkeypatch.setattr(port_rs, "embedding_bag_fixed", spy)
     batch = _both(_retrieval_batch("dlrm-mlperf", sv.config,
                                    np.random.RandomState(8), 1))[1]
     batch = {"dense": batch["dense"], "sparse": batch["sparse"]}
     port_rs.dlrm_forward(sv.config, pparams, batch)
-    assert calls == [((1, 1), torch.int32, True)] * 26
+    assert calls == [((1, 1), torch.int32, True, "fill")] * 26
 
 
 # -------------------------------------------------------------- registry --

@@ -386,11 +386,74 @@ def test_checkpoint_loads_across_packages(tmp_path, writer):
 
 
 def test_bf16_leaf_raises_type_error(tmp_path):
-    params = {"w": torch.zeros(3, dtype=torch.bfloat16)}
-    with pytest.raises(TypeError, match="ml_dtypes"):
-        save_checkpoint(str(tmp_path), 1, params)
-    with pytest.raises(TypeError, match="ml_dtypes"):
-        CheckpointManager(str(tmp_path)).save(1, params)
+    """A bf16 leaf no longer raises: ``save_checkpoint`` and the manager
+    write it (as its uint16 bits under the reference's ``<V2`` header)
+    and it loads back as bf16, bit for bit."""
+    params = {"w": torch.tensor([1.0, -2.5, 3.0e-3], dtype=torch.bfloat16)}
+    save_checkpoint(str(tmp_path / "a"), 1, params)
+    mgr = CheckpointManager(str(tmp_path / "b"))
+    mgr.save(1, params)
+    mgr.wait()
+    for d in ("a", "b"):
+        p, _, _, _ = load_checkpoint(str(tmp_path / d), params, device=CPU)
+        assert p["w"].dtype == torch.bfloat16
+        assert torch.equal(p["w"].view(torch.int16),
+                           params["w"].view(torch.int16))
+
+
+def _bits(x) -> np.ndarray:
+    """uint16 bit patterns of a bf16 JAX array or torch tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return np.asarray(x).view(np.uint16)
+
+
+def _bf16_trees():
+    """(name, reference tree, port tree) of ROADMAP's smallest bf16 input
+    and of granite's REDUCED params cast to bf16, the same bits in both."""
+    from repro.configs.registry import get_bundle as ref_bundle
+
+    small = {"w": jnp.asarray([1.0, 2.5, -3.0], jnp.bfloat16),
+             "b": jnp.zeros(2, jnp.float32)}
+    lm = jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.bfloat16),
+        ref_bundle("granite-3-2b", reduced=True).init(jax.random.PRNGKey(0)))
+
+    def port(tree):
+        return jax.tree_util.tree_map(
+            lambda a: torch.from_numpy(_bits(a).astype(np.int16)).view(
+                torch.bfloat16) if a.dtype == jnp.bfloat16
+            else torch.tensor(np.asarray(a)), tree)
+
+    return [("small", small, port(small)), ("lm", lm, port(lm))]
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["small", "lm_reduced"])
+def test_bf16_checkpoint_matches_reference(tmp_path, which):
+    """ROADMAP §3 fault 1: a bf16 tree saved by the reference loads in
+    the port bit for bit, the port's files equal the reference's byte for
+    byte (header ``'<V2'``, manifest dtype ``bfloat16``, same hashes),
+    and a port round trip is exact."""
+    name, ref_tree, port_tree = _bf16_trees()[which]
+    a = ref_ckpt.save_checkpoint(str(tmp_path / "ref"), 2, ref_tree)
+    b = save_checkpoint(str(tmp_path / "port"), 2, port_tree)
+    ma, mb = (json.load(open(os.path.join(p, "manifest.json"))) for p in (a, b))
+    assert ma == mb
+    assert any(m["dtype"] == "bfloat16" for m in mb["leaves"].values())
+    for f in sorted(os.listdir(a)):
+        assert open(os.path.join(a, f), "rb").read() == \
+            open(os.path.join(b, f), "rb").read(), f
+    want = jax.tree_util.tree_leaves(ref_tree)
+    for src in ("ref", "port"):
+        got, _, step, _ = load_checkpoint(str(tmp_path / src), port_tree,
+                                          device=CPU)
+        assert step == 2
+        for w, g, t in zip(want, leaves(got), leaves(port_tree)):
+            assert g.dtype == t.dtype and g.shape == t.shape
+            if g.dtype == torch.bfloat16:
+                assert np.array_equal(_bits(g), _bits(w)), name
+            else:
+                assert np.array_equal(g.numpy(), np.asarray(w)), name
 
 
 def test_manager_keeps_the_newest(tmp_path):

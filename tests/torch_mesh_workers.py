@@ -1,0 +1,150 @@
+"""One rank of the port's multi-process mesh tests, on a CPU gloo group
+set up from a file store in DIR (no network):
+
+    python tests/torch_mesh_workers.py CASE RANK WORLD DIR [DATA]
+
+``psum``   ``compressed_psum`` of row RANK of ``DIR/psum_in.npy``, to
+           ``DIR/psum_out_RANK.npy``;
+``train``  on a (DATA, WORLD / DATA) ``("data", "model")`` mesh (DATA
+           defaults to WORLD), from ``DIR/inputs.pt``: a mesh save of the
+           initial LM params (``DIR/ckpt_init``), two ``Trainer`` steps of
+           granite-3-2b REDUCED in f32 with a checkpoint (``DIR/ckpt``),
+           an elastic restore of it onto this mesh, two steps of
+           moonshot-v1-16b-a3b REDUCED in f32 (MoE), one step of DLRM's
+           and two-tower's REDUCED cells in f32 and one of a masked GNN
+           cell; rank 0 writes the gathered results to
+           ``DIR/train_out.pt``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.ckpt.checkpoint import save_checkpoint
+from repro_torch.configs.families import REDUCED_LM_CELL_SHAPES, lm_bundle
+from repro_torch.configs.registry import get_bundle, get_config, get_training
+from repro_torch.distributed.compression import compressed_psum
+from repro_torch.distributed.sharding import (
+    RECSYS_RULES,
+    full_tensor,
+    place,
+    shard_by_rules,
+)
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.train.trainer import Trainer, TrainerConfig, opt_init
+from repro_torch.tree import tree_map
+
+LM_MICROBATCHES = 2
+RECSYS_DP = ("dlrm-mlperf", "two-tower-retrieval")
+MOE_ARCH = "moonshot-v1-16b-a3b"
+
+
+def lm_bundle_f32(arch: str = "granite-3-2b"):
+    """The arch's REDUCED LM bundle computing in f32."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype=torch.float32)
+    return lm_bundle(arch, cfg, shapes=REDUCED_LM_CELL_SHAPES)
+
+
+def recsys_f32(arch: str):
+    """The arch's REDUCED training cell computing in f32."""
+    tr = get_training(arch, reduced=True)
+    return dataclasses.replace(
+        tr, config=dataclasses.replace(tr.config, dtype=torch.float32))
+
+
+def lm_trainer(bundle, params, mesh, ckpt_dir):
+    placed = tree_map(place, params, bundle.param_shardings(mesh))
+    cfg = TrainerConfig(opt=bundle.opt, microbatches=LM_MICROBATCHES,
+                        ckpt_dir=ckpt_dir, ckpt_every=100, log_every=1)
+    return Trainer(bundle.loss_fn(), placed, cfg, device="cpu")
+
+
+def gathered(tree):
+    return tree_map(lambda t: full_tensor(t).clone(), tree)
+
+
+def train(rank: int, world: int, d: str, data: int) -> None:
+    inputs = torch.load(os.path.join(d, "inputs.pt"))
+    mesh = make_mesh((data, world // data), ("data", "model"), device="cpu")
+    bundle = lm_bundle_f32()
+    out = {}
+
+    init = tree_map(place, inputs["lm_params"], bundle.param_shardings(mesh))
+    save_checkpoint(os.path.join(d, "ckpt_init"), 0, init,
+                    opt_init(init), data_cursor=0)
+
+    tr = lm_trainer(bundle, inputs["lm_params"], mesh,
+                    os.path.join(d, "ckpt"))
+    batches = inputs["lm_batches"]
+    tr.fit(lambda c: batches[c], len(batches))
+    dist.barrier()
+    out["lm_losses"] = [h["loss"] for h in tr.history]
+    out["lm_params"] = gathered(tr.params)
+    out["lm_mu"] = gathered(tr.opt_state["mu"])
+
+    # elastic restore onto this mesh from other starting values
+    fresh = tree_map(torch.zeros_like, inputs["lm_params"])
+    again = lm_trainer(bundle, fresh, mesh, os.path.join(d, "ckpt"))
+    assert again.try_resume(bundle.param_shardings(mesh),
+                            bundle.opt_shardings(mesh))
+    out["restored_step"] = again.step_num
+    out["restored_params"] = gathered(again.params)
+    # and as the trainer's own params are laid out (no shardings given)
+    own = lm_trainer(bundle, fresh, mesh, os.path.join(d, "ckpt"))
+    assert own.try_resume()
+    out["restored_own"] = gathered(own.params)
+    out["restored_own_mu"] = gathered(own.opt_state["mu"])
+
+    moe = lm_bundle_f32(MOE_ARCH)
+    tr = lm_trainer(moe, inputs["moe_params"], mesh, None)
+    tr.fit(lambda c: inputs["moe_batches"][c], len(inputs["moe_batches"]))
+    out["moe_losses"] = [h["loss"] for h in tr.history]
+    out["moe_params"] = gathered(tr.params)
+
+    for arch in RECSYS_DP:
+        tr = recsys_f32(arch)
+        rp = tree_map(place, inputs[arch]["params"],
+                      shard_by_rules(inputs[arch]["params"], mesh,
+                                     RECSYS_RULES))
+        rp, _, metrics = tr.train_step()(rp, opt_init(rp),
+                                         inputs[arch]["batch"])
+        out[arch] = {"loss": float(metrics["loss"]), "params": gathered(rp)}
+
+    gnn = get_bundle("mace", reduced=True)
+    cell = gnn.cell_specs["minibatch_lg"]
+    gp = tree_map(place, inputs["gnn_params"], gnn.param_shardings(mesh))
+    gp, _, metrics = cell.train_step()(gp, opt_init(gp),
+                                       inputs["gnn_batch"])
+    out["gnn_loss"] = float(metrics["loss"])
+    out["gnn_params"] = gathered(gp)
+    if rank == 0:
+        torch.save(out, os.path.join(d, "train_out.pt"))
+
+
+def main() -> None:
+    case, rank, world, d = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
+                            sys.argv[4])
+    dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                            rank=rank, world_size=world)
+    try:
+        if case == "psum":
+            x = torch.from_numpy(np.load(os.path.join(d, "psum_in.npy"))[rank])
+            np.save(os.path.join(d, f"psum_out_{rank}.npy"),
+                    compressed_psum(x).numpy())
+        else:
+            train(rank, world, d,
+                  int(sys.argv[5]) if len(sys.argv) > 5 else world)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
