@@ -159,15 +159,21 @@ Phases (any failure exits non-zero before the last line is printed):
      loss and gradients with attention through the flash kernel's
      ``autograd.Function`` and through its plain version under autograd
      (``LM_GRAD_LOSS_RTOL``, ``LM_GRAD_REL_L2``); then 2 warm-up and 5
-     timed steps (the wgmma kernel must launch 2 x 40 x 4 times a step:
-     the forward and the remat recompute), one profiled step (busy share,
-     the flash forward, its plain backward and AdamW apart), AdamW and the
-     backward alone (beside its bound and SDPA's backward); REDUCED
-     granite and Moonshot in f32, 3 steps card against CPU; the bare
-     attention wrappers must raise on a ``q`` that requires grad, and the
-     ``Function`` must give the plain version's gradient.  Then both
-     attention kernels against their plain versions at the shapes these
-     paths gave them;
+     timed steps (the wgmma kernel must launch 2 x 40 x 4 times a step,
+     the forward and the remat recompute, and the backward kernel of
+     ``csrc/flash_attention_bwd.cu`` 40 x 4 times), one profiled step
+     (busy share, the flash forward, the backward kernel and AdamW apart),
+     AdamW alone, and the backward kernel on both routes against the plain
+     backward element by element (bf16 within one rounding of each side
+     plus 2e-5, f32 within 2e-5) and timed beside its bound, the plain
+     backward and SDPA's backward: the lm train microbatch (twice, bit for
+     bit), D 128, ragged S 1 / 37 / 129 non-causal, f32 at D 8, 16 and
+     64, bf16 at D 16; REDUCED granite and Moonshot in f32, 3 steps card
+     against CPU (the scalar backward must launch once a layer and
+     microbatch); the bare attention wrappers must raise on a ``q`` that
+     requires grad, and the ``Function`` must give the plain version's
+     gradient.  Then both attention kernels against their plain versions
+     (outputs and log-sum-exps) at the shapes these paths gave them;
  15. gnn train: MACE at its published widths (2 layers, k 128, l_max 2,
      correlation 3, 8 radial functions) through ``get_bundle("mace")``'s
      four cells and ``Trainer`` with the bundle's AdamW, data synthetic
@@ -185,10 +191,11 @@ Phases (any failure exits non-zero before the last line is printed):
      four cells at REDUCED, 3 steps card against CPU.  TF32 must be off
      and no hand kernel may launch: the reference's MACE reaches no
      Pallas kernel;
- 16. print the kernels line (six kernels: both flash routes, their
-     launches and the paged kernel's by path; the search kernels'
-     launches summed over the search and replica phases, the bag's over
-     recsys serving and training), then the result line.
+ 16. print the kernels line (eight kernels: both flash forward routes,
+     both flash backward routes, their launches and the paged kernel's
+     by path; the search kernels' launches summed over the search and
+     replica phases, the bag's over recsys serving and training), then
+     the result line.
 
 Exits with code 2 when no CUDA device is present.  Imports nothing of
 JAX or of the ``repro`` package.
@@ -254,6 +261,7 @@ PARITY_TOL = 1e-4
 # would stay within any limit that large
 F32_TOL = 2e-5
 BF16_REL = 2.0 ** -8
+GRADS = ("dq", "dk", "dv")
 
 # recsys phases: dlrm-mlperf at its published config
 RECSYS_P99_CALLS = 200
@@ -1702,6 +1710,20 @@ def attention_check(got: torch.Tensor, plain: torch.Tensor) -> dict:
     return elementwise_check(got, plain, F32_TOL)
 
 
+def backward_check(got: Sequence[torch.Tensor],
+                   plain: Sequence[torch.Tensor]) -> dict:
+    """A backward kernel's (dq, dk, dv) against the plain backward's on
+    the same operands, each element by element as ``attention_check``
+    holds an output: f32 within F32_TOL, bf16 within one rounding of
+    each side plus F32_TOL (the emulation of the kernel's arithmetic in
+    ``tests/test_torch_flash_backward.py`` passes this limit; with P and
+    dS rounded once it does not)."""
+    checks = {name: attention_check(g, p)
+              for name, g, p in zip(GRADS, got, plain)}
+    return {**checks, "within_tolerance": all(
+        c["within_tolerance"] for c in checks.values())}
+
+
 def flash_inputs(B: int, H: int, Hkv: int, S: int, D: int, dtype,
                  gen: torch.Generator, device, views: bool = False):
     """Seeded q (B, H, S, D) and k, v (B, Hkv, S, D).  ``views``: made
@@ -1716,10 +1738,23 @@ def flash_inputs(B: int, H: int, Hkv: int, S: int, D: int, dtype,
     return draw(H), draw(Hkv), draw(Hkv)
 
 
+def lse_check(got: torch.Tensor, plain: torch.Tensor) -> dict:
+    """A forward kernel's base-2 log-sum-exp against the plain version's,
+    within F32_TOL * (1 + |plain|): both are f32 sums of S exponentials,
+    which agree to a few f32 steps; a wrong row is off by far more."""
+    err = (got - plain).abs()
+    ratio = float((err / (F32_TOL * (1 + plain.abs()))).max())
+    return {"max_abs_err": float(err.max()), "max_err_ratio": ratio,
+            "tolerance": f"{F32_TOL}*(1+|plain|)",
+            "within_tolerance": ratio <= 1.0}
+
+
 def flash_case(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                causal: bool, kernel) -> dict:
     """``kernel`` (either flash route, through ``run_kernel``) against the
-    plain version on the same operands, timed beside its bound and SDPA."""
+    plain version on the same operands, timed beside its bound and SDPA;
+    the log-sum-exp it writes for the backward (``lse``) against the
+    plain version's too.  The timed launches write none, as serving's."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import run_kernel
@@ -1727,11 +1762,14 @@ def flash_case(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     B, H, S, D = q.shape
     Hkv = k.shape[1]
-    got = run_kernel(kernel, q, k, v, causal)
-    plain = flash_attention_plain(q, k, v, causal)
+    got, got_lse = run_kernel(kernel, q, k, v, causal, return_lse=True)
+    plain, plain_lse = flash_attention_plain(q, k, v, causal, return_lse=True)
     torch.cuda.synchronize()
     check = attention_check(got, plain)
-    del got, plain
+    lse = lse_check(got_lse, plain_lse)
+    check["within_tolerance"] = check["within_tolerance"] and \
+        lse["within_tolerance"]
+    del got, plain, got_lse, plain_lse
     # the yardstick gets K/V expanded to H heads, outside its timing
     ke = k.repeat_interleave(H // Hkv, dim=1)
     ve = v.repeat_interleave(H // Hkv, dim=1)
@@ -1745,7 +1783,7 @@ def flash_case(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "kernel": kernel.symbol,
         "shape": [B, H, Hkv, S, D], "dtype": str(q.dtype).split(".")[-1],
         "causal": causal, "strides": [list(t.stride()) for t in (q, k, v)],
-        **check,
+        **check, "lse": lse,
         "ms": ms,
         "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, causal)),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -2239,7 +2277,12 @@ def bag_rule_case(table: torch.Tensor, ids: torch.Tensor,
         out[rule] = {"bit_identical": same,
                      "nan_bags": int(nan_g.any(1).sum()),
                      "ms": cuda_ms(lambda: embedding_bag_fixed(
-                         table, ids, w, id_rule=rule))}
+                         table, ids, w, id_rule=rule)),
+                     "plain_ms": cuda_ms(lambda: embedding_bag_fixed_plain(
+                         table, ids, w, id_rule=rule)),
+                     # F.embedding_bag raises on an out-of-range id: no
+                     # library call computes either rule
+                     "library_ms": None}
         del got, plain
     # V, -V-1 and 2^31-1 read a NaN row under fill; -1 and -V wrap
     want = sum(1 for i in range(out["bad_ids"]) if i % 5 in (0, 3, 4))
@@ -2452,15 +2495,19 @@ def bag_backward_case(V: int, D: int, B: int, gen: torch.Generator,
 
 def profile_train_step(trainer, batches: Callable[[int], dict],
                        ranges: Optional[Dict[str, tuple]] = None,
-                       forward: tuple = ("bag_forward", "embedding_bag")
+                       forward: tuple = ("bag_forward", "embedding_bag"),
+                       named: Optional[Dict[str, Sequence[str]]] = None
                        ) -> dict:
     """One training step under ``torch.profiler``: the device's busy
     share, the top ops by the device time of the kernels they launched,
     the top kernels, the device time of the kernels whose name holds
     ``forward[1]`` (reported as ``forward[0]``; the bag kernel by
-    default), and of each of ``ranges`` (label: (module, function),
-    AdamW and the bag's backward by default), read from a
-    ``record_function`` range around its calls."""
+    default), of the kernels whose names hold each of ``named``'s
+    substrings (label: substrings; a hand kernel's launch through ctypes
+    is not linked to the range around its call, so its time is read by
+    name), and of each of ``ranges`` (label: (module, function), AdamW and
+    the bag's backward by default), read from a ``record_function`` range
+    around its calls."""
     from torch.autograd import DeviceType
     from torch.profiler import record_function
 
@@ -2514,6 +2561,14 @@ def profile_train_step(trainer, batches: Callable[[int], dict],
             setattr(mod, attr, saved[label])
     busy_us = sum(k[2] for k in kernels)
     hit = [k for k in kernels if forward[1] in k[0]]
+    for label, parts in (named or {}).items():
+        by = {part: [k for k in kernels if part in k[0]] for part in parts}
+        range_ms[f"{label}_ms"] = sum(
+            k[2] for ks in by.values() for k in ks) / 1e3
+        range_ms[f"{label}_by_kernel"] = {
+            part: {"launches": sum(k[1] for k in ks),
+                   "ms": sum(k[2] for k in ks) / 1e3}
+            for part, ks in by.items()}
     return {
         "captured": bool(kernels),
         "wall_ms": wall_us / 1e3,
@@ -2924,59 +2979,116 @@ def lm_grad_failures(kernel: dict, plain: dict, names: List[str]) -> tuple:
             "rel_l2": rel}, failures
 
 
-def flash_backward_case(B: int, H: int, Hkv: int, S: int, D: int,
-                        gen: torch.Generator, device) -> dict:
-    """The flash ``Function``'s plain backward at a training shape, on
-    (B, S, heads, D) views as the model passes them, timed beside its
-    bound and the backward of ``scaled_dot_product_attention`` (K/V
-    expanded outside its timing); both against autograd of the plain
-    forward."""
+def flash_backward_case(B: int, H: int, Hkv: int, S: int, D: int, dtype,
+                        causal: bool, gen: torch.Generator, device,
+                        views: bool = False, repeat: bool = False) -> dict:
+    """The backward kernel on the route ``flash_backward_route`` picks,
+    from the forward kernel's output and log-sum-exp, against the plain
+    backward (delta from the same saved output) by ``backward_check``;
+    timed beside the plain backward, the backward of
+    ``scaled_dot_product_attention`` (K/V expanded outside its timing) and
+    its bound.  ``views``: operands and dO made (B, S, heads, D) and
+    transposed, as the model passes them.  ``repeat``: a second call on
+    the same inputs must give the same bits (no float atomics)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_backward_route,
+        flash_route,
+        run_backward,
+        run_kernel,
+    )
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_backward_plain,
-        flash_attention_plain,
     )
 
-    q, k, v = flash_inputs(B, H, Hkv, S, D, torch.bfloat16, gen, device,
-                           views=True)
-    do = torch.randn(B, H, S, D, generator=gen, device=device).to(torch.bfloat16)
-    got = flash_attention_backward_plain(q, k, v, do, True)
-    ref_leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    want = torch.autograd.grad(flash_attention_plain(*ref_leaves, True),
-                               ref_leaves, do)
-    checks = [elementwise_check(g, w, F32_TOL) for g, w in zip(got, want)]
-    del got, want, ref_leaves
+    q, k, v = flash_inputs(B, H, Hkv, S, D, dtype, gen, device, views=views)
+    do = flash_inputs(B, H, H, S, D, dtype, gen, device, views=views)[0]
+    out, lse = run_kernel(flash_route(dtype, D), q, k, v, causal,
+                          return_lse=True)
+    kernel = flash_backward_route(dtype, D)
+    got = run_backward(kernel, q, k, v, out, lse, do, causal)
+    plain = flash_attention_backward_plain(q, k, v, do, causal, out=out)
+    torch.cuda.synchronize()
+    check = backward_check(got, plain)
+    del plain
+    case = {"kernel": kernel.symbol, "shape": [B, H, Hkv, S, D],
+            "dtype": str(dtype).split(".")[-1], "causal": causal,
+            "views": views, **check,
+            "max_abs_err": max(check[g]["max_abs_err"] for g in GRADS),
+            "max_err_ratio": max(check[g]["max_err_ratio"] for g in GRADS)}
+    if repeat:
+        again = run_backward(kernel, q, k, v, out, lse, do, causal)
+        case["bit_identical_rerun"] = all(
+            torch.equal(a, b) for a, b in zip(got, again))
+        del again
+    del got
     ke = k.repeat_interleave(H // Hkv, dim=1).detach().requires_grad_(True)
     ve = v.repeat_interleave(H // Hkv, dim=1).detach().requires_grad_(True)
     qs = q.detach().requires_grad_(True)
-    out = F.scaled_dot_product_attention(qs, ke, ve, is_causal=True)
-    pairs = S * (S + 1) / 2
+    sdpa = F.scaled_dot_product_attention(qs, ke, ve, is_causal=causal)
+    pairs = S * (S + 1) / 2 if causal else S * S
     # recompute q k^T, then dO V^T, P^T dO, dS K and dS^T q: five
     # products of 2 D flops a (query, key) pair and head
     flops = 5 * 2 * B * H * D * pairs
-    nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * 2 * 2
-    return {
-        "shape": [B, H, Hkv, S, D], "dtype": "bfloat16", "causal": True,
-        "dq": checks[0], "dk": checks[1], "dv": checks[2],
-        "within_tolerance": all(c["within_tolerance"] for c in checks),
-        "ms": cuda_ms(lambda: flash_attention_backward_plain(q, k, v, do, True),
-                      reps=5),
+    # q, k, v, o, dO and the log-sum-exp read once, dq, dk, dv written once
+    nbytes = 4 * (B * H + B * Hkv) * S * D * q.element_size() + 4 * B * H * S
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else SCALAR_OPS_PER_S
+    reps = 5 if S * S * B * H > 1 << 28 else 20
+    case.update({
+        "ms": cuda_ms(lambda: run_backward(kernel, q, k, v, out, lse, do,
+                                           causal)),
+        "plain_ms": cuda_ms(lambda: flash_attention_backward_plain(
+            q, k, v, do, causal, out=out), reps=reps),
         "library_ms": cuda_ms(lambda: torch.autograd.grad(
-            out, (qs, ke, ve), do, retain_graph=True), reps=5),
-        "bound_ms": max(flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": "operations" if flops / BF16_OPS_PER_S
-        >= nbytes / HBM_BYTES_PER_S else "bytes",
+            sdpa, (qs, ke, ve), do, retain_graph=True), reps=reps),
+        "bound_ms": max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / rate >= nbytes / HBM_BYTES_PER_S
+        else "bytes",
         "flops": flops, "bytes": nbytes,
+    })
+    case["tflops"] = flops / case["ms"] / 1e9
+    return case
+
+
+def flash_backward_cases(lm_shape: tuple, device) -> Dict[str, dict]:
+    """The backward kernel on both routes against the plain backward: the
+    tensor-core route at the lm train microbatch ``lm_shape`` (granite:
+    B 2, 32 heads over 8, S 4,096, D 64) on (B, S, H, D) views, also run
+    twice for bit identity; at D 128 (16 heads over 16, S 1,023) and at
+    ragged S 1, 37 and 129 non-causal; the scalar route in f32 at D 8 and
+    16 (the REDUCED configs' widths) and 64 (granite's heads, S 1,024),
+    and in bf16 at D 16."""
+    gen = torch.Generator(device=device).manual_seed(48)
+    bf, f32 = torch.bfloat16, torch.float32
+    _, H, Hkv, _, D = lm_shape
+    cases = {  # name: (B, H, Hkv, S, D), dtype, causal, views, repeat
+        "lm_train_bf16": (lm_shape, bf, True, True, True),
+        "d128_bf16": ((1, 16, 16, 1023, 128), bf, True, False, False),
+        "s1_bf16": ((1, H, Hkv, 1, D), bf, False, False, False),
+        "s37_bf16": ((1, H, Hkv, 37, D), bf, False, False, False),
+        "s129_bf16": ((1, H, Hkv, 129, D), bf, False, False, False),
+        "d8_f32": ((2, 8, 2, 517, 8), f32, True, False, False),
+        "d16_f32": ((2, 4, 4, 517, 16), f32, True, False, False),
+        "d64_f32": ((1, H, Hkv, 1024, D), f32, True, False, False),
+        "d16_bf16": ((2, 4, 4, 517, 16), bf, True, False, False),
     }
+    out = {}
+    for name, (shape, dtype, causal, views, repeat) in cases.items():
+        out[name] = flash_backward_case(*shape, dtype, causal, gen, device,
+                                        views=views, repeat=repeat)
+        torch.cuda.empty_cache()
+    return out
 
 
-def lm_reduced_checks(device) -> dict:
+def lm_reduced_checks(device, kernels=()) -> dict:
     """REDUCED granite-3-2b and Moonshot in f32 from the same seeded
     masters and the launcher's batches: LM_TRAIN_PARITY_STEPS steps of
     ``Trainer`` (the launcher's optimizer, 2 microbatches) on the card
     against the CPU; per-step losses within TRAIN_LOSS_RTOL, parameters
-    and optimizer state within TRAIN_PARAM_TOL."""
+    and optimizer state within TRAIN_PARAM_TOL.  f32 at D 8 and 16 is the
+    scalar routes' path: ``kernels``' launches on the card are counted,
+    and the scalar backward must launch once a layer and microbatch."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.train import synth_lm_batches
     from repro_torch.models.transformer import init_params, lm_loss
@@ -2988,6 +3100,10 @@ def lm_reduced_checks(device) -> dict:
     failures: List[str] = []
     opt = OptConfig(lr=3e-3, schedule="wsd", warmup_steps=20,
                     total_steps=LM_TRAIN_PARITY_STEPS)
+    microbatches = 2
+    backward_expect = 0
+    for k in kernels:
+        k.launches = 0
     for arch in ("granite-3-2b", "moonshot-v1-16b-a3b"):
         cfg = dataclasses.replace(get_config(arch, reduced=True),
                                   dtype=torch.float32)
@@ -2998,10 +3114,12 @@ def lm_reduced_checks(device) -> dict:
         for where in (device, "cpu"):
             tr = Trainer(lambda p, b: lm_loss(cfg, p, b["tokens"],
                                               b["labels"])[0],
-                         params, TrainerConfig(opt=opt, microbatches=2,
+                         params, TrainerConfig(opt=opt,
+                                               microbatches=microbatches,
                                                log_every=1), device=where)
             tr.fit(batches, LM_TRAIN_PARITY_STEPS)
             runs.append(tr)
+        backward_expect += cfg.n_layers * microbatches * LM_TRAIN_PARITY_STEPS
         a, b = runs
         loss_err = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
                        for x, y in zip(a.history, b.history))
@@ -3021,6 +3139,15 @@ def lm_reduced_checks(device) -> dict:
                      "max_loss_rel_err": loss_err,
                      "max_state_abs_err": state_err,
                      "losses": [h["loss"] for h in a.history]}
+    out["launches"] = {k.symbol: k.launches for k in kernels}
+    if kernels and out["launches"].get("flash_attention_backward") != \
+            backward_expect:
+        failures.append(
+            f"lm train REDUCED: flash_attention_backward launched "
+            f"{out['launches'].get('flash_attention_backward')} times on the "
+            f"card, {backward_expect} expected (one a layer and microbatch: "
+            f"the layers of both configs x {microbatches} microbatches x "
+            f"{LM_TRAIN_PARITY_STEPS} steps)")
     out["failures"] = failures
     return out
 
@@ -3033,8 +3160,10 @@ def lm_train_phase(device, kernels) -> dict:
     one microbatch's gradients through the kernel's ``Function`` and
     through the plain version under autograd, then LM_TRAIN_WARMUP
     warm-up and LM_TRAIN_TIMED timed steps (the wgmma flash kernel must
-    launch twice per layer and microbatch: the forward and the remat
-    recompute), one profiled step, AdamW alone, and the REDUCED checks."""
+    launch twice per layer and microbatch, the forward and the remat
+    recompute, and the tensor-core backward kernel once), one profiled
+    step, AdamW alone, the backward kernel against the plain backward
+    (``flash_backward_cases``), and the REDUCED checks."""
     from repro_torch.configs.registry import get_bundle
     from repro_torch.kernels.flash_attention import kernel as flash_mod
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
@@ -3105,23 +3234,32 @@ def lm_train_phase(device, kernels) -> dict:
     launches = {k.symbol: k.launches for k in kernels}
     largest = {k.symbol: k.largest for k in kernels}
     t1 = time.perf_counter()
-    expect = {"flash_attention_wgmma": 2 * cfg.n_layers * mb * n_steps,
-              "flash_attention": 0, "paged_attention": 0}
-    for name, n in expect.items():
+    per_step = f"{cfg.n_layers} layers x {mb} microbatches x {n_steps} steps"
+    expect = {  # name: (count, how it is derived)
+        "flash_attention_wgmma": (2 * cfg.n_layers * mb * n_steps,
+                                  f"forward and remat recompute: 2 x "
+                                  f"{per_step}"),
+        "flash_attention_backward_mma": (cfg.n_layers * mb * n_steps,
+                                         f"one backward a layer and "
+                                         f"microbatch: {per_step}"),
+        "flash_attention": (0, "bf16 at D 64 takes the wgmma route"),
+        "flash_attention_backward": (0, "bf16 at D 64 takes the mma route"),
+        "paged_attention": (0, "no decode in training"),
+    }
+    for name, (n, why) in expect.items():
         if launches.get(name) != n:
             failures.append(f"lm train: {name} launched {launches.get(name)} "
-                            f"times, {n} expected (forward and remat "
-                            f"recompute: 2 x {cfg.n_layers} layers x {mb} "
-                            f"microbatches x {n_steps} steps)")
+                            f"times, {n} expected ({why})")
     losses = [h["loss"] for h in trainer.history]
     if not all(np.isfinite(losses)) or len(losses) != n_steps:
         failures.append(f"lm train: losses {losses}")
     peak = torch.cuda.max_memory_allocated(device)
     profile = profile_train_step(
         trainer, get,
-        ranges={"flash_backward": (flash_mod, "flash_attention_backward_plain"),
-                "adamw_update": (trainer_mod, "adamw_update")},
-        forward=("flash_forward", "flash_attention"))
+        ranges={"adamw_update": (trainer_mod, "adamw_update")},
+        forward=("flash_forward", "flash_attention"),
+        named={"flash_backward": ("delta_kernel", "dkdv_mma_kernel",
+                                  "dq_mma_kernel")})
     split_s["profile"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     grads = tree_map(torch.zeros_like, trainer.params)
@@ -3130,15 +3268,22 @@ def lm_train_phase(device, kernels) -> dict:
                                             donate=True), reps=3)
     del grads, trainer, batches
     torch.cuda.empty_cache()
-    backward = flash_backward_case(
-        LM_TRAIN_BATCH // mb, cfg.n_heads, cfg.n_kv_heads, LM_TRAIN_SEQ,
-        cfg.d_head, torch.Generator(device=device).manual_seed(48), device)
-    if not backward["within_tolerance"]:
-        failures.append("flash attention's plain backward differs from "
-                        "autograd of the plain forward")
+    backward = flash_backward_cases(
+        (LM_TRAIN_BATCH // mb, cfg.n_heads, cfg.n_kv_heads, LM_TRAIN_SEQ,
+         cfg.d_head), device)
+    for name, case in backward.items():
+        if not case["within_tolerance"]:
+            failures.append(
+                f"{case['kernel']} differs from the plain backward at {name} "
+                f"{case['shape']}: error " + ", ".join(
+                    f"{g} {case[g]['max_err_ratio']:.3g}" for g in GRADS)
+                + " times its limit")
+        if case.get("bit_identical_rerun") is False:
+            failures.append(f"{case['kernel']} at {name}: two calls on the "
+                            "same inputs gave different bits")
     split_s["adamw_and_backward_alone"] = time.perf_counter() - t1
     t1 = time.perf_counter()
-    checks = lm_reduced_checks(device)
+    checks = lm_reduced_checks(device, kernels)
     failures += checks.pop("failures")
     failures += attention_grad_guard(device)
     split_s["reduced_and_guard"] = time.perf_counter() - t1
@@ -3153,7 +3298,8 @@ def lm_train_phase(device, kernels) -> dict:
         "step": percentiles_ms(step_s),
         "tokens_per_s": tokens * len(step_s) / sum(step_s),
         "losses": losses, "launches": launches, "largest": largest,
-        "expected_launches": expect, "peak_mem_bytes": peak,
+        "expected_launches": {k: n for k, (n, _) in expect.items()},
+        "peak_mem_bytes": peak,
         "profile": profile, "adamw_ms": adamw_ms, "backward": backward,
         "grad_check": grad_check, "reduced_checks": checks,
         "split_s": split_s,
@@ -3187,7 +3333,9 @@ def mesh_phase(device, kernels) -> dict:
     LM_TRAIN_SEQ) on ``make_host_mesh()`` against the same step without
     a mesh, from the same params and batch: the loss and every updated
     param bit for bit, the step's peak at most MESH_PEAK_RATIO of the
-    unsharded step's, and the wgmma flash kernel launched by it."""
+    unsharded step's, and the wgmma flash kernel and the backward kernel
+    launched by it (the backward has no float atomics, so both steps'
+    gradients are the same bits)."""
     import os
 
     import torch.distributed as dist
@@ -3279,6 +3427,7 @@ def mesh_phase(device, kernels) -> dict:
             same_loss = sharded["loss"] == plain["loss"]
             ratio = sharded["step_peak_bytes"] / plain["step_peak_bytes"]
             expect = 2 * cfg.n_layers * mb
+            expect_bwd = cfg.n_layers * mb
             out.update({
                 "arch": cfg.name, "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ],
                 "microbatches": mb, "unsharded": plain, "sharded": sharded,
@@ -3286,7 +3435,8 @@ def mesh_phase(device, kernels) -> dict:
                 "params_differing": differ[:10],
                 "n_params_differing": len(differ),
                 "step_peak_ratio": ratio, "launches": launches,
-                "expected_flash_wgmma_launches": expect})
+                "expected_flash_wgmma_launches": expect,
+                "expected_flash_backward_mma_launches": expect_bwd})
             if not same_loss or differ:
                 failures.append(
                     f"mesh: the one-rank mesh step differs from the unsharded "
@@ -3301,6 +3451,12 @@ def mesh_phase(device, kernels) -> dict:
                     f"mesh: flash_attention_wgmma launched "
                     f"{launches.get('flash_attention_wgmma')} times in the "
                     f"mesh step, {expect} expected")
+            if launches.get("flash_attention_backward_mma") != expect_bwd:
+                failures.append(
+                    f"mesh: flash_attention_backward_mma launched "
+                    f"{launches.get('flash_attention_backward_mma')} times "
+                    f"in the mesh step, {expect_bwd} expected (one a layer "
+                    f"and microbatch: {cfg.n_layers} x {mb})")
             del mesh_tr, plain_params, batch
         finally:
             dist.destroy_process_group()
@@ -3720,6 +3876,8 @@ def main(argv: Sequence[str] = ()) -> int:
     from repro_torch.kernels.embedding_bag.kernel import EMBEDDING_BAG
     from repro_torch.kernels.flash_attention.kernel import (
         FLASH_ATTENTION,
+        FLASH_ATTENTION_BACKWARD,
+        FLASH_ATTENTION_BACKWARD_MMA,
         FLASH_ATTENTION_WGMMA,
     )
     from repro_torch.kernels.intersect.kernel import SORTED_MEMBER_MASK
@@ -3732,6 +3890,8 @@ def main(argv: Sequence[str] = ()) -> int:
     device = torch.device("cuda")
     kernels = (VARINT_DECODE, SORTED_MEMBER_MASK)
     serve_kernels = (FLASH_ATTENTION_WGMMA, FLASH_ATTENTION, PAGED_ATTENTION)
+    backward_kernels = (FLASH_ATTENTION_BACKWARD_MMA, FLASH_ATTENTION_BACKWARD)
+    train_kernels = serve_kernels + backward_kernels
     # the case each serve kernel's row of the kernels line shows: the
     # scalar flash kernel serves f32 (the parity phase), the others bf16
     row_dtype = {FLASH_ATTENTION_WGMMA.symbol: "bf16",
@@ -3841,7 +4001,7 @@ def main(argv: Sequence[str] = ()) -> int:
     failures += mparity["failures"]
     log(f"moe phases: {time.perf_counter() - t0:.1f} s")
 
-    lm = lm_train_phase(device, serve_kernels)
+    lm = lm_train_phase(device, train_kernels)
     log("lm train: " + json.dumps({k: v for k, v in lm.items()
                                    if k not in ("profile", "grad_check")}))
     log("lm train profile: " + json.dumps(lm["profile"]))
@@ -3849,7 +4009,7 @@ def main(argv: Sequence[str] = ()) -> int:
         {k: v for k, v in lm["grad_check"].items() if k != "rel_l2"}))
     failures += lm["failures"]
     log(f"lm train phase: {lm['seconds']:.1f} s")
-    mesh = mesh_phase(device, serve_kernels)
+    mesh = mesh_phase(device, train_kernels)
     log("mesh: " + json.dumps(mesh))
     failures += mesh["failures"]
     log(f"mesh phase: {mesh['seconds']:.1f} s")
@@ -3864,7 +4024,7 @@ def main(argv: Sequence[str] = ()) -> int:
                                 f"{case['max_err_ratio']:.3g} times its limit")
             attn[name][where] = case
 
-    gnn = gnn_train_phase(device, kernels + serve_kernels + (EMBEDDING_BAG,),
+    gnn = gnn_train_phase(device, kernels + train_kernels + (EMBEDDING_BAG,),
                           args.seed)
     for name, cell in gnn["cells"].items():
         log(f"gnn train {name}: " + json.dumps(
@@ -3877,13 +4037,19 @@ def main(argv: Sequence[str] = ()) -> int:
 
     # each attention kernel's launches by path: bf16 serving (granite,
     # Moonshot, Qwen3), the f32 parity engines (the scalar flash kernel's
-    # path) and LM training (forward and remat recompute)
+    # path), LM training (forward and remat recompute; the backward) and
+    # its REDUCED f32 steps (the scalar routes' training path)
     launch_paths = {"serve": serve, "parity": parity, "moe_serve": moe,
                     "moe_serve_qwen3": qwen3, "moe_parity": mparity,
-                    "lm_train": lm, "mesh": mesh}
+                    "lm_train": lm, "lm_reduced": lm["reduced_checks"],
+                    "mesh": mesh}
     by_path = {k.symbol: {path: rep["launches"].get(k.symbol, 0)
                           for path, rep in launch_paths.items()}
-               for k in serve_kernels}
+               for k in train_kernels}
+    # the backward rows show the lm train microbatch (tensor cores) and
+    # REDUCED Moonshot's width in f32 (scalar)
+    backward_row = {FLASH_ATTENTION_BACKWARD_MMA.symbol: "lm_train_bf16",
+                    FLASH_ATTENTION_BACKWARD.symbol: "d16_f32"}
     # the search path's own launch: a decoded chunk, a join round
     search_case = {VARINT_DECODE.symbol: "search",
                    SORTED_MEMBER_MASK.symbol: "round"}
@@ -3914,8 +4080,6 @@ def main(argv: Sequence[str] = ()) -> int:
             "replaces": k.replaces,
             "launches": sum(by_path[k.symbol].values()),
             "launches_by_path": by_path[k.symbol],
-            **({"backward": lm["backward"]}
-               if k is FLASH_ATTENTION_WGMMA else {}),
             **{key: attn[k.symbol][f"serve_{row_dtype[k.symbol]}"][key]
                for key in ("max_abs_err", "max_err_ratio", "ms",
                            "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -3925,6 +4089,26 @@ def main(argv: Sequence[str] = ()) -> int:
             "deploy": attn[k.symbol][f"deploy_{row_dtype[k.symbol]}"],
         }
         for k in serve_kernels
+    ] + [
+        {
+            "name": k.symbol,
+            "route": "cuda",
+            "source": k.source,
+            "replaces": k.replaces,
+            "launches": sum(by_path[k.symbol].values()),
+            "launches_by_path": by_path[k.symbol],
+            **{key: lm["backward"][backward_row[k.symbol]][key]
+               for key in ("max_abs_err", "max_err_ratio", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms", "shape",
+                           "dtype")},
+            "within_tolerance": all(
+                c["within_tolerance"] for c in lm["backward"].values()
+                if c["kernel"] == k.symbol),
+            **({"bit_identical_rerun": lm["backward"]["lm_train_bf16"][
+                "bit_identical_rerun"]}
+               if k is FLASH_ATTENTION_BACKWARD_MMA else {}),
+        }
+        for k in backward_kernels
     ] + [
         {
             "name": EMBEDDING_BAG.symbol,

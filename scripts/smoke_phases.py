@@ -13,7 +13,9 @@ widths), ``mesh`` (granite-3-2b's step on a one-rank NCCL mesh against
 the unsharded step, ``compressed_psum`` and a bf16 checkpoint on the
 card), ``guard`` (the attention wrappers' grad guard and the flash
 ``Function``), ``attn`` (both attention kernels at the shapes the
-``moe``, ``qwen3`` and ``lm`` phases gave them), ``gnn`` (MACE trained at
+``moe``, ``qwen3`` and ``lm`` phases gave them), ``bwd`` (the flash
+backward kernel on both routes against the plain backward at the cases
+the ``lm`` phase checks, without the training), ``gnn`` (MACE trained at
 its published widths in the GNN bundle's four cells, data from
 ``--seed``; no hand kernel may launch).  Builds the kernels,
 turns TF32 off as the smoke run does, runs the phases in that order,
@@ -32,7 +34,8 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("moe", "qwen3", "mparity", "lm", "mesh", "guard", "attn", "gnn")
+PHASES = ("moe", "qwen3", "mparity", "lm", "mesh", "guard", "attn", "bwd",
+          "gnn")
 PATH_NAMES = {"moe": "moe_serve", "qwen3": "moe_serve_qwen3", "lm": "lm_train"}
 SUMMARY_KEYS = ("tokens_per_s", "prefill", "decode_step", "dropped",
                 "peak_mem_bytes", "serve_peak_mem_bytes", "launches", "step",
@@ -40,6 +43,23 @@ SUMMARY_KEYS = ("tokens_per_s", "prefill", "decode_step", "dropped",
                 "adamw_ms", "setup_s", "split_s", "checks",
                 "reduced_checks", "hand_kernel_launches", "seconds",
                 "unsharded", "sharded", "step_peak_ratio", "failures")
+
+
+def backward_phase(cs, device) -> dict:
+    """``chip_smoke.flash_backward_cases`` at granite's lm train shape,
+    each case's failure as the lm phase words it."""
+    from repro_torch.configs.granite_3_2b import CONFIG as cfg
+
+    cases = cs.flash_backward_cases(
+        (cs.LM_TRAIN_BATCH // 4, cfg.n_heads, cfg.n_kv_heads,
+         cs.LM_TRAIN_SEQ, cfg.d_head), device)
+    failures = [f"{name}: {case['kernel']} differs from the plain backward"
+                for name, case in cases.items()
+                if not case["within_tolerance"]]
+    failures += [f"{name}: two calls gave different bits"
+                 for name, case in cases.items()
+                 if case.get("bit_identical_rerun") is False]
+    return {"cases": cases, "failures": failures}
 
 
 def main(argv=None) -> int:
@@ -63,6 +83,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.embedding_bag.kernel import EMBEDDING_BAG
     from repro_torch.kernels.flash_attention.kernel import (
         FLASH_ATTENTION,
+        FLASH_ATTENTION_BACKWARD,
+        FLASH_ATTENTION_BACKWARD_MMA,
         FLASH_ATTENTION_WGMMA,
     )
     from repro_torch.kernels.intersect.kernel import SORTED_MEMBER_MASK
@@ -72,7 +94,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    kernels = (FLASH_ATTENTION_WGMMA, FLASH_ATTENTION, PAGED_ATTENTION)
+    kernels = (FLASH_ATTENTION_WGMMA, FLASH_ATTENTION, PAGED_ATTENTION,
+               FLASH_ATTENTION_BACKWARD_MMA, FLASH_ATTENTION_BACKWARD)
     t0 = time.perf_counter()
     cuda_lib.build()
     cs.log(f"build: {time.perf_counter() - t0:.1f} s")
@@ -87,6 +110,7 @@ def main(argv=None) -> int:
         "attn": lambda: {"failures": [], "cases": cs.path_attention_phase(
             {PATH_NAMES[k]: out[k] for k in PATH_NAMES if k in out},
             device)},
+        "bwd": lambda: backward_phase(cs, device),
         "gnn": lambda: cs.gnn_train_phase(
             device, kernels + (VARINT_DECODE, SORTED_MEMBER_MASK,
                                EMBEDDING_BAG), args.seed),

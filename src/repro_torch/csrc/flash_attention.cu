@@ -21,7 +21,9 @@
 // kernel runs scalar f32 FMAs from shared memory (4 threads per query row:
 // each scores a quarter of the kv tile, then accumulates a quarter of D),
 // so it reaches a fraction of that bound; mma.sync / wgmma with TMA-fed
-// tiles is later work.
+// tiles is later work.  When the caller asks for it (lse not null), each
+// row's base-2 log-sum-exp (m + ln l) log2(e) is stored beside the output,
+// f32 (B, H, S), for the backward (flash_attention_bwd.cu).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -35,6 +37,7 @@ constexpr int kThreads = 256;
 constexpr int kTPR = kThreads / kBQ;    // threads per query row
 constexpr int kJ = kBK / kTPR;          // keys each thread scores per tile
 constexpr float kNegInf = -1e30f;       // the reference's mask value
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -57,9 +60,10 @@ constexpr int smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H,
-                       int group, int S, Strides sq, Strides sk, Strides sv,
-                       Strides so, int causal, float scale) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int H, int group, int S,
+                       Strides sq, Strides sk, Strides sv, Strides so,
+                       int causal, float scale) {
   static_assert(D % kTPR == 0, "D must split over the threads of a row");
   constexpr int kDT = D / kTPR;  // accumulator columns per thread
   extern __shared__ float smem[];
@@ -158,12 +162,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int dd = 0; dd < kDT; ++dd)
       store(ob + qi * so.s + dd * kTPR + t, acc[dd] / denom);
+    if (lse != nullptr && t == 0)
+      lse[static_cast<long long>(bh) * S + qi] = (m + logf(denom)) * kLog2e;
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hkv, int S, Strides sq, Strides sk, Strides sv,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Hkv, int S, Strides sq, Strides sk, Strides sv,
            Strides so, int causal, float scale, cudaStream_t stream) {
   constexpr int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
@@ -174,31 +180,32 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
                   static_cast<unsigned>((S + kBQ - 1) / kBQ));
   flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, H / Hkv, S, sq, sk, sv,
-      so, causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, H / Hkv, S, sq, sk,
+      sv, so, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int D, const void* q, const void* k, const void* v, void* o,
-             int B, int H, int Hkv, int S, Strides sq, Strides sk, Strides sv,
-             Strides so, int causal, float scale, cudaStream_t stream) {
+             float* lse, int B, int H, int Hkv, int S, Strides sq, Strides sk,
+             Strides sv, Strides so, int causal, float scale,
+             cudaStream_t stream) {
   switch (D) {
     case 8:
-      return launch<T, 8>(q, k, v, o, B, H, Hkv, S, sq, sk, sv, so, causal,
-                          scale, stream);
+      return launch<T, 8>(q, k, v, o, lse, B, H, Hkv, S, sq, sk, sv, so,
+                          causal, scale, stream);
     case 16:
-      return launch<T, 16>(q, k, v, o, B, H, Hkv, S, sq, sk, sv, so, causal,
-                           scale, stream);
+      return launch<T, 16>(q, k, v, o, lse, B, H, Hkv, S, sq, sk, sv, so,
+                          causal, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, Hkv, S, sq, sk, sv, so, causal,
-                           scale, stream);
+      return launch<T, 32>(q, k, v, o, lse, B, H, Hkv, S, sq, sk, sv, so,
+                          causal, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, Hkv, S, sq, sk, sv, so, causal,
-                           scale, stream);
+      return launch<T, 64>(q, k, v, o, lse, B, H, Hkv, S, sq, sk, sv, so,
+                          causal, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, Hkv, S, sq, sk, sv, so, causal,
-                            scale, stream);
+      return launch<T, 128>(q, k, v, o, lse, B, H, Hkv, S, sq, sk, sv, so,
+                          causal, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -207,10 +214,13 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  q, o: (B, H, S, D); k, v: (B, Hkv, S, D),
-// each addressed through (batch, head, seq) strides in elements.
+// each addressed through (batch, head, seq) strides in elements.  lse:
+// null, or (B, H, S) f32 contiguous, written with each row's base-2
+// log-sum-exp.
 extern "C" int flash_attention(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int H, int Hkv, int S, int D, long long sqb, long long sqh, long long sqs,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int dtype, int B, int H, int Hkv, int S, int D, long long sqb,
+    long long sqh, long long sqs,
     long long skb, long long skh, long long sks, long long svb, long long svh,
     long long svs, long long sob, long long soh, long long sos, int causal,
     float scale, void* stream) {
@@ -220,10 +230,11 @@ extern "C" int flash_attention(
       so{sob, soh, sos};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(D, q, k, v, o, B, H, Hkv, S, sq, sk, sv, so,
-                           causal, scale, st);
+    return dispatch<float>(D, q, k, v, o, static_cast<float*>(lse), B, H,
+                           Hkv, S, sq, sk, sv, so, causal, scale, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, o, B, H, Hkv, S, sq, sk, sv,
-                                   so, causal, scale, st);
+    return dispatch<__nv_bfloat16>(D, q, k, v, o, static_cast<float*>(lse),
+                                   B, H, Hkv, S, sq, sk, sv, so, causal,
+                                   scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

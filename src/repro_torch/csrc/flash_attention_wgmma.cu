@@ -39,6 +39,10 @@
 //    once to bf16 errs by 2^-9 of sum |p v| / l, which near-zero outputs
 //    cannot absorb; the split costs half again the tensor work of P V.
 //  * The output is stored from the fragment, 4 bytes a thread, masked at S.
+//    When the caller asks for it (lse not null), each row's base-2
+//    log-sum-exp m c + log2(l) (c = log2(e) / sqrt(D)) is stored beside
+//    it, f32 (B, H, S): the backward (flash_attention_bwd.cu) recomputes
+//    P from it.
 //
 // Later work: the G query heads of one KV head are separate blocks (L2
 // serves the re-reads of K and V); softmax and wgmma of one warpgroup do
@@ -210,7 +214,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
-                             __nv_bfloat16* __restrict__ o, Strides so, int H,
+                             __nv_bfloat16* __restrict__ o,
+                             float* __restrict__ lse, Strides so, int H,
                              int group, int S, int causal, float scale_log2) {
   using L = Layout<D>;
   constexpr int kSub = L::kSub;
@@ -384,6 +389,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int j = 0; j < 2; ++j) {
       const int row = r0 + 8 * j;
       if (row >= S) continue;
+      if (lse != nullptr && lane % 4 == 0)
+        lse[(static_cast<long long>(b) * H + h) * S + row] =
+            m[j] * scale_log2 + log2f(denom[j]);
       __nv_bfloat16* orow = ob + row * so.s;
 #pragma unroll
       for (int sub = 0; sub < kSub; ++sub)
@@ -449,9 +457,9 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int S, Strides sq, Strides sk, Strides sv, Strides so,
-           int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Hkv, int S, Strides sq, Strides sk, Strides sv,
+           Strides so, int causal, float scale, cudaStream_t stream) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
@@ -467,8 +475,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const dim3 grid(static_cast<unsigned>(B * H),
                   static_cast<unsigned>((S + kBQ - 1) / kBQ));
   flash_attention_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), so, H, H / Hkv, S, causal,
-      scale * kLog2e);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, so, H, H / Hkv, S,
+      causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -477,10 +485,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 // bf16 only.  q, o: (B, H, S, D); k, v: (B, Hkv, S, D), each addressed
 // through (batch, head, seq) strides in elements with D contiguous; q, k
 // and v need 16-byte aligned bases and strides (of the dims longer than 1)
-// that are multiples of 8 elements.  D is 64 or 128.
+// that are multiples of 8 elements.  D is 64 or 128.  lse: null, or (B, H,
+// S) f32 contiguous, written with each row's base-2 log-sum-exp.
 extern "C" int flash_attention_wgmma(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
-    int Hkv, int S, int D, long long sqb, long long sqh, long long sqs,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H, int Hkv, int S, int D, long long sqb, long long sqh, long long sqs,
     long long skb, long long skh, long long sks, long long svb, long long svh,
     long long svs, long long sob, long long soh, long long sos, int causal,
     float scale, void* stream) {
@@ -490,10 +499,10 @@ extern "C" int flash_attention_wgmma(
       so{sob, soh, sos};
   auto st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch<64>(q, k, v, o, B, H, Hkv, S, sq, sk, sv, so, causal, scale,
-                      st);
+    return launch<64>(q, k, v, o, static_cast<float*>(lse), B, H, Hkv, S, sq,
+                      sk, sv, so, causal, scale, st);
   if (D == 128)
-    return launch<128>(q, k, v, o, B, H, Hkv, S, sq, sk, sv, so, causal,
-                       scale, st);
+    return launch<128>(q, k, v, o, static_cast<float*>(lse), B, H, Hkv, S, sq,
+                       sk, sv, so, causal, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,13 +19,18 @@ Two routes, chosen by :func:`flash_route` from the dtype and D alone:
     ``FLASH_ATTENTION`` (``csrc/flash_attention.cu``): scalar f32 FMAs.
 
 It is a choice between two hand-written kernels, each with its own launch
-count, never a retry: a CUDA error from either raises.
+count, never a retry: a CUDA error from either raises.  Either writes each
+row's base-2 log-sum-exp beside the output when asked (``return_lse``).
 
 Under autograd, :func:`flash_attention_differentiable` is one
-``torch.autograd.Function``: its forward is :func:`flash_attention` (the
-kernel on CUDA, the plain version on the CPU) and its backward is
-``ref.flash_attention_backward_plain`` on both devices.  The bare
-wrapper has no backward and refuses operands that require grad.
+``torch.autograd.Function``.  Its forward is :func:`flash_attention` with
+the log-sum-exp, and it saves q, k, v, the output and the log-sum-exp.
+Its backward on CUDA tensors is the hand kernel of
+``csrc/flash_attention_bwd.cu`` (:func:`run_backward`), on the route that
+:func:`flash_backward_route` picks; on CPU tensors it is
+``ref.flash_attention_backward_plain``.  The reference takes this
+gradient with ``jax.grad`` of its jnp attention and has no kernel for it.
+The bare wrapper has no backward and refuses operands that require grad.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ from repro_torch.kernels.flash_attention.ref import (
 
 FLASH_ATTENTION = CudaKernel(
     "flash_attention",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
     + [ctypes.c_int, ctypes.c_float],
     source="src/repro_torch/csrc/flash_attention.cu",
     replaces="src/repro/kernels/flash_attention/kernel.py:73",
@@ -57,16 +62,35 @@ FLASH_ATTENTION = CudaKernel(
 
 FLASH_ATTENTION_WGMMA = CudaKernel(
     "flash_attention_wgmma",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
     + [ctypes.c_int, ctypes.c_float],
     source="src/repro_torch/csrc/flash_attention_wgmma.cu",
+    replaces="src/repro/kernels/flash_attention/kernel.py:73",
+)
+
+# The backward's two routes.  Each C call launches the row pass, dK/dV and
+# dQ, and counts once.  They replace the forward's TPU kernel's gradient:
+# the reference takes it with jax.grad and has no kernel for it.
+FLASH_ATTENTION_BACKWARD_MMA = CudaKernel(
+    "flash_attention_backward_mma",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 24
+    + [ctypes.c_int, ctypes.c_float],
+    source="src/repro_torch/csrc/flash_attention_bwd.cu",
+    replaces="src/repro/kernels/flash_attention/kernel.py:73",
+)
+
+FLASH_ATTENTION_BACKWARD = CudaKernel(
+    "flash_attention_backward",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 24
+    + [ctypes.c_int, ctypes.c_float],
+    source="src/repro_torch/csrc/flash_attention_bwd.cu",
     replaces="src/repro/kernels/flash_attention/kernel.py:73",
 )
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
 # what the bare wrapper's grad guard says to call instead
 NO_GRAD_HINT = ("differentiate through flash_attention_differentiable, whose "
-                "backward is plain PyTorch")
+                "backward is the hand kernel of csrc/flash_attention_bwd.cu")
 WGMMA_HEAD_DIMS = (64, 128)
 TMA_ALIGN = 16       # bytes: TMA's base and stride unit
 TMA_MAX_STRIDE = 1 << 40
@@ -78,6 +102,15 @@ def flash_route(dtype: torch.dtype, head_dim: int) -> CudaKernel:
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return FLASH_ATTENTION_WGMMA
     return FLASH_ATTENTION
+
+
+def flash_backward_route(dtype: torch.dtype, head_dim: int) -> CudaKernel:
+    """The backward kernel a CUDA call of ``dtype`` and head dim
+    ``head_dim`` takes: the tensor-core (``mma.sync``) route for bf16 at
+    D 64 or 128, the scalar f32-FMA route otherwise."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return FLASH_ATTENTION_BACKWARD_MMA
+    return FLASH_ATTENTION_BACKWARD
 
 
 def tma_problem(t: torch.Tensor) -> Optional[str]:
@@ -100,8 +133,9 @@ def tma_problem(t: torch.Tensor) -> Optional[str]:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """(B, H, S, D) attention output in ``q.dtype``.
+                    causal: bool = True, return_lse: bool = False):
+    """(B, H, S, D) attention output in ``q.dtype`` (and, with
+    ``return_lse``, each row's base-2 log-sum-exp, f32 (B, H, S)).
 
     ``q`` is (B, H, S, D); ``k`` and ``v`` are (B, Hkv, S, D) with ``H %
     Hkv == 0``, all of one dtype (f32 or bf16) on one device, each with a
@@ -126,24 +160,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.device == k.device == v.device):
         raise ValueError(f"devices differ: {q.device}, {k.device}, {v.device}")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
+        return flash_attention_plain(q, k, v, causal, return_lse)
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     require_no_grad("flash_attention", q, k, v, hint=NO_GRAD_HINT)
-    return run_kernel(flash_route(q.dtype, D), q, k, v, causal)
+    return run_kernel(flash_route(q.dtype, D), q, k, v, causal, return_lse)
 
 
 def run_kernel(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor,
-               v: torch.Tensor, causal: bool = True) -> torch.Tensor:
+               v: torch.Tensor, causal: bool = True, return_lse: bool = False):
     """Launch ``kernel`` (either route) on CUDA operands that
-    :func:`flash_attention` has validated, and return its output.  The
-    wrapper calls it with :func:`flash_route`'s choice; the card's checks
-    call it to time the scalar kernel on bf16 operands too."""
+    :func:`flash_attention` has validated, and return its output (and,
+    with ``return_lse``, the log-sum-exp it wrote).  The wrapper calls it
+    with :func:`flash_route`'s choice; the card's checks call it to time
+    the scalar kernel on bf16 operands too."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     if kernel is FLASH_ATTENTION_WGMMA:
         if q.dtype != torch.bfloat16 or D not in WGMMA_HEAD_DIMS:
             raise ValueError(f"the wgmma kernel takes bf16 at D in "
@@ -158,32 +195,92 @@ def run_kernel(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor,
     kernel.launch(
         q.device, (B, H, Hkv, S, D),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         *dtype_code, B, H, Hkv, S, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(causal), 1.0 / math.sqrt(D),
     )
-    return out
+    return (out, lse) if return_lse else out
+
+
+def run_backward(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                 grad_out: torch.Tensor, causal: bool = True):
+    """``(dq, dk, dv)`` of flash attention from CUDA operands that
+    :func:`flash_attention` took, its output ``out`` and log-sum-exp
+    ``lse``, through ``kernel`` (either backward route): one launch of
+    the C entry point, which runs the row pass, dK/dV and dQ.  The
+    gradients are allocated in the operands' layouts and written whole.
+    ``grad_out`` is copied only where the route cannot read it in place
+    (a strided last dim, or the tensor-core route's 16-byte conditions)."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    if grad_out.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} and out "
+                         f"{tuple(out.shape)} must be q's {tuple(q.shape)}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse must be f32 contiguous {(B, H, S)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if kernel is FLASH_ATTENTION_BACKWARD_MMA:
+        if q.dtype != torch.bfloat16 or D not in WGMMA_HEAD_DIMS:
+            raise ValueError(f"the mma backward takes bf16 at D in "
+                             f"{WGMMA_HEAD_DIMS}, not {q.dtype} at D {D}")
+        if tma_problem(grad_out):
+            grad_out = grad_out.clone(memory_format=torch.contiguous_format)
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            problem = tma_problem(t)
+            if problem:
+                raise ValueError(f"the mma backward cannot read {name}: "
+                                 f"{problem}")
+        dtype_code = ()    # bf16 only
+    else:
+        if grad_out.shape[-1] > 1 and grad_out.stride(-1) != 1:
+            grad_out = grad_out.contiguous()
+        dtype_code = (FLOAT_CODES[q.dtype],)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    kernel.launch(
+        q.device, (B, H, Hkv, S, D),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        grad_out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *dtype_code, B, H, Hkv, S, D,
+        *(s for t in (q, k, v, out, grad_out, dq, dk, dv)
+          for s in t.stride()[:3]),
+        int(causal), 1.0 / math.sqrt(D),
+    )
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     """Flash attention under autograd.  The reference differentiates its
-    jnp attention (``repro.models.attention``) and has no backward
-    kernel, so there is none to port: the forward keeps the hand kernel
-    on the training path, and one plain backward serves both devices,
-    so the CPU tests run the same ``Function`` that the card does."""
+    jnp attention (``repro.models.attention``) with ``jax.grad``; here the
+    forward kernel saves its output and log-sum-exp, and the backward is
+    the hand kernel on CUDA tensors (or raises) and the plain backward on
+    CPU tensors, both taking delta from the saved output.  The training
+    path recomputes each block, so the saved tensors live through one
+    block's backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out = flash_attention(q, k, v, causal)
+        out, lse = flash_attention(q, k, v, causal, return_lse=True)
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward_plain(q, k, v, grad_out,
-                                                    ctx.causal)
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_backward_plain(
+                q, k, v, grad_out, ctx.causal, out=out)
+        else:
+            dq, dk, dv = run_backward(
+                flash_backward_route(q.dtype, q.shape[-1]), q, k, v, out,
+                lse, grad_out, ctx.causal)
         return dq, dk, dv, None
 
 
@@ -191,6 +288,6 @@ def flash_attention_differentiable(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor,
                                    causal: bool = True) -> torch.Tensor:
     """:func:`flash_attention` (same operands, same output) with a
-    backward: ``flash_attention_backward_plain`` from the saved q, k and
-    v."""
+    backward: the hand kernel (:func:`run_backward`) on CUDA tensors,
+    ``flash_attention_backward_plain`` on CPU tensors."""
     return _FlashAttention.apply(q, k, v, causal)

@@ -76,7 +76,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True) -> torch.Tensor:
     """(B, S, H, D) queries over (B, S, n_kv, D) keys and values through
     the flash kernel; (B, S, H, D) out, differentiable (the kernel's
-    ``autograd.Function``, whose backward is plain PyTorch).  The kernel
+    ``autograd.Function``, whose backward is the hand kernel of
+    ``csrc/flash_attention_bwd.cu`` on the card).  The kernel
     reads the (B, H, S, D) views through their strides, so nothing is
     transposed in memory on the way in.  K and V are constrained as the
     reference's flash path constrains them, unexpanded: the kernel groups

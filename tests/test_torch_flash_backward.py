@@ -1,0 +1,320 @@
+"""The flash-attention backward kernel's routes and arithmetic, on the CPU.
+
+The CUDA kernels (``csrc/flash_attention_bwd.cu``) run only on the card.
+Here: a tile-by-tile PyTorch emulation of the bf16 route's arithmetic
+(64-row tiles that a block owns, streamed tiles of 64 rows at D 64 and 32
+at D 128, P recomputed in base 2 from the saved log-sum-exp, delta from
+the saved output, P and dS split into bf16 hi + lo, f32 accumulation, the
+dK/dV sum over a KV head's query heads) held to
+``chip_smoke.elementwise_check`` against ``flash_attention_backward_plain``;
+the same emulation with P and dS rounded once fails the check.  Also the
+plain forward's log-sum-exp against the reference's scores, the backward
+route rule, each ``CudaKernel``'s argtypes against its ``extern "C"``
+signature, and ``chip_smoke``'s backward check on two wrong backwards.
+"""
+
+import importlib.util
+import math
+import re
+from pathlib import Path
+
+import ctypes
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro_torch.kernels.flash_attention.kernel import (
+    FLASH_ATTENTION,
+    FLASH_ATTENTION_BACKWARD,
+    FLASH_ATTENTION_BACKWARD_MMA,
+    FLASH_ATTENTION_WGMMA,
+    flash_attention_differentiable,
+    flash_backward_route,
+)
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_backward_plain,
+    flash_attention_plain,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+ROWS = 64               # rows a block owns: keys in dK/dV, queries in dQ
+LOG2E = 1.4426950408889634
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bf16(rng, *shape):
+    return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        torch.bfloat16)
+
+
+def _inputs(B, H, Hkv, S, D, seed, dtype=torch.bfloat16):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (_bf16(rng, B, h, S, D).to(dtype)
+                   for h in (H, Hkv, Hkv, H))
+    return q, k, v, do
+
+
+# ------------------------------------------- the kernel's arithmetic --
+def _parts(x, split):
+    """The bf16 operands a product takes for the f32 ``x``: hi and lo,
+    or (``split=False``) ``x`` rounded once."""
+    hi = x.to(torch.bfloat16).float()
+    return (hi, (x - hi).to(torch.bfloat16).float()) if split else (hi,)
+
+
+def emulate_backward(q, k, v, out, lse, do, causal=True, split=True):
+    """The bf16 route's arithmetic in PyTorch, tile by tile as its blocks
+    run: delta from the saved output; dK/dV per 64-key tile over the
+    group's query heads and the query tiles at or below the diagonal; dQ
+    per 64-query tile over the key tiles up to it; P = exp2(s c - lse)
+    with c = log2(e) / sqrt(D), rows past S and keys after a query
+    masked; every product of bf16 operands (P and dS as hi + lo, or
+    rounded once with ``split=False``) summed in f32; dk and dq scaled
+    by 1/sqrt(D) at the end and each output rounded once to bf16."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    N = 64 if D == 64 else 32     # rows of a streamed tile
+    scale = 1.0 / math.sqrt(D)
+    c = scale * LOG2E
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    delta = (dof * out.float()).sum(-1)
+
+    def tile(t, r0, n):
+        """Rows r0 .. r0 + n of (..., S, D), zeros past S."""
+        part = torch.zeros(*t.shape[:-2], n, t.shape[-1])
+        m = max(0, min(n, S - r0))
+        part[..., :m, :] = t[..., r0:r0 + m, :]
+        return part
+
+    def row_vec(t, r0, n, fill):
+        part = torch.full((*t.shape[:-1], n), fill)
+        m = max(0, min(n, S - r0))
+        part[..., :m] = t[..., r0:r0 + m]
+        return part
+
+    dk = torch.zeros(B, Hkv, S, D)
+    dv = torch.zeros(B, Hkv, S, D)
+    for k0 in range(0, S, ROWS):
+        kt, vt = tile(kf, k0, ROWS), tile(vf, k0, ROWS)
+        keys = torch.arange(k0, k0 + ROWS)
+        acc_k = torch.zeros(B, Hkv, ROWS, D)
+        acc_v = torch.zeros(B, Hkv, ROWS, D)
+        for g in range(G):
+            heads = torch.arange(Hkv) * G + g
+            for q0 in range((k0 // N) * N if causal else 0, S, N):
+                qt = tile(qf[:, heads], q0, N)
+                dot = tile(dof[:, heads], q0, N)
+                lc = row_vec(lse[:, heads], q0, N, math.inf)
+                dc = row_vec(delta[:, heads], q0, N, 0.0)
+                st = kt @ qt.transpose(-1, -2)            # keys x queries
+                dpt = vt @ dot.transpose(-1, -2)
+                pt = torch.exp2(st * c - lc[..., None, :])
+                if causal:
+                    cols = torch.arange(q0, q0 + N)
+                    pt = pt.masked_fill(keys[:, None] > cols[None, :], 0.0)
+                dst = pt * (dpt - dc[..., None, :])
+                for part in _parts(pt, split):
+                    acc_v += part @ dot
+                for part in _parts(dst, split):
+                    acc_k += part @ qt
+        n = min(ROWS, S - k0)
+        dk[:, :, k0:k0 + n] = acc_k[:, :, :n] * scale
+        dv[:, :, k0:k0 + n] = acc_v[:, :, :n]
+
+    dq = torch.zeros(B, H, S, D)
+    kx = kf.repeat_interleave(G, dim=1)
+    vx = vf.repeat_interleave(G, dim=1)
+    for q0 in range(0, S, ROWS):
+        qt, dot = tile(qf, q0, ROWS), tile(dof, q0, ROWS)
+        lr = row_vec(lse, q0, ROWS, math.inf)
+        dr = row_vec(delta, q0, ROWS, 0.0)
+        rows = torch.arange(q0, q0 + ROWS)
+        n_kt = -(-S // N)
+        if causal:
+            n_kt = min(n_kt, -(-(q0 + ROWS) // N))
+        acc = torch.zeros(B, H, ROWS, D)
+        for t in range(n_kt):
+            kt, vt = tile(kx, t * N, N), tile(vx, t * N, N)
+            s = qt @ kt.transpose(-1, -2)
+            dp = dot @ vt.transpose(-1, -2)
+            p = torch.exp2(s * c - lr[..., None])
+            keys = torch.arange(t * N, t * N + N)
+            mask = keys[None, :] >= S
+            if causal:
+                mask = mask | (keys[None, :] > rows[:, None])
+            p = p.masked_fill(mask, 0.0)
+            ds = p * (dp - dr[..., None])
+            for part in _parts(ds, split):
+                acc += part @ kt
+        n = min(ROWS, S - q0)
+        dq[:, :, q0:q0 + n] = acc[:, :, :n] * scale
+    return (dq.to(torch.bfloat16), dk.to(torch.bfloat16),
+            dv.to(torch.bfloat16))
+
+
+def _case(B, H, Hkv, S, D, causal, seed, split=True):
+    """The plain backward (delta from the saved output, as the kernel
+    takes it) and the emulation on the same seeded bf16 operands."""
+    q, k, v, do = _inputs(B, H, Hkv, S, D, seed)
+    out, lse = flash_attention_plain(q, k, v, causal, return_lse=True)
+    plain = flash_attention_backward_plain(q, k, v, do, causal, out=out)
+    got = emulate_backward(q, k, v, out, lse, do, causal, split)
+    return _chip_smoke().backward_check(got, plain)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 37, 129, 200])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("H,Hkv", [(4, 1), (2, 2)], ids=["gqa4", "mha"])
+def test_emulation_passes_the_card_check(H, Hkv, D, S, causal):
+    """GQA 4:1 and 1:1, D 64 and 128, ragged S, causal and not: the
+    emulated kernel's dq, dk and dv each within the card's bf16 limit of
+    the plain backward."""
+    check = _case(1, H, Hkv, S, D, causal, seed=S + D + H)
+    assert check["within_tolerance"], check
+
+
+@pytest.fixture(scope="module")
+def long_case():
+    """S 1,024 at granite's head width and group (D 64, 4 query heads
+    over 1), causal: the split and the single-rounded emulations' checks."""
+    return (_case(1, 4, 1, 1024, 64, True, seed=3),
+            _case(1, 4, 1, 1024, 64, True, seed=3, split=False))
+
+
+def test_split_p_and_ds_pass_at_length(long_case):
+    split, _ = long_case
+    assert split["within_tolerance"], split
+    # not vacuous: the largest error takes a fair share of its limit
+    assert max(split[g]["max_err_ratio"] for g in ("dq", "dk", "dv")) > 0.25
+
+
+def test_single_rounded_p_and_ds_fail_the_card_check(long_case):
+    """P and dS rounded once to bf16 err by up to 2^-9 of the sum of
+    |terms|, past the limit of gradients near zero: that is why the
+    kernel keeps their low halves."""
+    split, single = long_case
+    assert not single["within_tolerance"], single
+    worst = max(single[g]["max_err_ratio"] for g in ("dq", "dk", "dv"))
+    assert worst > 2.0, single
+
+
+# ------------------------------------------------ the log-sum-exp --
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_lse_matches_reference_logsumexp(causal):
+    """The plain forward's base-2 log-sum-exp against ``jax.nn.logsumexp``
+    of the reference oracle's scaled, masked f32 scores (K/V expanded)."""
+    B, H, Hkv, S, D = 2, 4, 2, 45, 16
+    q, k, v, _ = _inputs(B, H, Hkv, S, D, seed=7, dtype=torch.float32)
+    _, lse = flash_attention_plain(q, k, v, causal, return_lse=True)
+    qj = jnp.asarray(q.numpy())
+    kj = jnp.asarray(k.repeat_interleave(H // Hkv, 1).numpy())
+    scores = jnp.einsum("bhsd,bhtd->bhst", qj, kj,
+                        preferred_element_type=jnp.float32) / math.sqrt(D)
+    if causal:
+        mask = jnp.arange(S)[:, None] >= jnp.arange(S)[None, :]
+        scores = jnp.where(mask[None, None], scores, -1e30)
+    want = np.asarray(jax.nn.logsumexp(scores, axis=-1)) * LOG2E
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_function_saves_output_and_lse_and_takes_the_plain_backward():
+    """On CPU tensors the ``Function``'s gradient is the plain backward
+    with delta from the saved output, which equals autograd of the plain
+    forward within f32 rounding."""
+    q, k, v, do = _inputs(1, 4, 2, 33, 16, seed=9, dtype=torch.float32)
+    live = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention_differentiable(*live, True),
+                              live, do)
+    out = flash_attention_plain(q, k, v, True)
+    plain = flash_attention_backward_plain(q, k, v, do, True, out=out)
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(*ref, True), ref, do)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-5 * max(1.0, float(w.abs().max()))
+
+
+# -------------------------------------------------------- the routes --
+@pytest.mark.parametrize("head_dim", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_route_rule(dtype, head_dim):
+    """bf16 at D 64 and 128 takes the tensor-core route; f32 at every D
+    and bf16 at D 8, 16, 32 the scalar one; choosing launches nothing."""
+    want = (FLASH_ATTENTION_BACKWARD_MMA
+            if dtype == torch.bfloat16 and head_dim in (64, 128)
+            else FLASH_ATTENTION_BACKWARD)
+    assert flash_backward_route(dtype, head_dim) is want
+    assert want.launches == 0
+    assert want.replaces == "src/repro/kernels/flash_attention/kernel.py:73"
+    assert (ROOT / want.source).is_file()
+
+
+C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+           "int": ctypes.c_int, "long long": ctypes.c_longlong,
+           "float": ctypes.c_float}
+
+
+def _c_signature(source: Path, symbol: str) -> list:
+    """The parameter types of ``extern "C" int symbol(...)`` in
+    ``source``, the trailing stream dropped."""
+    text = source.read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", text,
+                  re.S)
+    assert m, symbol
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    types = [C_TYPES[re.sub(r"\s*\w+$", "", p).replace(" *", "*")]
+             for p in params]
+    assert params[-1] == "void* stream", params[-1]
+    return types[:-1]
+
+
+@pytest.mark.parametrize("kernel", [
+    FLASH_ATTENTION, FLASH_ATTENTION_WGMMA, FLASH_ATTENTION_BACKWARD,
+    FLASH_ATTENTION_BACKWARD_MMA], ids=lambda k: k.symbol)
+def test_argtypes_match_the_c_signature(kernel):
+    assert kernel.argtypes == _c_signature(ROOT / kernel.source,
+                                           kernel.symbol)
+
+
+# ------------------------------------- chip_smoke's backward check --
+def _group_share(q, k, v, out, do, causal, head):
+    """dk's share from query ``head`` alone (the others' dO zeroed)."""
+    only = torch.zeros_like(do)
+    only[:, head] = do[:, head]
+    return flash_attention_backward_plain(q, k, v, only, causal,
+                                          out=out)[1].float()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_check_flags_a_wrong_backward(dtype):
+    """``chip_smoke.backward_check`` passes the plain backward against
+    itself and fails dq scaled by 1.05, and dk missing one query head's
+    share of its group."""
+    cs = _chip_smoke()
+    q, k, v, do = _inputs(1, 4, 1, 70, 16, seed=11, dtype=dtype)
+    out = flash_attention_plain(q, k, v, True)
+    dq, dk, dv = flash_attention_backward_plain(q, k, v, do, True, out=out)
+    assert cs.backward_check((dq, dk, dv), (dq, dk, dv))["within_tolerance"]
+    bad_q = cs.backward_check(((dq.float() * 1.05).to(dtype), dk, dv),
+                              (dq, dk, dv))
+    assert not bad_q["within_tolerance"]
+    assert not bad_q["dq"]["within_tolerance"]
+    assert bad_q["dk"]["within_tolerance"] and bad_q["dv"]["within_tolerance"]
+    short = (dk.float() - _group_share(q, k, v, out, do, True, 2)).to(dtype)
+    bad_k = cs.backward_check((dq, short, dv), (dq, dk, dv))
+    assert not bad_k["within_tolerance"]
+    assert not bad_k["dk"]["within_tolerance"]
