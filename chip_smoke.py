@@ -995,6 +995,38 @@ def profiler_ms(fn: Callable[[], object], match: Optional[str] = None,
     return None
 
 
+# the wgmma backward's three kernels, by the names the profiler gives
+# them: the row pass, dK/dV and dQ
+BACKWARD_KERNEL_NAMES = ("row_pass_kernel", "dkdv_wgmma_kernel",
+                         "dq_wgmma_kernel")
+
+
+def kernel_device_ms(fn: Callable[[], object], names: Sequence[str],
+                     reps: int = 5) -> Optional[Dict[str, float]]:
+    """The mean device time a call of ``fn`` spends in the kernels whose
+    names hold each of ``names`` (``torch.profiler`` over ``reps``
+    calls), by name; a profile that returns no device activity is taken
+    again, up to three times; then None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.self_device_time_total)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        if kernels:
+            return {name: sum(us for key, us in kernels if name in key)
+                    / reps / 1e3 for name in names}
+    return None
+
+
 def leb128_bytes(values: np.ndarray) -> np.ndarray:
     """The LEB128 encoding of uint64 ``values``, as one uint8 stream."""
     v = np.asarray(values, dtype=np.uint64)
@@ -3022,6 +3054,9 @@ def flash_backward_case(B: int, H: int, Hkv: int, S: int, D: int, dtype,
         case["bit_identical_rerun"] = all(
             torch.equal(a, b) for a, b in zip(got, again))
         del again
+        case["kernels_ms"] = kernel_device_ms(
+            lambda: run_backward(kernel, q, k, v, out, lse, do, causal),
+            BACKWARD_KERNEL_NAMES)
     del got
     ke = k.repeat_interleave(H // Hkv, dim=1).detach().requires_grad_(True)
     ve = v.repeat_interleave(H // Hkv, dim=1).detach().requires_grad_(True)
@@ -3053,18 +3088,22 @@ def flash_backward_case(B: int, H: int, Hkv: int, S: int, D: int, dtype,
 
 def flash_backward_cases(lm_shape: tuple, device) -> Dict[str, dict]:
     """The backward kernel on both routes against the plain backward: the
-    tensor-core route at the lm train microbatch ``lm_shape`` (granite:
-    B 2, 32 heads over 8, S 4,096, D 64) on (B, S, H, D) views, also run
-    twice for bit identity; at D 128 (16 heads over 16, S 1,023) and at
-    ragged S 1, 37 and 129 non-causal; the scalar route in f32 at D 8 and
-    16 (the REDUCED configs' widths) and 64 (granite's heads, S 1,024),
-    and in bf16 at D 16."""
+    wgmma route at the lm train microbatch ``lm_shape`` (granite: B 2, 32
+    heads over 8, S 4,096, D 64) on (B, S, H, D) views, also run twice for
+    bit identity and profiled for its three kernels' device times; at D
+    128 (16 heads over 16, S 1,023), at qwen3's GQA at D 128 (64 heads
+    over 4, S 980, the forward's row), ragged causal at D 64 (32 over 8, S
+    1,000) and at ragged S 1, 37 and 129 non-causal; the scalar route in
+    f32 at D 8 and 16 (the REDUCED configs' widths) and 64 (granite's
+    heads, S 1,024), and in bf16 at D 16."""
     gen = torch.Generator(device=device).manual_seed(48)
     bf, f32 = torch.bfloat16, torch.float32
     _, H, Hkv, _, D = lm_shape
     cases = {  # name: (B, H, Hkv, S, D), dtype, causal, views, repeat
         "lm_train_bf16": (lm_shape, bf, True, True, True),
         "d128_bf16": ((1, 16, 16, 1023, 128), bf, True, False, False),
+        "qwen3_d128_bf16": ((1, 64, 4, 980, 128), bf, True, False, False),
+        "s1000_bf16": ((1, H, Hkv, 1000, D), bf, True, False, False),
         "s1_bf16": ((1, H, Hkv, 1, D), bf, False, False, False),
         "s37_bf16": ((1, H, Hkv, 37, D), bf, False, False, False),
         "s129_bf16": ((1, H, Hkv, 129, D), bf, False, False, False),
@@ -3239,11 +3278,12 @@ def lm_train_phase(device, kernels) -> dict:
         "flash_attention_wgmma": (2 * cfg.n_layers * mb * n_steps,
                                   f"forward and remat recompute: 2 x "
                                   f"{per_step}"),
-        "flash_attention_backward_mma": (cfg.n_layers * mb * n_steps,
-                                         f"one backward a layer and "
-                                         f"microbatch: {per_step}"),
+        "flash_attention_backward_wgmma": (cfg.n_layers * mb * n_steps,
+                                           f"one backward a layer and "
+                                           f"microbatch: {per_step}"),
         "flash_attention": (0, "bf16 at D 64 takes the wgmma route"),
-        "flash_attention_backward": (0, "bf16 at D 64 takes the mma route"),
+        "flash_attention_backward": (0, "bf16 at D 64 takes the wgmma "
+                                     "route"),
         "paged_attention": (0, "no decode in training"),
     }
     for name, (n, why) in expect.items():
@@ -3258,8 +3298,7 @@ def lm_train_phase(device, kernels) -> dict:
         trainer, get,
         ranges={"adamw_update": (trainer_mod, "adamw_update")},
         forward=("flash_forward", "flash_attention"),
-        named={"flash_backward": ("delta_kernel", "dkdv_mma_kernel",
-                                  "dq_mma_kernel")})
+        named={"flash_backward": BACKWARD_KERNEL_NAMES})
     split_s["profile"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     grads = tree_map(torch.zeros_like, trainer.params)
@@ -3436,7 +3475,7 @@ def mesh_phase(device, kernels) -> dict:
                 "n_params_differing": len(differ),
                 "step_peak_ratio": ratio, "launches": launches,
                 "expected_flash_wgmma_launches": expect,
-                "expected_flash_backward_mma_launches": expect_bwd})
+                "expected_flash_backward_wgmma_launches": expect_bwd})
             if not same_loss or differ:
                 failures.append(
                     f"mesh: the one-rank mesh step differs from the unsharded "
@@ -3451,10 +3490,10 @@ def mesh_phase(device, kernels) -> dict:
                     f"mesh: flash_attention_wgmma launched "
                     f"{launches.get('flash_attention_wgmma')} times in the "
                     f"mesh step, {expect} expected")
-            if launches.get("flash_attention_backward_mma") != expect_bwd:
+            if launches.get("flash_attention_backward_wgmma") != expect_bwd:
                 failures.append(
-                    f"mesh: flash_attention_backward_mma launched "
-                    f"{launches.get('flash_attention_backward_mma')} times "
+                    f"mesh: flash_attention_backward_wgmma launched "
+                    f"{launches.get('flash_attention_backward_wgmma')} times "
                     f"in the mesh step, {expect_bwd} expected (one a layer "
                     f"and microbatch: {cfg.n_layers} x {mb})")
             del mesh_tr, plain_params, batch
@@ -3877,7 +3916,7 @@ def main(argv: Sequence[str] = ()) -> int:
     from repro_torch.kernels.flash_attention.kernel import (
         FLASH_ATTENTION,
         FLASH_ATTENTION_BACKWARD,
-        FLASH_ATTENTION_BACKWARD_MMA,
+        FLASH_ATTENTION_BACKWARD_WGMMA,
         FLASH_ATTENTION_WGMMA,
     )
     from repro_torch.kernels.intersect.kernel import SORTED_MEMBER_MASK
@@ -3890,7 +3929,8 @@ def main(argv: Sequence[str] = ()) -> int:
     device = torch.device("cuda")
     kernels = (VARINT_DECODE, SORTED_MEMBER_MASK)
     serve_kernels = (FLASH_ATTENTION_WGMMA, FLASH_ATTENTION, PAGED_ATTENTION)
-    backward_kernels = (FLASH_ATTENTION_BACKWARD_MMA, FLASH_ATTENTION_BACKWARD)
+    backward_kernels = (FLASH_ATTENTION_BACKWARD_WGMMA,
+                        FLASH_ATTENTION_BACKWARD)
     train_kernels = serve_kernels + backward_kernels
     # the case each serve kernel's row of the kernels line shows: the
     # scalar flash kernel serves f32 (the parity phase), the others bf16
@@ -4048,7 +4088,7 @@ def main(argv: Sequence[str] = ()) -> int:
                for k in train_kernels}
     # the backward rows show the lm train microbatch (tensor cores) and
     # REDUCED Moonshot's width in f32 (scalar)
-    backward_row = {FLASH_ATTENTION_BACKWARD_MMA.symbol: "lm_train_bf16",
+    backward_row = {FLASH_ATTENTION_BACKWARD_WGMMA.symbol: "lm_train_bf16",
                     FLASH_ATTENTION_BACKWARD.symbol: "d16_f32"}
     # the search path's own launch: a decoded chunk, a join round
     search_case = {VARINT_DECODE.symbol: "search",
@@ -4104,9 +4144,9 @@ def main(argv: Sequence[str] = ()) -> int:
             "within_tolerance": all(
                 c["within_tolerance"] for c in lm["backward"].values()
                 if c["kernel"] == k.symbol),
-            **({"bit_identical_rerun": lm["backward"]["lm_train_bf16"][
-                "bit_identical_rerun"]}
-               if k is FLASH_ATTENTION_BACKWARD_MMA else {}),
+            **({key: lm["backward"]["lm_train_bf16"][key]
+                for key in ("bit_identical_rerun", "kernels_ms")}
+               if k is FLASH_ATTENTION_BACKWARD_WGMMA else {}),
         }
         for k in backward_kernels
     ] + [

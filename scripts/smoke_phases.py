@@ -84,7 +84,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention.kernel import (
         FLASH_ATTENTION,
         FLASH_ATTENTION_BACKWARD,
-        FLASH_ATTENTION_BACKWARD_MMA,
+        FLASH_ATTENTION_BACKWARD_WGMMA,
         FLASH_ATTENTION_WGMMA,
     )
     from repro_torch.kernels.intersect.kernel import SORTED_MEMBER_MASK
@@ -95,7 +95,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     kernels = (FLASH_ATTENTION_WGMMA, FLASH_ATTENTION, PAGED_ATTENTION,
-               FLASH_ATTENTION_BACKWARD_MMA, FLASH_ATTENTION_BACKWARD)
+               FLASH_ATTENTION_BACKWARD_WGMMA, FLASH_ATTENTION_BACKWARD)
     t0 = time.perf_counter()
     cuda_lib.build()
     cs.log(f"build: {time.perf_counter() - t0:.1f} s")

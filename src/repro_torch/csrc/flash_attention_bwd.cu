@@ -1,77 +1,93 @@
-// flash_attention_backward(_mma): the gradient of flash attention,
+// flash_attention_backward(_wgmma): the gradient of flash attention,
 // (dq, dk, dv) of o[b,h] = softmax(q[b,h] k[b,h/G]^T / sqrt(D)) v[b,h/G],
 // causal or not, from the saved q, k, v, output o, the forward's base-2
 // log-sum-exp lse and the output's gradient dO.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention_kernel
-// (Pallas, TPU) under autograd: the reference has no backward kernel and
-// differentiates its jnp attention with jax.grad.  The port launches its
-// forward kernels under an autograd.Function, and this file is that
-// Function's backward on the card (kernels/flash_attention/kernel.py::
-// run_backward), in place of the plain PyTorch backward, which stays for
-// CPU tensors.
-//
-// Each entry point launches three kernels on the caller's stream:
-//  (a) a row pass, delta_i = sum_d dO_id o_id in f32, from the saved
-//      output.  The plain version takes delta from the same saved output
-//      when it is given one (ref.py::flash_attention_backward_plain), so
-//      the card's check compares like with like; in f32, where the CPU
-//      tests hold the plain backward to jax.grad, the saved output is the
-//      recomputed one.  The other way, delta = sum_j P_ij dP_ij on a pass
-//      of its own over the keys, would cost two more products a pair.
-//  (b) dK/dV: one block per (b, KV head, 64-key tile).  It loops over the
-//      G query heads of its group and over the query tiles at or below
-//      the diagonal, recomputes P^T = exp2(s c - lse) (c = log2(e) /
-//      sqrt(D)) and dS^T = P^T o (dP^T - delta), and sums dV += P^T dO
-//      and dK += dS^T Q in registers: the GQA sum over the group needs no
-//      atomics.
-//  (c) dQ: one block per (b, head, 64-query tile), over the key tiles up
-//      to the diagonal: it recomputes S and dP, and sums dQ += dS K.
-// Each of dq, dk and dv is written once, in the operands' dtype, by one
-// thread in a fixed order of sums: no float atomics, so two calls on the
-// same inputs give the same bits (a one-rank mesh step is held bit for bit
-// to the unsharded one).
+// (Pallas, TPU) under autograd: this is that kernel's gradient, which the
+// reference takes with jax.grad of its jnp attention (it has no backward
+// kernel).  The port launches its forward kernels under an
+// autograd.Function, and this file is that Function's backward on the card
+// (kernels/flash_attention/kernel.py::run_backward); the plain PyTorch
+// backward stays for CPU tensors.
 //
 // Bound on an H100: operations.  Five products of 2 D flops a (query,
-// key) pair and head (q k^T and dO v^T again, P^T dO, dS^T q, dS k):
-// 10 B H D S (S + 1) / 2 flops over 989 TFLOP/s at causal prefill
-// lengths, against q, k, v, o, dO read and dq, dk, dv written once over
-// 3.35 TB/s.
+// key) pair and head -- S = q k^T and dP = dO v^T recomputed, dV += P^T dO,
+// dK += dS^T q, dQ += dS k -- so 10 B H D S (S + 1) / 2 flops over 989
+// TFLOP/s at causal prefill lengths, against q, k, v, o, dO read and dq,
+// dk, dv written once over 3.35 TB/s (at granite's training shape the
+// tensor work is 0.35 ms, the bytes 0.025 ms).
 //
-// The bf16 route (D 64 and 128; flash_attention_backward_mma) runs the
-// products on the tensor cores with mma.sync.m16n8k16 (bf16 in, f32
-// accumulate).  Tiles are staged by cp.async (double-buffered where they
-// stream) into shared memory rows padded by 16 bytes, so ldmatrix is free
-// of bank conflicts; ldmatrix and ldmatrix.trans read one staged tile of Q,
-// K, V or dO in either orientation, which the five products need (P^T and
-// dS^T are A operands made from the f32 accumulators in registers).  Why
-// not wgmma: P^T and dS^T as A operands and four operands in both
-// orientations; mma.sync reaches all of them from one tile.  P and dS go
-// through their products as bf16 hi + lo pairs into one f32 accumulator,
-// as the forward's P V does: rounded once to bf16 they err by 2^-9 of the
-// sum of |terms|, which outputs near zero cannot absorb.  That makes ten
-// products where the bound counts five.  Each streamed tile's share of dK,
-// dV or dQ is summed on the tensor cores from zero and added to the
-// running sum in f32 (promote, below): summed straight on the tensor
-// cores, the running sums lost too many low bits.
+// The kernel runs ten products where the bound counts five: S and dP are
+// recomputed in both (b) and (c) below, and P and dS go through their
+// three products as bf16 hi + lo pairs (hi = bf16(x), lo = bf16(x - hi)),
+// as the forward's P V does.  Rounded once to bf16 they err by 2^-9 of
+// the sum of |terms|, which gradients near zero cannot absorb (the CPU
+// emulation in tests/test_torch_flash_backward.py fails the card's check
+// that way).  Each streamed tile's share of dK, dV or dQ is summed on the
+// tensor cores from zero (scale-d 0 on its first k16 step) and added to
+// the running sum in f32: summed straight on the tensor cores over a
+// whole row of 4,096, the running sums lost low bits past the check.
+//
+// Each entry point launches three kernels on the caller's stream; each of
+// dq, dk and dv is written once, in the operands' dtype, in a fixed order
+// of sums: no float atomics, so two calls on the same inputs give the same
+// bits (a one-rank mesh step is held bit for bit to the unsharded one).
+//
+// The bf16 route (D 64 and 128; flash_attention_backward_wgmma), built on
+// hopper.cuh as the forward is:
+//  (a) a row pass, delta_i = sum_d dO_id o_id in f32 from the saved
+//      output (the plain version takes delta from it too, so the card's
+//      check compares like with like): 8 lanes a row, 16-byte loads, the
+//      lanes' sums met by shuffles.  It writes delta and a copy of lse in
+//      rows padded to a multiple of 128 (0 and +inf past S, so padded
+//      queries give P = 0 with no mask), which (b) and (c) copy in bulk.
+//  (b) dK/dV: one block per (b, KV head, 128-key tile), the longest causal
+//      tiles first.  Warpgroups 0 and 1 each own 64 keys; a ninth warp is
+//      the producer, one of its threads issuing every copy up to kStages
+//      tiles ahead.  K and V are copied once; the Q and dO tiles of the
+//      group's G query heads (64 rows at D 64, 32 at D 128) stream through
+//      a 4-stage ring of shared memory guarded by mbarrier full/empty
+//      pairs, with their lse and delta rows beside them.  Query tiles
+//      wholly above the diagonal are never loaded, and a warpgroup skips a
+//      tile wholly above its own keys.  TMA reads every tile through 4-d
+//      tensor maps built from the operands' strides, so (B, S, H, D) views
+//      are read in place, with the 128-byte swizzle the descriptors name.
+//      S^T = K Q^T and dP^T = V dO^T are wgmma with both operands in
+//      shared memory (K-major), in two commit groups so that P^T =
+//      exp2(S^T c - lse) is formed while dP^T runs; dS^T = P^T o (dP^T -
+//      delta) follows in the f32 accumulator fragments, whose layout is
+//      the register A fragment's; dV += P^T dO and dK += dS^T Q are wgmma
+//      with A from registers (hi, lo) and B read MN-major from the same
+//      swizzled Q and dO tiles.  The GQA sum over the group stays in
+//      registers.  Nine warps leave 168 registers a thread (three warps
+//      share a quarter of the SM's registers).
+//  (c) dQ: one block per (b, head, 128-query tile), the same shape with Q
+//      and dO copied once and 64-key tiles of K and V streamed up to the
+//      diagonal: S = Q K^T and dP = dO V^T from shared memory, dQ += dS K
+//      with dS as (hi, lo) register fragments and K read MN-major.  Its
+//      eight warps have no producer warp: thread 0 also refills the ring,
+//      kLag tiles behind.  Each kernel's producer is the one that measured
+//      faster for it on an H100 (PERF.md §6).
+// P is exp2 on the special-function unit (ex2.approx.ftz), its
+// subnormal results flushed to zero.
 //
 // The scalar route (f32 at any D, bf16 at D 8 to 32;
-// flash_attention_backward) is the same three steps on f32 FMAs: four
-// threads a row, each a quarter of D, the dot products summed across the
-// quad.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
+// flash_attention_backward) is the same three steps on f32 FMAs: one
+// thread a row in the row pass, then four threads a row, each a quarter of
+// D, the dot products summed across the quad.
 #include <cmath>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kRows = 64;   // rows a block owns: keys in (b), queries in (c)
+constexpr int kRows = 64;   // scalar route: rows a block owns
 
-struct Strides {
-  long long b, h, s;  // elements; D is contiguous
+struct AllStrides {
+  Strides q, k, v, dout, dq, dk, dv;
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -83,7 +99,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// ------------------------------------------------------------ (a) row pass
+// ------------------------------------------------- (a) scalar row pass
 // One thread a (b, h, s) row; delta is (B, H, S) contiguous.
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -103,441 +119,450 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   delta[row] = acc;
 }
 
-// ----------------------------------------------------- bf16: mma.sync route
-constexpr int kMmaThreads = 128;   // 4 warps, 16 owned rows each
+// ------------------------------------------------------ bf16: wgmma route
+constexpr int kOwn = 128;        // rows a block owns: keys in (b), queries in (c)
+constexpr int kHalf = 64;        // rows a consumer warpgroup owns
+constexpr int kStages = 4;       // ring depth of the streamed tiles
+constexpr int kConsumers = 256;  // 2 consumer warpgroups
+constexpr int kLag = 2;          // (c): tiles between a stage's release and
+                                 // its refill by thread 0
+constexpr int kRowLanes = 8;     // row pass: lanes a row
 
+// The row length of the row pass's lse and delta copies: S rounded up to
+// the owned tiles, so every streamed tile's rows lie inside.
+__host__ __device__ constexpr int padded(int S) {
+  return (S + kOwn - 1) / kOwn * kOwn;
+}
+
+// Rows of a streamed tile: queries in (b), 64 at D 64 and 32 at D 128
+// (dK and dV take all of a thread's registers at D 128); keys in (c).
 template <int D>
-struct Mma {
-  static constexpr int kP = D + 8;                // padded row, bf16
-  static constexpr int kN = D == 64 ? 64 : 32;    // rows of a streamed tile
-  static constexpr int kBytes = (2 * kRows + 4 * kN) * kP * 2;
+constexpr int kQueryTile = D == 64 ? 64 : 32;
+constexpr int kKeyTile = 64;
+
+template <int D, int N>
+struct Wg {  // byte offsets from the 1024-aligned shared base
+  static constexpr int kSub = D / kBox;              // boxes across D
+  static constexpr int kN = N;                       // rows of a streamed tile
+  static constexpr int kOwnSub = kOwn * kSwizzleRow;  // a box column, owned
+  static constexpr int kOwnTile = kSub * kOwnSub;
+  static constexpr int kBoxBytes = kN * kSwizzleRow;  // a box column, streamed
+  static constexpr int kTile = kSub * kBoxBytes;
+  static constexpr int kA = 0;             // K in (b), Q in (c)
+  static constexpr int kB = kOwnTile;      // V in (b), dO in (c)
+  static constexpr int kRing = 2 * kOwnTile;  // a stage: Q, dO or K, V
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kLse = kRing + kStages * kStage;  // a stage: lse, delta
+  static constexpr int kLseStage = 2 * kN * 4;
+  static constexpr int kBytes = kLse + kStages * kLseStage;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; 0 bytes read (zeros written) when !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// d(16 x 8) += a(16 x 16, row) b(16 x 8, col); bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) as a bf16 pair hi = bf16(x, y) and lo = bf16 of the remainder.
-__device__ __forceinline__ void split(float x, float y, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-// The A fragments (hi, lo) of a 16 x 16 chunk from the f32 C fragments of
-// its two 8-column halves: the m16n8 C layout is the A layout of k16.
-__device__ __forceinline__ void a_of_c(const float (&c0)[4],
-                                       const float (&c1)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-  split(c0[0], c0[1], hi[0], lo[0]);
-  split(c0[2], c0[3], hi[1], lo[1]);
-  split(c1[0], c1[1], hi[2], lo[2]);
-  split(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// acc += part, in f32 on the CUDA cores.  An mma adds its k16 products to
-// its accumulator in fewer bits than an f32 add keeps: summed straight into
-// dK and dV over a whole key's row (thousands of mmas at S 4,096), that
-// loss put gradients near zero, whose terms sum to far more than they do,
-// past the card's check (1.7 and 3.5 times its limit at granite's
-// training shape on an H100).  So each tile's share starts from zero and
-// is promoted here.
-__device__ __forceinline__ void promote(float (&acc)[4],
-                                        const float (&part)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += part[e];
-}
-
-// Copy rows [row0, row0 + n) of one head (D contiguous, row stride `rs`)
-// into shared memory at pitch Mma<D>::kP; rows past S arrive as zeros.
+// (a) bf16 row pass: kRowLanes lanes a row of the padded (B, H, Sp)
+// layout, each reading D / kRowLanes values of o and dO in 16-byte loads.
+// Writes delta and lse's copy there: rows past S get 0 and +inf.
 template <int D>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst,
-                                      const __nv_bfloat16* src, long long rs,
-                                      int row0, int n, int S) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < n * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool ok = row0 + r < S;
-    const __nv_bfloat16* from = ok ? src + (row0 + r) * rs + c * 8 : src;
-    cp_async16(smem_u32(dst + r * Mma<D>::kP + c * 8), from, ok);
-  }
-}
-
-// Shared-memory addresses, per lane, of the ldmatrix.x4 loads of a
-// 16 x 16 chunk at (row0, col0) of a tile of pitch kP:
-//  * a_addr: an A fragment of a row-major [m][k] tile;
-//  * b_addr: the B fragments (b0, b1) of two 8-wide n tiles from an
-//    [n][k] tile (k contiguous): regs 0-1 n tile 0, 2-3 n tile 1;
-//  * bt_addr: the same from a [k][n] tile (n contiguous), with .trans.
-template <int kP>
-__device__ __forceinline__ uint32_t a_addr(uint32_t base, int row0, int col0,
-                                           int lane) {
-  return base + ((row0 + (lane & 15)) * kP + col0 + (lane >> 4) * 8) * 2;
-}
-template <int kP>
-__device__ __forceinline__ uint32_t b_addr(uint32_t base, int n0, int k0,
-                                           int lane) {
-  return base +
-         ((n0 + (lane & 7) + ((lane >> 4) << 3)) * kP + k0 +
-          ((lane >> 3) & 1) * 8) * 2;
-}
-template <int kP>
-__device__ __forceinline__ uint32_t bt_addr(uint32_t base, int k0, int n0,
-                                            int lane) {
-  return base +
-         ((k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kP + n0 +
-          (lane >> 4) * 8) * 2;
-}
-
-// Store a warp's 16 x D f32 accumulator, times `mul`, as bf16 rows
-// row0 + g and row0 + g + 8 (those below S).
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long rs,
-                                           const float (&acc)[D / 8][4],
-                                           int row0, int S, float mul,
-                                           int lane) {
-  const int g = lane / 4, tig = lane % 4;
+__global__ void __launch_bounds__(256)
+row_pass_kernel(const __nv_bfloat16* __restrict__ o,
+                const __nv_bfloat16* __restrict__ dout,
+                const float* __restrict__ lse, float* __restrict__ lse_pad,
+                float* __restrict__ delta_pad, int H, int S, int Sp,
+                long long rows, Strides so, Strides sdo) {
+  constexpr int kLoads = D / (8 * kRowLanes);  // 16-byte loads a lane
+  const long long row = (blockIdx.x * 256LL + threadIdx.x) / kRowLanes;
+  const int part = threadIdx.x % kRowLanes;
+  const long long bh = row / Sp;
+  const int s = static_cast<int>(row % Sp);
+  const bool live = row < rows && s < S;
+  float acc = 0.f;
+  if (live) {
+    const long long b = bh / H;
+    const int h = static_cast<int>(bh % H);
+    const uint4* orow = reinterpret_cast<const uint4*>(
+        o + b * so.b + h * so.h + s * so.s);
+    const uint4* drow = reinterpret_cast<const uint4*>(
+        dout + b * sdo.b + h * sdo.h + s * sdo.s);
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int row = row0 + g + 8 * j;
-    if (row >= S) continue;
-    __nv_bfloat16* out = base + row * rs;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<__nv_bfloat162*>(out + nd * 8 + 2 * tig) =
-          __floats2bfloat162_rn(acc[nd][2 * j] * mul,
-                                acc[nd][2 * j + 1] * mul);
-  }
-}
-
-struct Ptrs {
-  const __nv_bfloat16 *q, *k, *v, *dout;
-  const float *lse, *delta;
-  __nv_bfloat16 *dq, *dk, *dv;
-};
-
-struct AllStrides {
-  Strides q, k, v, dout, dq, dk, dv;
-};
-
-// (b) dK and dV of one (b, KV head, 64-key tile).  Warp w owns keys
-// k0 + 16 w .. + 15; the query tiles (kN rows) of the G heads stream
-// through a 2-stage ring.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-dkdv_mma_kernel(Ptrs p, AllStrides st, int H, int Hkv, int S, int causal,
-                float c, float scale) {
-  using M = Mma<D>;
-  constexpr int kP = M::kP, kN = M::kN;
-  extern __shared__ __align__(16) uint8_t sm_raw[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(sm_raw);
-  __nv_bfloat16* ks = sm;
-  __nv_bfloat16* vs = ks + kRows * kP;
-  __nv_bfloat16* qs = vs + kRows * kP;   // [2][kN][kP]
-  __nv_bfloat16* dos = qs + 2 * kN * kP;  // [2][kN][kP]
-
-  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
-  const int group = H / Hkv;
-  const int k0 = blockIdx.y * kRows;  // causal: the longest tiles first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
-
-  stage<D>(ks, p.k + b * st.k.b + hk * st.k.h, st.k.s, k0, kRows, S);
-  stage<D>(vs, p.v + b * st.v.b + hk * st.v.h, st.v.s, k0, kRows, S);
-  const int qt0 = causal ? k0 / kN : 0;
-  const int nq = (S + kN - 1) / kN - qt0;  // query tiles a head
-  const int n_iter = group * nq;
-  auto load = [&](int it, int buf) {
-    const int h = hk * group + it / nq;
-    const int q0 = (qt0 + it % nq) * kN;
-    stage<D>(qs + buf * kN * kP, p.q + b * st.q.b + h * st.q.h, st.q.s, q0,
-             kN, S);
-    stage<D>(dos + buf * kN * kP, p.dout + b * st.dout.b + h * st.dout.h,
-             st.dout.s, q0, kN, S);
-  };
-  load(0, 0);
-  cp_async_commit();
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
-  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
-  const uint32_t ka = smem_u32(ks), va = smem_u32(vs);
-
-  for (int it = 0; it < n_iter; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_iter) {
-      load(it + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int h = hk * group + it / nq;
-    const int q0 = (qt0 + it % nq) * kN;
-    const long long bh = static_cast<long long>(b) * H + h;
-    // lse and delta of this thread's query columns; rows past S give p = 0
-    float lc[kN / 8][2], dc[kN / 8][2];
-#pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = q0 + nt * 8 + 2 * tig + j;
-        lc[nt][j] = col < S ? p.lse[bh * S + col] : INFINITY;
-        dc[nt][j] = col < S ? p.delta[bh * S + col] : 0.f;
-      }
-    const uint32_t qa = smem_u32(qs + buf * kN * kP);
-    const uint32_t da = smem_u32(dos + buf * kN * kP);
-
-    // S^T = K Q^T and dP^T = V dO^T, 16 keys x kN queries a warp
-    float s[kN / 8][4], dp[kN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t af[4], vf[4];
-      ldsm(af, a_addr<kP>(ka, warp * 16, kk * 16, lane));
-      ldsm(vf, a_addr<kP>(va, warp * 16, kk * 16, lane));
-#pragma unroll
-      for (int n2 = 0; n2 < kN / 16; ++n2) {
-        uint32_t bq[4], bd[4];
-        ldsm(bq, b_addr<kP>(qa, n2 * 16, kk * 16, lane));
-        ldsm(bd, b_addr<kP>(da, n2 * 16, kk * 16, lane));
-        mma(s[2 * n2], af, bq[0], bq[1]);
-        mma(s[2 * n2 + 1], af, bq[2], bq[3]);
-        mma(dp[2 * n2], vf, bd[0], bd[1]);
-        mma(dp[2 * n2 + 1], vf, bd[2], bd[3]);
-      }
-    }
-    // P^T and dS^T = P^T o (dP^T - delta) in place; keys after a query
-    // are masked (keys past S are never stored)
-    const bool diag = causal && k0 + kRows - 1 > q0;
-#pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt)
+    for (int j = 0; j < kLoads; ++j) {
+      uint4 x = __ldg(orow + part + j * kRowLanes);
+      uint4 y = __ldg(drow + part + j * kRowLanes);
+      const __nv_bfloat162* xo = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* yd = reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float pv = exp2f(fmaf(s[nt][e], c, -lc[nt][e & 1]));
-        if (diag && key0 + 8 * (e >> 1) > q0 + nt * 8 + 2 * tig + (e & 1))
-          pv = 0.f;
-        s[nt][e] = pv;
-        dp[nt][e] = pv * (dp[nt][e] - dc[nt][e & 1]);
+        const float2 a = __bfloat1622float2(xo[e]);
+        const float2 g = __bfloat1622float2(yd[e]);
+        acc = fmaf(g.x, a.x, acc);
+        acc = fmaf(g.y, a.y, acc);
       }
-    // dV += P^T dO and dK += dS^T Q, the k dim running over the queries:
-    // each 16-wide column chunk of this tile's share is summed from zero
-    // on the tensor cores, then added to dV and dK in f32 (promote)
-    uint32_t ph[kN / 16][4], pl[kN / 16][4], sh[kN / 16][4], sl[kN / 16][4];
-#pragma unroll
-    for (int kc = 0; kc < kN / 16; ++kc) {
-      a_of_c(s[2 * kc], s[2 * kc + 1], ph[kc], pl[kc]);
-      a_of_c(dp[2 * kc], dp[2 * kc + 1], sh[kc], sl[kc]);
     }
-#pragma unroll
-    for (int n2 = 0; n2 < D / 16; ++n2) {
-      float tv[2][4] = {}, tk[2][4] = {};
-#pragma unroll
-      for (int kc = 0; kc < kN / 16; ++kc) {
-        uint32_t bd[4], bq[4];
-        ldsm_t(bd, bt_addr<kP>(da, kc * 16, n2 * 16, lane));
-        ldsm_t(bq, bt_addr<kP>(qa, kc * 16, n2 * 16, lane));
-        mma(tv[0], ph[kc], bd[0], bd[1]);
-        mma(tv[0], pl[kc], bd[0], bd[1]);
-        mma(tv[1], ph[kc], bd[2], bd[3]);
-        mma(tv[1], pl[kc], bd[2], bd[3]);
-        mma(tk[0], sh[kc], bq[0], bq[1]);
-        mma(tk[0], sl[kc], bq[0], bq[1]);
-        mma(tk[1], sh[kc], bq[2], bq[3]);
-        mma(tk[1], sl[kc], bq[2], bq[3]);
-      }
-      promote(dv[2 * n2], tv[0]);
-      promote(dv[2 * n2 + 1], tv[1]);
-      promote(dk[2 * n2], tk[0]);
-      promote(dk[2 * n2 + 1], tk[1]);
-    }
-    __syncthreads();  // this buffer is read; the next load may refill it
   }
-  store_rows<D>(p.dk + b * st.dk.b + hk * st.dk.h, st.dk.s, dk,
-                k0 + warp * 16, S, scale, lane);
-  store_rows<D>(p.dv + b * st.dv.b + hk * st.dv.h, st.dv.s, dv,
-                k0 + warp * 16, S, 1.f, lane);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  if (part == 0 && row < rows) {
+    delta_pad[row] = acc;
+    lse_pad[row] = live ? lse[bh * S + s] : INFINITY;
+  }
 }
 
-// (c) dQ of one (b, head, 64-query tile).  Warp w owns queries
-// q0 + 16 w .. + 15; the key tiles (kN rows) up to the diagonal stream
-// through a 2-stage ring.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-dq_mma_kernel(Ptrs p, AllStrides st, int H, int Hkv, int S, int causal,
-              float c, float scale) {
-  using M = Mma<D>;
-  constexpr int kP = M::kP, kN = M::kN;
-  extern __shared__ __align__(16) uint8_t sm_raw[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(sm_raw);
-  __nv_bfloat16* qs = sm;
-  __nv_bfloat16* dos = qs + kRows * kP;
-  __nv_bfloat16* ks = dos + kRows * kP;   // [2][kN][kP]
-  __nv_bfloat16* vs = ks + 2 * kN * kP;   // [2][kN][kP]
+// 2^x on the special-function unit, subnormal results flushed to zero: a
+// P below 2^-126 adds nothing a bf16 gradient keeps.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int hk = h / (H / Hkv);
-  // the longest causal rows first, so the tail of the grid is short
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
+// The (hi, lo) register A fragments of the k16 chunks of an f32
+// accumulator x (64 rows x 16 kChunks columns): chunk kc's register q
+// packs x[8 kc + 2 q] and x[8 kc + 2 q + 1].
+template <int kChunks>
+__device__ __forceinline__ void split_fragments(const float (&x)[8 * kChunks],
+                                                uint32_t (&hi)[kChunks][4],
+                                                uint32_t (&lo)[kChunks][4]) {
+#pragma unroll
+  for (int kc = 0; kc < kChunks; ++kc)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      split(x[8 * kc + 2 * q], x[8 * kc + 2 * q + 1], hi[kc][q], lo[kc][q]);
+}
 
-  stage<D>(qs, p.q + b * st.q.b + h * st.q.h, st.q.s, q0, kRows, S);
-  stage<D>(dos, p.dout + b * st.dout.b + h * st.dout.h, st.dout.s, q0, kRows,
-           S);
-  const int all_kt = (S + kN - 1) / kN;
-  const int n_kt = causal ? min(all_kt, (q0 + kRows + kN - 1) / kN) : all_kt;
-  const __nv_bfloat16* kb = p.k + b * st.k.b + hk * st.k.h;
-  const __nv_bfloat16* vb = p.v + b * st.v.b + hk * st.v.h;
-  auto load = [&](int t, int buf) {
-    stage<D>(ks + buf * kN * kP, kb, st.k.s, t * kN, kN, S);
-    stage<D>(vs + buf * kN * kP, vb, st.v.s, t * kN, kN, S);
-  };
-  load(0, 0);
-  cp_async_commit();
+// acc[sub] += a b over one streamed tile: a the (hi, lo) fragments of its
+// kChunks k16 chunks, b box column `sub` of the tile at `tile` (16 kChunks
+// rows, box columns kBoxBytes apart) read MN-major.  Each box column's
+// share is summed from zero on the tensor cores, then added in f32 (the
+// promotion).
+template <int kSub, int kChunks, int kBoxBytes>
+__device__ __forceinline__ void add_share(float (&acc)[kSub][32],
+                                          const uint32_t (&hi)[kChunks][4],
+                                          const uint32_t (&lo)[kChunks][4],
+                                          uint32_t tile) {
+#pragma unroll
+  for (int sub = 0; sub < kSub; ++sub) {
+    float part[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) part[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kChunks; ++kc) {
+      const uint64_t bd =
+          sw128_desc(tile + sub * kBoxBytes + kc * 16 * kSwizzleRow);
+      wgmma_rs(part, hi[kc], bd, kc > 0);
+      wgmma_rs(part, lo[kc], bd, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[sub][i] += part[i];
+  }
+}
 
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const long long bh = static_cast<long long>(b) * H + h;
-  float lr[2], dr[2];
+// Issue S (or S^T) and dP (or dP^T) of one warpgroup's 64 owned rows
+// against a streamed tile, sc = a b^T and dp = da db^T over D, all four
+// K-major in shared memory (a, da owned, box columns kOwnSub apart; b, db
+// streamed, kBoxBytes apart), as two commit groups: after wgmma_wait<1>
+// sc is ready while dp runs on, after wgmma_wait<0> both.
+template <int D, int kN, int kOwnSub, int kBoxBytes>
+__device__ __forceinline__ void issue_scores(float (&sc)[kN / 2],
+                                             float (&dp)[kN / 2], uint32_t a,
+                                             uint32_t b, uint32_t da,
+                                             uint32_t db) {
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) sc[i] = dp[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+    wgmma_ss(sc, sw128_desc(a + (kc / 4) * kOwnSub + (kc % 4) * 32),
+             sw128_desc(b + (kc / 4) * kBoxBytes + (kc % 4) * 32), kc > 0);
+  wgmma_commit();
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+    wgmma_ss(dp, sw128_desc(da + (kc / 4) * kOwnSub + (kc % 4) * 32),
+             sw128_desc(db + (kc / 4) * kBoxBytes + (kc % 4) * 32), kc > 0);
+  wgmma_commit();
+}
+
+// Store a warpgroup's 64 x D f32 accumulator, times `mul`, as bf16 rows
+// row0 and row0 + 8 of this thread (those below S), columns c0, c0 + 1 of
+// each 8-wide chunk.
+template <int kSub>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long rs,
+                                           const float (&acc)[kSub][32],
+                                           int row0, int S, float mul,
+                                           int c0) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int row = row0 + 8 * j;
-    lr[j] = row < S ? p.lse[bh * S + row] : INFINITY;
-    dr[j] = row < S ? p.delta[bh * S + row] : 0.f;
+    if (row >= S) continue;
+    __nv_bfloat16* out = base + row * rs;
+#pragma unroll
+    for (int sub = 0; sub < kSub; ++sub)
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8) {
+        const int i = 4 * n8 + 2 * j;
+        *reinterpret_cast<__nv_bfloat162*>(out + sub * kBox + 8 * n8 + c0) =
+            __floats2bfloat162_rn(acc[sub][i] * mul, acc[sub][i + 1] * mul);
+      }
   }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
-  const uint32_t qa = smem_u32(qs), da = smem_u32(dos);
+}
 
+struct Maps {
+  CUtensorMap q, k, v, dout;  // boxes of 64 x kN
+};
+
+struct WgArgs {
+  const float *lse, *delta;  // (B, H, Sp), from the row pass
+  __nv_bfloat16 *dq, *dk, *dv;
+  Strides sdq, sdk, sdv;
+  int H, Hkv, S, causal;
+  float c, scale;  // c = log2(e) / sqrt(D), scale = 1 / sqrt(D)
+};
+
+__device__ __forceinline__ void init_ring(uint64_t (&full)[kStages],
+                                          uint64_t (&empty)[kStages],
+                                          uint64_t& own) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_addr(&full[s]), 1);
+      mbar_init(smem_addr(&empty[s]), kConsumers);
+    }
+    mbar_init(smem_addr(&own), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// (b) dK and dV of one (b, KV head, 128-key tile).  Warp 8 is the
+// producer: one of its threads issues every copy, up to kStages tiles
+// ahead of the consumers.
+template <int D>
+__global__ void __launch_bounds__(kConsumers + 32, 1)
+dkdv_wgmma_kernel(const __grid_constant__ Maps maps, WgArgs p) {
+  using L = Wg<D, kQueryTile<D>>;
+  constexpr int kSub = L::kSub, kN = L::kN;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], own;
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint8_t* sm = smem_raw + (base - smem_addr(smem_raw));
+
+  const int b = blockIdx.x / p.Hkv, hk = blockIdx.x % p.Hkv;
+  const int group = p.H / p.Hkv;
+  const int k0 = blockIdx.y * kOwn;  // causal: the longest tiles first
+  const int qt0 = p.causal ? k0 / kN : 0;
+  const int nq = (p.S + kN - 1) / kN - qt0;  // query tiles a head
+  const int n_iter = group * nq;
+  init_ring(full, empty, own);
+
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------------------ producer
+    if (threadIdx.x == kConsumers) {
+      const uint32_t obar = smem_addr(&own);
+      mbar_expect_tx(obar, 2 * L::kOwnTile);
+      for (int sub = 0; sub < kSub; ++sub)
+        for (int j = 0; j < kOwn / kN; ++j) {
+          const uint32_t off = sub * L::kOwnSub + j * L::kBoxBytes;
+          tma_load(base + L::kA + off, &maps.k, obar, sub * kBox,
+                   k0 + j * kN, hk, b);
+          tma_load(base + L::kB + off, &maps.v, obar, sub * kBox,
+                   k0 + j * kN, hk, b);
+        }
+      const int Sp = padded(p.S);
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages)
+          mbar_wait(smem_addr(&empty[s]), ((it / kStages) - 1) & 1);
+        const int h = hk * group + it / nq;
+        const int q0 = (qt0 + it % nq) * kN;
+        const uint32_t bar = smem_addr(&full[s]);
+        const uint32_t st = base + L::kRing + s * L::kStage;
+        mbar_expect_tx(bar, L::kStage + L::kLseStage);
+        for (int sub = 0; sub < kSub; ++sub) {
+          tma_load(st + sub * L::kBoxBytes, &maps.q, bar, sub * kBox, q0, h,
+                   b);
+          tma_load(st + L::kTile + sub * L::kBoxBytes, &maps.dout, bar,
+                   sub * kBox, q0, h, b);
+        }
+        const long long row = (static_cast<long long>(b) * p.H + h) * Sp + q0;
+        const uint32_t ls = base + L::kLse + s * L::kLseStage;
+        bulk_load(ls, p.lse + row, kN * 4, bar);
+        bulk_load(ls + kN * 4, p.delta + row, kN * 4, bar);
+      }
+    }
+    return;
+  }
+  // ------------------------------------------------------------- consumers
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int kw0 = k0 + wg * kHalf;  // this warpgroup's first key
+  // this thread's keys (fragment rows): key0 and key0 + 8
+  const int key0 = kw0 + (tid / 32) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);  // its first column of each 8-wide chunk
+  const uint32_t ka = base + L::kA + wg * kHalf * kSwizzleRow;
+  const uint32_t va = base + L::kB + wg * kHalf * kSwizzleRow;
+
+  float dk[kSub][32], dv[kSub][32];
+#pragma unroll
+  for (int sub = 0; sub < kSub; ++sub)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[sub][i] = dv[sub][i] = 0.f;
+
+  mbar_wait(smem_addr(&own), 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kStages;
+    mbar_wait(smem_addr(&full[s]), (it / kStages) & 1);
+    const int q0 = (qt0 + it % nq) * kN;
+    // a tile wholly above this warpgroup's keys adds nothing
+    if (!p.causal || q0 + kN > kw0) {
+      const uint32_t qa = base + L::kRing + s * L::kStage;
+      const uint32_t da = qa + L::kTile;
+      const float* lrow =
+          reinterpret_cast<const float*>(sm + L::kLse + s * L::kLseStage);
+      const float* drow = lrow + kN;
+      float st[kN / 2], dpt[kN / 2];
+      issue_scores<D, kN, L::kOwnSub, L::kBoxBytes>(st, dpt, ka, qa, va, da);
+      // register i: key key0 + 8 ((i / 2) % 2), query q0 + col(i)
+      auto col = [c0](int i) { return 8 * (i / 4) + c0 + (i % 2); };
+      const bool diag = p.causal && kw0 + kHalf - 1 > q0;
+      wgmma_wait<1>();  // S^T is ready; dP^T runs on
+      fence_regs(st);
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) {
+        st[i] = fast_exp2(fmaf(st[i], p.c, -lrow[col(i)]));
+        if (diag && key0 + 8 * ((i / 2) % 2) > q0 + col(i)) st[i] = 0.f;
+      }
+      wgmma_wait<0>();
+      fence_regs(dpt);
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i)
+        dpt[i] = st[i] * (dpt[i] - drow[col(i)]);
+      uint32_t ph[kN / 16][4], pl[kN / 16][4], sh[kN / 16][4], sl[kN / 16][4];
+      split_fragments<kN / 16>(st, ph, pl);
+      split_fragments<kN / 16>(dpt, sh, sl);
+      add_share<kSub, kN / 16, L::kBoxBytes>(dv, ph, pl, da);
+      add_share<kSub, kN / 16, L::kBoxBytes>(dk, sh, sl, qa);
+    }
+    mbar_arrive(smem_addr(&empty[s]));
+  }
+  store_rows<kSub>(p.dk + b * p.sdk.b + hk * p.sdk.h, p.sdk.s, dk, key0, p.S,
+                   p.scale, c0);
+  store_rows<kSub>(p.dv + b * p.sdv.b + hk * p.sdv.h, p.sdv.s, dv, key0, p.S,
+                   1.f, c0);
+}
+
+// (c) dQ of one (b, head, 128-query tile).  Thread 0 is also the
+// producer: at key tile t it refills the stage of tile t - kLag, once both
+// warpgroups are done with it, with tile t - kLag + kStages.
+template <int D>
+__global__ void __launch_bounds__(kConsumers, 1)
+dq_wgmma_kernel(const __grid_constant__ Maps maps, WgArgs p) {
+  using L = Wg<D, kKeyTile>;
+  constexpr int kSub = L::kSub, kN = L::kN;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], own;
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  // the longest causal rows first, so the tail of the grid is short
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;
+  const int n_kt = ((p.causal ? min(p.S, q0 + kOwn) : p.S) + kN - 1) / kN;
+  init_ring(full, empty, own);
+
+  // the producer's copy of key tile t
+  auto issue = [&](int t) {
+    const int s = t % kStages;
+    const uint32_t bar = smem_addr(&full[s]);
+    const uint32_t st = base + L::kRing + s * L::kStage;
+    mbar_expect_tx(bar, L::kStage);
+    for (int sub = 0; sub < kSub; ++sub) {
+      tma_load(st + sub * L::kBoxBytes, &maps.k, bar, sub * kBox, t * kN, hk,
+               b);
+      tma_load(st + L::kTile + sub * L::kBoxBytes, &maps.v, bar, sub * kBox,
+               t * kN, hk, b);
+    }
+  };
+  const bool producer = threadIdx.x == 0;
+  if (producer) {
+    const uint32_t obar = smem_addr(&own);
+    mbar_expect_tx(obar, 2 * L::kOwnTile);
+    for (int sub = 0; sub < kSub; ++sub)
+      for (int j = 0; j < kOwn / kN; ++j) {
+        const uint32_t off = sub * L::kOwnSub + j * L::kBoxBytes;
+        tma_load(base + L::kA + off, &maps.q, obar, sub * kBox, q0 + j * kN,
+                 h, b);
+        tma_load(base + L::kB + off, &maps.dout, obar, sub * kBox,
+                 q0 + j * kN, h, b);
+      }
+    for (int t = 0; t < kStages && t < n_kt; ++t) issue(t);
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int qw0 = q0 + wg * kHalf;  // this warpgroup's first query
+  // this thread's queries (fragment rows): row0 and row0 + 8
+  const int row0 = qw0 + (tid / 32) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const uint32_t qa = base + L::kA + wg * kHalf * kSwizzleRow;
+  const uint32_t da = base + L::kB + wg * kHalf * kSwizzleRow;
+  // padded rows: +inf and 0 past S, so those rows' P is 0
+  const long long bh = static_cast<long long>(b) * p.H + h;
+  const long long pad_row = bh * padded(p.S) + row0;
+  const float lr[2] = {p.lse[pad_row], p.lse[pad_row + 8]};
+  const float dr[2] = {p.delta[pad_row], p.delta[pad_row + 8]};
+
+  float dq[kSub][32];
+#pragma unroll
+  for (int sub = 0; sub < kSub; ++sub)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[sub][i] = 0.f;
+
+  mbar_wait(smem_addr(&own), 0);
   for (int t = 0; t < n_kt; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_kt) {
-      load(t + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    const int j = t - kLag + kStages;
+    if (producer && t >= kLag && j < n_kt) {
+      mbar_wait(smem_addr(&empty[(t - kLag) % kStages]),
+                ((t - kLag) / kStages) & 1);
+      issue(j);
     }
-    __syncthreads();
+    __syncwarp();
+    const int s = t % kStages;
+    mbar_wait(smem_addr(&full[s]), (t / kStages) & 1);
     const int kt0 = t * kN;
-    const uint32_t ka = smem_u32(ks + buf * kN * kP);
-    const uint32_t va = smem_u32(vs + buf * kN * kP);
-
-    // S = Q K^T and dP = dO V^T, 16 queries x kN keys a warp
-    float s[kN / 8][4], dp[kN / 8][4];
+    // a tile wholly after this warpgroup's queries adds nothing
+    if (!p.causal || kt0 <= qw0 + kHalf - 1) {
+      const uint32_t ka = base + L::kRing + s * L::kStage;
+      const uint32_t va = ka + L::kTile;
+      float sc[kN / 2], dp[kN / 2];
+      issue_scores<D, kN, L::kOwnSub, L::kBoxBytes>(sc, dp, qa, ka, da, va);
+      // register i: query row0 + 8 j (j = (i / 2) % 2), key kt0 + col;
+      // keys past S or after the query are masked
+      const bool edge = kt0 + kN > p.S || (p.causal && kt0 + kN - 1 > qw0);
+      wgmma_wait<1>();  // S is ready; dP runs on
+      fence_regs(sc);
 #pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t af[4], df[4];
-      ldsm(af, a_addr<kP>(qa, warp * 16, kk * 16, lane));
-      ldsm(df, a_addr<kP>(da, warp * 16, kk * 16, lane));
-#pragma unroll
-      for (int n2 = 0; n2 < kN / 16; ++n2) {
-        uint32_t bk[4], bv[4];
-        ldsm(bk, b_addr<kP>(ka, n2 * 16, kk * 16, lane));
-        ldsm(bv, b_addr<kP>(va, n2 * 16, kk * 16, lane));
-        mma(s[2 * n2], af, bk[0], bk[1]);
-        mma(s[2 * n2 + 1], af, bk[2], bk[3]);
-        mma(dp[2 * n2], df, bv[0], bv[1]);
-        mma(dp[2 * n2 + 1], df, bv[2], bv[3]);
+      for (int i = 0; i < kN / 2; ++i) {
+        const int r = (i / 2) % 2;
+        const int key = kt0 + 8 * (i / 4) + c0 + (i % 2);
+        sc[i] = fast_exp2(fmaf(sc[i], p.c, -lr[r]));
+        if (edge && (key >= p.S || (p.causal && key > row0 + 8 * r)))
+          sc[i] = 0.f;
       }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i)
+        dp[i] = sc[i] * (dp[i] - dr[(i / 2) % 2]);
+      uint32_t sh[kN / 16][4], sl[kN / 16][4];
+      split_fragments<kN / 16>(dp, sh, sl);
+      add_share<kSub, kN / 16, L::kBoxBytes>(dq, sh, sl, ka);
     }
-    // dS = P o (dP - delta); keys past S or after the query are masked
-    const bool edge = kt0 + kN > S || (causal && kt0 + kN - 1 > q0);
-#pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pv = exp2f(fmaf(s[nt][e], c, -lr[e >> 1]));
-        const int key = kt0 + nt * 8 + 2 * tig + (e & 1);
-        if (edge && (key >= S || (causal && key > row0 + 8 * (e >> 1))))
-          pv = 0.f;
-        dp[nt][e] = pv * (dp[nt][e] - dr[e >> 1]);
-      }
-    // dQ += dS K, the k dim running over the keys, promoted as in (b)
-    uint32_t sh[kN / 16][4], sl[kN / 16][4];
-#pragma unroll
-    for (int kc = 0; kc < kN / 16; ++kc)
-      a_of_c(dp[2 * kc], dp[2 * kc + 1], sh[kc], sl[kc]);
-#pragma unroll
-    for (int n2 = 0; n2 < D / 16; ++n2) {
-      float tq[2][4] = {};
-#pragma unroll
-      for (int kc = 0; kc < kN / 16; ++kc) {
-        uint32_t bk[4];
-        ldsm_t(bk, bt_addr<kP>(ka, kc * 16, n2 * 16, lane));
-        mma(tq[0], sh[kc], bk[0], bk[1]);
-        mma(tq[0], sl[kc], bk[0], bk[1]);
-        mma(tq[1], sh[kc], bk[2], bk[3]);
-        mma(tq[1], sl[kc], bk[2], bk[3]);
-      }
-      promote(dq[2 * n2], tq[0]);
-      promote(dq[2 * n2 + 1], tq[1]);
-    }
-    __syncthreads();  // this buffer is read; the next load may refill it
+    mbar_arrive(smem_addr(&empty[s]));
   }
-  store_rows<D>(p.dq + b * st.dq.b + h * st.dq.h, st.dq.s, dq,
-                q0 + warp * 16, S, scale, lane);
+  store_rows<kSub>(p.dq + b * p.sdq.b + h * p.sdq.h, p.sdq.s, dq, row0, p.S,
+                   p.scale, c0);
 }
 
 // ------------------------------------------------------ f32 FMA: scalar route
@@ -736,24 +761,66 @@ int launch_delta(const void* o, const void* dout, float* delta,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The row pass, dK/dV and dQ of the wgmma route.  scratch holds lse's
+// padded copy, then delta: 2 B H Sp f32.
+// The four operands' tensor maps with boxes of 64 x rows.
+bool encode_maps(EncodeTiled fn, Maps* maps, const void* q, const void* k,
+                 const void* v, const void* dout, int D, int rows,
+                 const Problem& pr) {
+  const AllStrides& st = pr.st;
+  return encode(fn, &maps->q, q, pr.B, pr.H, pr.S, D, st.q, rows) &&
+         encode(fn, &maps->k, k, pr.B, pr.Hkv, pr.S, D, st.k, rows) &&
+         encode(fn, &maps->v, v, pr.B, pr.Hkv, pr.S, D, st.v, rows) &&
+         encode(fn, &maps->dout, dout, pr.B, pr.H, pr.S, D, st.dout, rows);
+}
+
 template <int D>
-int launch_mma(const Ptrs& p, const Problem& pr, cudaStream_t stream) {
-  constexpr int smem = Mma<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* scratch, void* dq,
+                 void* dk, void* dv, const Problem& pr, cudaStream_t stream) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  Maps query_maps, key_maps;  // boxes of (b)'s and (c)'s streamed tiles
+  if (!encode_maps(fn, &query_maps, q, k, v, dout, D, kQueryTile<D>, pr) ||
+      !encode_maps(fn, &key_maps, q, k, v, dout, D, kKeyTile, pr))
+    return static_cast<int>(cudaErrorInvalidPitchValue);
+  const AllStrides& st = pr.st;
+  const int Sp = padded(pr.S);
+  const long long rows = static_cast<long long>(pr.B) * pr.H * Sp;
+  float* lse_pad = scratch;
+  float* delta_pad = scratch + rows;
+  row_pass_kernel<D><<<static_cast<unsigned>(rows * kRowLanes / 256), 256, 0,
+                       stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, lse_pad, delta_pad, pr.H,
+      pr.S, Sp, rows, pr.o, st.dout);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(
-      dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+
+  // + alignment slack
+  constexpr int query_smem = Wg<D, kQueryTile<D>>::kBytes + 1024;
+  constexpr int key_smem = Wg<D, kKeyTile>::kBytes + 1024;
+  err = cudaFuncSetAttribute(dkdv_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             query_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned tiles = static_cast<unsigned>((pr.S + kRows - 1) / kRows);
-  const float c = pr.scale * kLog2e;
-  dkdv_mma_kernel<D><<<dim3(pr.B * pr.Hkv, tiles), kMmaThreads, smem,
-                       stream>>>(p, pr.st, pr.H, pr.Hkv, pr.S, pr.causal, c,
-                                 pr.scale);
+  err = cudaFuncSetAttribute(dq_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             key_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const WgArgs args{lse_pad, delta_pad,
+                    static_cast<__nv_bfloat16*>(dq),
+                    static_cast<__nv_bfloat16*>(dk),
+                    static_cast<__nv_bfloat16*>(dv),
+                    st.dq, st.dk, st.dv, pr.H, pr.Hkv, pr.S, pr.causal,
+                    pr.scale * kLog2e, pr.scale};
+  const unsigned tiles = static_cast<unsigned>(Sp / kOwn);
+  dkdv_wgmma_kernel<D><<<dim3(pr.B * pr.Hkv, tiles), kConsumers + 32,
+                         query_smem, stream>>>(query_maps, args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dq_mma_kernel<D><<<dim3(pr.B * pr.H, tiles), kMmaThreads, smem, stream>>>(
-      p, pr.st, pr.H, pr.Hkv, pr.S, pr.causal, c, pr.scale);
+  dq_wgmma_kernel<D><<<dim3(pr.B * pr.H, tiles), kConsumers, key_smem,
+                       stream>>>(key_maps, args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -806,12 +873,14 @@ Problem problem(int B, int H, int Hkv, int S, int D, const long long* s,
 // q, o, dout, dq: (B, H, S, D); k, v, dk, dv: (B, Hkv, S, D), each
 // addressed through (batch, head, seq) strides in elements, D contiguous;
 // the strides come in the order q, k, v, o, dout, dq, dk, dv.  lse (the
-// forward's, base 2) and delta (scratch, written here) are (B, H, S) f32
-// contiguous.  dq, dk and dv are written whole.
+// forward's, base 2) is (B, H, S) f32 contiguous.  dq, dk and dv are
+// written whole.
 
-// bf16 at D 64 or 128: q, k, v and dout need 16-byte aligned bases and
+// bf16 at D 64 or 128: q, k, v, o and dout need 16-byte aligned bases and
 // strides (of the dims longer than 1) that are multiples of 8 elements.
-extern "C" int flash_attention_backward_mma(
+// delta is scratch of 2 B H Sp f32, Sp = S rounded up to a multiple of
+// 128, written here.
+extern "C" int flash_attention_backward_wgmma(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int B, int H, int Hkv, int S, int D, long long sqb,
@@ -823,29 +892,22 @@ extern "C" int flash_attention_backward_mma(
     long long sdvs, int causal, float scale, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
   if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   const long long s[24] = {sqb,  sqh,  sqs,  skb,  skh,  sks,  svb,  svh,
                            svs,  sob,  soh,  sos,  sdob, sdoh, sdos, sdqb,
                            sdqh, sdqs, sdkb, sdkh, sdks, sdvb, sdvh, sdvs};
   const Problem pr = problem(B, H, Hkv, S, D, s, causal, scale);
   auto st = static_cast<cudaStream_t>(stream);
-  const Ptrs p{static_cast<const __nv_bfloat16*>(q),
-               static_cast<const __nv_bfloat16*>(k),
-               static_cast<const __nv_bfloat16*>(v),
-               static_cast<const __nv_bfloat16*>(dout),
-               static_cast<const float*>(lse),
-               static_cast<const float*>(delta),
-               static_cast<__nv_bfloat16*>(dq),
-               static_cast<__nv_bfloat16*>(dk),
-               static_cast<__nv_bfloat16*>(dv)};
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = launch_delta<__nv_bfloat16>(o, dout,
-                                              static_cast<float*>(delta), pr,
-                                              st);
-  if (err != 0) return err;
-  return D == 64 ? launch_mma<64>(p, pr, st) : launch_mma<128>(p, pr, st);
+  const float* ls = static_cast<const float*>(lse);
+  float* scratch = static_cast<float*>(delta);
+  return D == 64 ? launch_wgmma<64>(q, k, v, o, dout, ls, scratch, dq, dk,
+                                    dv, pr, st)
+                 : launch_wgmma<128>(q, k, v, o, dout, ls, scratch, dq, dk,
+                                     dv, pr, st);
 }
 
-// dtype: 0 float32, 1 bfloat16; D in {8, 16, 32, 64, 128}.
+// The scalar route: dtype 0 float32, 1 bfloat16; D in {8, 16, 32, 64,
+// 128}.  delta is scratch of B H S f32, written here.
 extern "C" int flash_attention_backward(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,

@@ -44,15 +44,16 @@
 //    it, f32 (B, H, S): the backward (flash_attention_bwd.cu) recomputes
 //    P from it.
 //
+// The mbarrier, TMA, descriptor, wgmma and tensor-map helpers are
+// hopper.cuh's, shared with the backward.
+//
 // Later work: the G query heads of one KV head are separate blocks (L2
 // serves the re-reads of K and V); softmax and wgmma of one warpgroup do
 // not overlap.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cmath>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -60,14 +61,8 @@ constexpr int kBQ = 128;              // query rows per block
 constexpr int kBK = 128;              // kv rows per tile
 constexpr int kStages = 2;            // K/V ring depth
 constexpr int kThreads = 384;         // 2 consumer warpgroups + 1 producer
-constexpr int kBox = 64;              // bf16 columns of one 128-byte box row
 constexpr int kBoxBytes = kBK * kBox * 2;   // one 128-row box: 16,384 B
-constexpr uint32_t kSpinLimit = 1u << 28;   // a stalled ring traps, not hangs
 constexpr float kLog2e = 1.4426950408889634f;
-
-struct Strides {
-  long long b, h, s;  // elements; D is contiguous
-};
 
 template <int D>
 struct Layout {  // byte offsets from the 1024-aligned shared base
@@ -78,135 +73,6 @@ struct Layout {  // byte offsets from the 1024-aligned shared base
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kBytes = kV + kStages * kTile;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------- mbarrier
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin == kSpinLimit) __trap();
-  }
-}
-
-// --------------------------------------------------------------------- TMA
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// ------------------------------------------------------------------- wgmma
-// Shared-memory matrix descriptor, 128-byte swizzle; lbo and sbo in 16-byte
-// units.  K-major tiles: 8-row groups 1,024 B apart (sbo 64), lbo unused.
-// MN-major V: 8-key groups 1,024 B apart (sbo 64); a k16 step is 2,048 B.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) | (static_cast<uint64_t>(64) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from touching accumulator registers across a wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d(64 x 128) (+)= a(64 x 16) b(128 x 16)^T, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d(64 x 64) += a(64 x 16, bf16 registers) b(16 x 64), b MN-major in shared
-// memory (transposed).
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // -------------------------------------------------------------------- kernel
 template <int D>
@@ -299,7 +165,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kc = 0; kc < D / 16; ++kc) {
         const uint32_t off = (kc / 4) * kBoxBytes + (kc % 4) * 32;
-        wgmma_qk(sc, sw128_desc(qa + off), sw128_desc(ka + off), kc > 0);
+        wgmma_ss(sc, sw128_desc(qa + off), sw128_desc(ka + off), kc > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -344,10 +210,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           const float p0 = exp2f(fmaf(sc[i], scale_log2, -ms[q % 2]));
           const float p1 = exp2f(fmaf(sc[i + 1], scale_log2, -ms[q % 2]));
           rs[q % 2] += p0 + p1;
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-          const float2 hf = __bfloat1622float2(hi);
-          phi[kc][q] = bits(hi);
-          plo[kc][q] = bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+          split(p0, p1, phi[kc][q], plo[kc][q]);
         }
       }
 #pragma unroll
@@ -365,8 +228,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int sub = 0; sub < kSub; ++sub) {
           const uint64_t vd =
               sw128_desc(va + sub * kBoxBytes + kc * 16 * 128);
-          wgmma_pv(acc[sub], phi[kc], vd);
-          wgmma_pv(acc[sub], plo[kc], vd);
+          wgmma_rs(acc[sub], phi[kc], vd, 1);
+          wgmma_rs(acc[sub], plo[kc], vd, 1);
         }
       }
       wgmma_commit();
@@ -407,55 +270,6 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ------------------------------------------------------------------- host
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up at run time so the library needs no
-// -lcuda.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A (B, heads, S, D) bf16 operand as a 4-d map (D, S, heads, B) with boxes
-// of 64 x 128 x 1 x 1.  A dim of size 1 is never stepped, so its stride is
-// given as 16 bytes whatever the tensor says.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
-            int heads, int S, int D, Strides st) {
-  auto stride = [](int n, long long s) {
-    return static_cast<cuuint64_t>(n > 1 ? s * 2 : 16);
-  };
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {stride(S, st.s), stride(heads, st.h),
-                                 stride(B, st.b)};
-  const cuuint32_t box[4] = {kBox, kBK, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Hkv, int S, Strides sq, Strides sk, Strides sv,
@@ -463,9 +277,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
-  if (!encode(fn, &tq, q, B, H, S, D, sq) ||
-      !encode(fn, &tk, k, B, Hkv, S, D, sk) ||
-      !encode(fn, &tv, v, B, Hkv, S, D, sv))
+  if (!encode(fn, &tq, q, B, H, S, D, sq, kBQ) ||
+      !encode(fn, &tk, k, B, Hkv, S, D, sk, kBK) ||
+      !encode(fn, &tv, v, B, Hkv, S, D, sv, kBK))
     return static_cast<int>(cudaErrorInvalidPitchValue);
   constexpr int smem = Layout<D>::kBytes + 1024;  // + alignment slack
   cudaError_t err = cudaFuncSetAttribute(

@@ -3,8 +3,10 @@
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` (all started
 together) for ``sm_90a`` and linked into one shared library with a plain
 C interface, under ``build/kernels/`` at the repository root, named by a
-hash of the sources and flags: a checkout builds once, and an edited
-source builds anew.  Nothing is compiled when a module is imported.
+hash of the sources, the headers they include (``csrc/*.cuh``, never
+given to ``nvcc`` themselves) and the flags: a checkout builds once, and
+an edited source or header builds anew.  Nothing is compiled when a
+module is imported.
 
 Each C entry point takes raw device pointers, sizes and a CUDA stream,
 launches on that stream, allocates nothing, and returns
@@ -50,12 +52,18 @@ def _nvcc() -> str:
 
 
 def sources() -> List[Path]:
+    """The files ``nvcc`` compiles, one object each."""
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(srcs: Sequence[Path]) -> str:
+def headers() -> List[Path]:
+    """The headers the sources include: hashed, not compiled."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def _digest(files: Sequence[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in files:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
@@ -66,7 +74,8 @@ def build(verbose: bool = False) -> Path:
     return its path.  ``verbose`` adds ``-Xptxas -v`` and prints the
     compiler's report of registers, shared memory and spills."""
     srcs = sources()
-    lib = BUILD_DIR / f"librepro_torch_kernels-{_digest(srcs)}.so"
+    lib = BUILD_DIR / \
+        f"librepro_torch_kernels-{_digest(srcs + headers())}.so"
     if lib.exists() and not verbose:
         return lib
     nvcc = _nvcc()

@@ -71,8 +71,8 @@ FLASH_ATTENTION_WGMMA = CudaKernel(
 # The backward's two routes.  Each C call launches the row pass, dK/dV and
 # dQ, and counts once.  They replace the forward's TPU kernel's gradient:
 # the reference takes it with jax.grad and has no kernel for it.
-FLASH_ATTENTION_BACKWARD_MMA = CudaKernel(
-    "flash_attention_backward_mma",
+FLASH_ATTENTION_BACKWARD_WGMMA = CudaKernel(
+    "flash_attention_backward_wgmma",
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 24
     + [ctypes.c_int, ctypes.c_float],
     source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -94,6 +94,9 @@ NO_GRAD_HINT = ("differentiate through flash_attention_differentiable, whose "
 WGMMA_HEAD_DIMS = (64, 128)
 TMA_ALIGN = 16       # bytes: TMA's base and stride unit
 TMA_MAX_STRIDE = 1 << 40
+# the wgmma backward's row pass writes lse and delta in rows of S rounded up
+# to its kernels' 128-row tiles
+BACKWARD_ROW_PAD = 128
 
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> CudaKernel:
@@ -106,10 +109,11 @@ def flash_route(dtype: torch.dtype, head_dim: int) -> CudaKernel:
 
 def flash_backward_route(dtype: torch.dtype, head_dim: int) -> CudaKernel:
     """The backward kernel a CUDA call of ``dtype`` and head dim
-    ``head_dim`` takes: the tensor-core (``mma.sync``) route for bf16 at
-    D 64 or 128, the scalar f32-FMA route otherwise."""
+    ``head_dim`` takes: the TMA-fed ``wgmma`` route for bf16 at D 64 or
+    128 (both fit the consumers' registers: streamed tiles of 64 rows at
+    D 64, 32 at D 128), the scalar f32-FMA route otherwise."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
-        return FLASH_ATTENTION_BACKWARD_MMA
+        return FLASH_ATTENTION_BACKWARD_WGMMA
     return FLASH_ATTENTION_BACKWARD
 
 
@@ -212,7 +216,8 @@ def run_backward(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor,
     the C entry point, which runs the row pass, dK/dV and dQ.  The
     gradients are allocated in the operands' layouts and written whole.
     ``grad_out`` is copied only where the route cannot read it in place
-    (a strided last dim, or the tensor-core route's 16-byte conditions)."""
+    (a strided last dim, or the wgmma route's 16-byte conditions, which
+    q, k, v and ``out`` must meet or raise)."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     if grad_out.shape != q.shape or out.shape != q.shape:
@@ -222,26 +227,29 @@ def run_backward(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor,
             or not lse.is_contiguous():
         raise ValueError(f"lse must be f32 contiguous {(B, H, S)}, got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    if kernel is FLASH_ATTENTION_BACKWARD_MMA:
+    if kernel is FLASH_ATTENTION_BACKWARD_WGMMA:
         if q.dtype != torch.bfloat16 or D not in WGMMA_HEAD_DIMS:
-            raise ValueError(f"the mma backward takes bf16 at D in "
+            raise ValueError(f"the wgmma backward takes bf16 at D in "
                              f"{WGMMA_HEAD_DIMS}, not {q.dtype} at D {D}")
         if tma_problem(grad_out):
             grad_out = grad_out.clone(memory_format=torch.contiguous_format)
-        for name, t in (("q", q), ("k", k), ("v", v)):
+        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
             problem = tma_problem(t)
             if problem:
-                raise ValueError(f"the mma backward cannot read {name}: "
+                raise ValueError(f"the wgmma backward cannot read {name}: "
                                  f"{problem}")
         dtype_code = ()    # bf16 only
+        # lse's padded copy, then delta
+        scratch = 2 * B * H * (-(-S // BACKWARD_ROW_PAD) * BACKWARD_ROW_PAD)
     else:
         if grad_out.shape[-1] > 1 and grad_out.stride(-1) != 1:
             grad_out = grad_out.contiguous()
         dtype_code = (FLOAT_CODES[q.dtype],)
+        scratch = B * H * S
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty(scratch, dtype=torch.float32, device=q.device)
     kernel.launch(
         q.device, (B, H, Hkv, S, D),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -1,11 +1,13 @@
 """The flash-attention backward kernel's routes and arithmetic, on the CPU.
 
 The CUDA kernels (``csrc/flash_attention_bwd.cu``) run only on the card.
-Here: a tile-by-tile PyTorch emulation of the bf16 route's arithmetic
-(64-row tiles that a block owns, streamed tiles of 64 rows at D 64 and 32
-at D 128, P recomputed in base 2 from the saved log-sum-exp, delta from
-the saved output, P and dS split into bf16 hi + lo, f32 accumulation, the
-dK/dV sum over a KV head's query heads) held to
+Here: a tile-by-tile PyTorch emulation of the wgmma route's arithmetic
+(128-row blocks in halves of 64 that a warpgroup owns, streamed query
+tiles of 64 rows at D 64 and 32 at D 128 in dK/dV, key tiles of 64 in
+dQ, tiles wholly past the diagonal skipped,
+P recomputed in base 2 from the saved log-sum-exp, delta from the saved
+output, P and dS split into bf16 hi + lo, each tile's share summed from
+zero and added in f32, the dK/dV sum over a KV head's query heads) held to
 ``chip_smoke.elementwise_check`` against ``flash_attention_backward_plain``;
 the same emulation with P and dS rounded once fails the check.  Also the
 plain forward's log-sum-exp against the reference's scores, the backward
@@ -29,7 +31,7 @@ import jax.numpy as jnp
 from repro_torch.kernels.flash_attention.kernel import (
     FLASH_ATTENTION,
     FLASH_ATTENTION_BACKWARD,
-    FLASH_ATTENTION_BACKWARD_MMA,
+    FLASH_ATTENTION_BACKWARD_WGMMA,
     FLASH_ATTENTION_WGMMA,
     flash_attention_differentiable,
     flash_backward_route,
@@ -40,7 +42,8 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 ROOT = Path(__file__).resolve().parents[1]
-ROWS = 64               # rows a block owns: keys in dK/dV, queries in dQ
+OWN = 128               # rows a block owns: keys in dK/dV, queries in dQ
+HALF = 64               # rows a consumer warpgroup owns
 LOG2E = 1.4426950408889634
 
 
@@ -72,19 +75,27 @@ def _parts(x, split):
     return (hi, (x - hi).to(torch.bfloat16).float()) if split else (hi,)
 
 
-def emulate_backward(q, k, v, out, lse, do, causal=True, split=True):
-    """The bf16 route's arithmetic in PyTorch, tile by tile as its blocks
-    run: delta from the saved output; dK/dV per 64-key tile over the
-    group's query heads and the query tiles at or below the diagonal; dQ
-    per 64-query tile over the key tiles up to it; P = exp2(s c - lse)
-    with c = log2(e) / sqrt(D), rows past S and keys after a query
-    masked; every product of bf16 operands (P and dS as hi + lo, or
-    rounded once with ``split=False``) summed in f32; dk and dq scaled
-    by 1/sqrt(D) at the end and each output rounded once to bf16."""
+def emulate_backward(q, k, v, out, lse, do, causal=True, split=True,
+                     single=()):
+    """The wgmma route's arithmetic in PyTorch, tile by tile and in the
+    order its warpgroups run: delta from the saved output; dK/dV per
+    128-key block, each half of 64 keys over the group's query heads in
+    turn and, for each, the query tiles (N rows: 64 at D 64, 32 at D 128)
+    from the block's first key on, a tile wholly above the half's keys
+    skipped; dQ per 128-query block, each half of 64 over the key tiles of
+    64 rows up to the block's diagonal, a tile wholly after the half's
+    queries skipped; P = exp2(s c - lse) with c = log2(e) / sqrt(D), rows
+    past S (lse +inf, delta 0) and keys after a query masked; each tile's
+    share of dV, dK or dQ summed from zero in f32 over bf16 operands (P
+    and dS as hi + lo, or rounded once with ``split=False``, or the one
+    of them named in ``single``), then added to the running sum in f32; dk
+    and dq scaled by 1/sqrt(D) at the end and each output rounded once to
+    bf16."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     G = H // Hkv
-    N = 64 if D == 64 else 32     # rows of a streamed tile
+    N = 64 if D == 64 else 32     # rows of a streamed query tile in dK/dV
+    NK = 64                       # rows of a streamed key tile in dQ
     scale = 1.0 / math.sqrt(D)
     c = scale * LOG2E
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
@@ -103,16 +114,24 @@ def emulate_backward(q, k, v, out, lse, do, causal=True, split=True):
         part[..., :m] = t[..., r0:r0 + m]
         return part
 
+    def share(a, b, name):
+        """a b from zero over bf16 parts of a (hi + lo, or once)."""
+        return sum(part @ b
+                   for part in _parts(a, split and name not in single))
+
     dk = torch.zeros(B, Hkv, S, D)
     dv = torch.zeros(B, Hkv, S, D)
-    for k0 in range(0, S, ROWS):
-        kt, vt = tile(kf, k0, ROWS), tile(vf, k0, ROWS)
-        keys = torch.arange(k0, k0 + ROWS)
-        acc_k = torch.zeros(B, Hkv, ROWS, D)
-        acc_v = torch.zeros(B, Hkv, ROWS, D)
+    for kw0 in range(0, S, HALF):
+        k0 = kw0 - kw0 % OWN          # the block's first key
+        kt, vt = tile(kf, kw0, HALF), tile(vf, kw0, HALF)
+        keys = torch.arange(kw0, kw0 + HALF)
+        acc_k = torch.zeros(B, Hkv, HALF, D)
+        acc_v = torch.zeros(B, Hkv, HALF, D)
         for g in range(G):
             heads = torch.arange(Hkv) * G + g
-            for q0 in range((k0 // N) * N if causal else 0, S, N):
+            for q0 in range(k0 if causal else 0, S, N):
+                if causal and q0 + N <= kw0:
+                    continue
                 qt = tile(qf[:, heads], q0, N)
                 dot = tile(dof[:, heads], q0, N)
                 lc = row_vec(lse[:, heads], q0, N, math.inf)
@@ -124,52 +143,50 @@ def emulate_backward(q, k, v, out, lse, do, causal=True, split=True):
                     cols = torch.arange(q0, q0 + N)
                     pt = pt.masked_fill(keys[:, None] > cols[None, :], 0.0)
                 dst = pt * (dpt - dc[..., None, :])
-                for part in _parts(pt, split):
-                    acc_v += part @ dot
-                for part in _parts(dst, split):
-                    acc_k += part @ qt
-        n = min(ROWS, S - k0)
-        dk[:, :, k0:k0 + n] = acc_k[:, :, :n] * scale
-        dv[:, :, k0:k0 + n] = acc_v[:, :, :n]
+                acc_v += share(pt, dot, "p")
+                acc_k += share(dst, qt, "ds")
+        n = min(HALF, S - kw0)
+        dk[:, :, kw0:kw0 + n] = acc_k[:, :, :n] * scale
+        dv[:, :, kw0:kw0 + n] = acc_v[:, :, :n]
 
     dq = torch.zeros(B, H, S, D)
     kx = kf.repeat_interleave(G, dim=1)
     vx = vf.repeat_interleave(G, dim=1)
-    for q0 in range(0, S, ROWS):
-        qt, dot = tile(qf, q0, ROWS), tile(dof, q0, ROWS)
-        lr = row_vec(lse, q0, ROWS, math.inf)
-        dr = row_vec(delta, q0, ROWS, 0.0)
-        rows = torch.arange(q0, q0 + ROWS)
-        n_kt = -(-S // N)
-        if causal:
-            n_kt = min(n_kt, -(-(q0 + ROWS) // N))
-        acc = torch.zeros(B, H, ROWS, D)
+    for qw0 in range(0, S, HALF):
+        q0 = qw0 - qw0 % OWN          # the block's first query
+        qt, dot = tile(qf, qw0, HALF), tile(dof, qw0, HALF)
+        lr = row_vec(lse, qw0, HALF, math.inf)
+        dr = row_vec(delta, qw0, HALF, 0.0)
+        rows = torch.arange(qw0, qw0 + HALF)
+        n_kt = -(-(min(S, q0 + OWN) if causal else S) // NK)
+        acc = torch.zeros(B, H, HALF, D)
         for t in range(n_kt):
-            kt, vt = tile(kx, t * N, N), tile(vx, t * N, N)
+            if causal and t * NK > qw0 + HALF - 1:
+                continue
+            kt, vt = tile(kx, t * NK, NK), tile(vx, t * NK, NK)
             s = qt @ kt.transpose(-1, -2)
             dp = dot @ vt.transpose(-1, -2)
             p = torch.exp2(s * c - lr[..., None])
-            keys = torch.arange(t * N, t * N + N)
+            keys = torch.arange(t * NK, t * NK + NK)
             mask = keys[None, :] >= S
             if causal:
                 mask = mask | (keys[None, :] > rows[:, None])
             p = p.masked_fill(mask, 0.0)
             ds = p * (dp - dr[..., None])
-            for part in _parts(ds, split):
-                acc += part @ kt
-        n = min(ROWS, S - q0)
-        dq[:, :, q0:q0 + n] = acc[:, :, :n] * scale
+            acc += share(ds, kt, "ds")
+        n = min(HALF, S - qw0)
+        dq[:, :, qw0:qw0 + n] = acc[:, :, :n] * scale
     return (dq.to(torch.bfloat16), dk.to(torch.bfloat16),
             dv.to(torch.bfloat16))
 
 
-def _case(B, H, Hkv, S, D, causal, seed, split=True):
+def _case(B, H, Hkv, S, D, causal, seed, split=True, single=()):
     """The plain backward (delta from the saved output, as the kernel
     takes it) and the emulation on the same seeded bf16 operands."""
     q, k, v, do = _inputs(B, H, Hkv, S, D, seed)
     out, lse = flash_attention_plain(q, k, v, causal, return_lse=True)
     plain = flash_attention_backward_plain(q, k, v, do, causal, out=out)
-    got = emulate_backward(q, k, v, out, lse, do, causal, split)
+    got = emulate_backward(q, k, v, out, lse, do, causal, split, single)
     return _chip_smoke().backward_check(got, plain)
 
 
@@ -182,6 +199,19 @@ def test_emulation_passes_the_card_check(H, Hkv, D, S, causal):
     emulated kernel's dq, dk and dv each within the card's bf16 limit of
     the plain backward."""
     check = _case(1, H, Hkv, S, D, causal, seed=S + D + H)
+    assert check["within_tolerance"], check
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("S", [127, 128, 129, 1000])
+def test_emulation_passes_at_the_tile_edges(S, G, D, causal):
+    """At the edges of the wgmma route's tiles (S one short of, at and one
+    past a 128-row block, and 1,000: a ragged last block and streamed
+    tile), over groups of 1, 4 and 8 query heads on two KV heads: the
+    emulated kernel's dq, dk and dv within the card's bf16 limit."""
+    check = _case(1, 2 * G, 2, S, D, causal, seed=S + 10 * G + D)
     assert check["within_tolerance"], check
 
 
@@ -208,6 +238,17 @@ def test_single_rounded_p_and_ds_fail_the_card_check(long_case):
     assert not single["within_tolerance"], single
     worst = max(single[g]["max_err_ratio"] for g in ("dq", "dk", "dv"))
     assert worst > 2.0, single
+
+
+@pytest.mark.parametrize("single,worst", [("p", "dv"), ("ds", "dk")])
+def test_p_or_ds_alone_rounded_once_fails_the_card_check(single, worst):
+    """Neither split can go: with P alone rounded once, dv (its product)
+    fails the check at S 1,024; with dS alone, dk and dq do."""
+    check = _case(1, 4, 1, 1024, 64, True, seed=3, single=(single,))
+    assert not check[worst]["within_tolerance"], check
+    assert check[worst]["max_err_ratio"] > 2.0, check
+    kept = "dk" if single == "p" else "dv"
+    assert check[kept]["within_tolerance"], check
 
 
 # ------------------------------------------------ the log-sum-exp --
@@ -254,7 +295,7 @@ def test_function_saves_output_and_lse_and_takes_the_plain_backward():
 def test_backward_route_rule(dtype, head_dim):
     """bf16 at D 64 and 128 takes the tensor-core route; f32 at every D
     and bf16 at D 8, 16, 32 the scalar one; choosing launches nothing."""
-    want = (FLASH_ATTENTION_BACKWARD_MMA
+    want = (FLASH_ATTENTION_BACKWARD_WGMMA
             if dtype == torch.bfloat16 and head_dim in (64, 128)
             else FLASH_ATTENTION_BACKWARD)
     assert flash_backward_route(dtype, head_dim) is want
@@ -284,7 +325,7 @@ def _c_signature(source: Path, symbol: str) -> list:
 
 @pytest.mark.parametrize("kernel", [
     FLASH_ATTENTION, FLASH_ATTENTION_WGMMA, FLASH_ATTENTION_BACKWARD,
-    FLASH_ATTENTION_BACKWARD_MMA], ids=lambda k: k.symbol)
+    FLASH_ATTENTION_BACKWARD_WGMMA], ids=lambda k: k.symbol)
 def test_argtypes_match_the_c_signature(kernel):
     assert kernel.argtypes == _c_signature(ROOT / kernel.source,
                                            kernel.symbol)
