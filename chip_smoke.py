@@ -72,7 +72,7 @@ Phases (any failure exits non-zero before the last line is printed):
      seeded random bf16 weights), 16 slots of 4,096 tokens in 16-token
      pages, 32 requests of 512-1,024 prompt tokens and 64 new tokens
      each.  Prefill (bf16, D 64) must launch the wgmma flash kernel once
-     per layer and prefill and the scalar flash kernel never; decode the
+     per layer and prefill and the f32-route flash kernel never; decode the
      paged kernel once per layer and step; every logit must be finite.  Prints tokens/s, p50/p99 per prefill and per decode step,
      launches, the paged-KV manager's stats, and the device's busy share
      over one decode step of 16 active slots and over one prefill of
@@ -81,7 +81,7 @@ Phases (any failure exits non-zero before the last line is printed):
      the card (through the kernels) and replayed on the CPU (through the
      plain versions) with the card's tokens forced: every step's logits
      must agree within 1e-4 and ``stats()`` must be equal.  f32 prefill
-     is the scalar flash kernel's path: it must launch once per layer and
+     is the f32-route flash kernel's path: it must launch once per layer and
      prompt on the card, the wgmma kernel never;
   7. attention kernels: each against its plain version on the card,
      element by element (f32 within 2e-5; bf16 within one bf16 rounding
@@ -90,8 +90,9 @@ Phases (any failure exits non-zero before the last line is printed):
      flash kernel in bf16 at the serve phase's largest shape, at
      deployment (S 4,096), at S 1, 37 and 129, non-causal, at D 128
      (qwen1.5-4b: 20 heads over 20, S 2,048) and on (B, S, H, D) views
-     as ``models.attention.attention`` passes them; the scalar flash
-     kernel in f32 at the serve and deployment shapes, and in bf16 on the
+     as ``models.attention.attention`` passes them; the split-TF32 flash
+     kernel in f32 at the serve and deployment shapes and at the REDUCED
+     configs' (S 517, D 8 and 16), and in bf16 on the
      wgmma kernel's serve and deployment operands (the old/new ratio on
      one card); the paged kernel in bf16 and f32 at the serve phase's
      largest shape (also timed cold, over pool copies that exceed the
@@ -140,7 +141,7 @@ Phases (any failure exits non-zero before the last line is printed):
      fit beside the weights), 32 requests of 512-1,024 prompt tokens and
      32 new tokens each.  The wgmma flash kernel must launch once per
      layer and prefill, the paged kernel once per layer and decode step,
-     the scalar flash kernel never; every request completes with finite
+     the f32-route flash kernel never; every request completes with finite
      logits.  Prints tokens/s, p50/p99 per prefill and decode step, the
      picks dropped by capacity per prefill and per decode step, peak
      memory and a profiled decode step's busy share and top kernels;
@@ -169,7 +170,7 @@ Phases (any failure exits non-zero before the last line is printed):
      backward and SDPA's backward: the lm train microbatch (twice, bit for
      bit), D 128, ragged S 1 / 37 / 129 non-causal, f32 at D 8, 16 and
      64, bf16 at D 16; REDUCED granite and Moonshot in f32, 3 steps card
-     against CPU (the scalar backward must launch once a layer and
+     against CPU (the f32-route backward must launch once a layer and
      microbatch); the bare attention wrappers must raise on a ``q`` that
      requires grad, and the ``Function`` must give the plain version's
      gradient.  Then both attention kernels against their plain versions
@@ -225,6 +226,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+# the f32 flash-attention routes run each f32 product as three TF32
+# products on the tensor cores (csrc/tf32.cuh): 495 TFLOP/s dense over 3
+F32_TC_OPS_PER_S = 495e12 / 3
 L2_BYTES = 50 * 2 ** 20    # L2 cache of an H100 SXM
 
 WALL_CLOCK_KEYS = ("shard_fetch_s", "query_s", "busy_s")
@@ -999,6 +1003,10 @@ def profiler_ms(fn: Callable[[], object], match: Optional[str] = None,
 # them: the row pass, dK/dV and dQ
 BACKWARD_KERNEL_NAMES = ("row_pass_kernel", "dkdv_wgmma_kernel",
                          "dq_wgmma_kernel")
+# the f32 route's: the row pass, each head's dK/dV, their sum over a GQA
+# group and dQ (split-TF32 wgmma)
+TF32_BACKWARD_KERNEL_NAMES = ("delta_kernel", "dkdv_tf32_kernel",
+                              "group_sum_kernel", "dq_tf32_kernel")
 
 
 def kernel_device_ms(fn: Callable[[], object], names: Sequence[str],
@@ -1465,7 +1473,7 @@ def serve_cell(cfg, params, device, kernels, label: str, *, slots: int,
     prefill and decode step timed.  bf16 prefill at D 64 or 128 takes the
     wgmma route only: the wgmma flash kernel must launch once per layer
     and prefill, the paged kernel once per layer and decode step, the
-    scalar flash kernel never.  Returns the report (its ``failures``
+    f32-route flash kernel never.  Returns the report (its ``failures``
     included) and the engine."""
     from repro_torch.serve import engine as engine_mod
     from repro_torch.serve.engine import Request, ServeEngine
@@ -1525,7 +1533,7 @@ def serve_cell(cfg, params, device, kernels, label: str, *, slots: int,
             failures.append(f"{label}: {name}: {launches[name]} launches, "
                             f"{n} expected (one per layer and call)")
     if launches.get("flash_attention", 0) != 0:
-        failures.append(f"{label}: flash_attention (scalar) launched "
+        failures.append(f"{label}: flash_attention (f32 route) launched "
                         f"{launches['flash_attention']} times in bf16 serving")
     decode_tokens = tokens - len(timer.prefill_s)
     report = {
@@ -1693,8 +1701,8 @@ def parity_phase(device, kernels) -> dict:
     """granite-3-2b widths at 2 layers in float32: served on the card, then
     replayed on the CPU with the card's tokens forced (teacher forcing);
     every step's logits and the engines' ``stats()`` must agree.  f32
-    prefill is the scalar flash kernel's path: ``kernels``' counts are
-    read over the card's run, and the scalar kernel must launch once per
+    prefill is the f32-route flash kernel's path: ``kernels``' counts are
+    read over the card's run, and the f32-route kernel must launch once per
     layer and prompt, the wgmma kernel never."""
     from repro_torch.configs.granite_3_2b import CONFIG
     from repro_torch.models.transformer import init_params
@@ -1809,7 +1817,7 @@ def flash_case(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pairs = S * (S + 1) / 2 if causal else S * S
     flops = 4 * B * H * D * pairs
     nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * esize
-    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else SCALAR_OPS_PER_S
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_TC_OPS_PER_S
     ms = cuda_ms(lambda: run_kernel(kernel, q, k, v, causal))
     return {
         "kernel": kernel.symbol,
@@ -1909,9 +1917,10 @@ def attention_phase(largest: dict, device) -> Dict[str, dict]:
     """The attention kernels against their plain versions, at the serve
     phase's largest shapes and at deployment shapes: the wgmma flash
     kernel in bf16 (with the ragged, non-causal, D 128 and strided-view
-    cases), the scalar flash kernel in f32 and, for the old/new ratio, in
-    bf16 on the wgmma kernel's serve and deploy operands; the paged kernel
-    in bf16 and f32."""
+    cases), the split-TF32 flash kernel in f32 (serve, deploy and the
+    REDUCED configs' widths) and, for the old/new ratio, in bf16 on the
+    wgmma kernel's serve and deploy operands; the paged kernel in bf16 and
+    f32."""
     from repro_torch.configs.granite_3_2b import CONFIG as cfg
     from repro_torch.configs.qwen1_5_4b import CONFIG as qwen
     from repro_torch.kernels.flash_attention.kernel import (
@@ -1953,11 +1962,15 @@ def attention_phase(largest: dict, device) -> Dict[str, dict]:
             out["flash_attention"][f"{name}_bf16"] = flash_case(
                 q, k, v, causal, FLASH_ATTENTION)
         del q, k, v
-    for name in ("serve", "deploy"):
-        shape, causal, _ = flash[name]
+    # f32 at the serve and deployment shapes and at the REDUCED configs'
+    # (the parity and training paths' launches)
+    f32_shapes = {"serve": flash["serve"][0], "deploy": flash["deploy"][0],
+                  "reduced_d8": (2, 8, 2, 517, 8),
+                  "reduced_d16": (2, 4, 4, 517, 16)}
+    for name, shape in f32_shapes.items():
         q, k, v = flash_inputs(*shape, torch.float32, gen, device)
         out["flash_attention"][f"{name}_f32"] = flash_case(
-            q, k, v, causal, FLASH_ATTENTION)
+            q, k, v, True, FLASH_ATTENTION)
         del q, k, v
     # the serve phase's lengths: a prompt plus the tokens decoded so far
     serve_lens = rng.randint(SERVE_PROMPT[0], SERVE_PROMPT[1] + SERVE_NEW + 1,
@@ -2935,7 +2948,7 @@ def moe_parity_phase(device, kernels) -> dict:
     replayed on the CPU with the card's tokens forced: logits within
     PARITY_TOL, equal ``stats()`` and tokens, the same expert picks in
     every ``moe_apply`` call and the same dropped count.  Their head dims
-    (16 and 8) take the scalar flash kernel: once per layer and prompt."""
+    (16 and 8) take the f32-route flash kernel: once per layer and prompt."""
     from repro_torch.configs import moonshot_v1_16b_a3b, qwen3_moe_235b_a22b
     from repro_torch.models.transformer import init_params
 
@@ -3056,7 +3069,8 @@ def flash_backward_case(B: int, H: int, Hkv: int, S: int, D: int, dtype,
         del again
         case["kernels_ms"] = kernel_device_ms(
             lambda: run_backward(kernel, q, k, v, out, lse, do, causal),
-            BACKWARD_KERNEL_NAMES)
+            BACKWARD_KERNEL_NAMES if dtype == torch.bfloat16
+            else TF32_BACKWARD_KERNEL_NAMES)
     del got
     ke = k.repeat_interleave(H // Hkv, dim=1).detach().requires_grad_(True)
     ve = v.repeat_interleave(H // Hkv, dim=1).detach().requires_grad_(True)
@@ -3068,7 +3082,7 @@ def flash_backward_case(B: int, H: int, Hkv: int, S: int, D: int, dtype,
     flops = 5 * 2 * B * H * D * pairs
     # q, k, v, o, dO and the log-sum-exp read once, dq, dk, dv written once
     nbytes = 4 * (B * H + B * Hkv) * S * D * q.element_size() + 4 * B * H * S
-    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else SCALAR_OPS_PER_S
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_TC_OPS_PER_S
     reps = 5 if S * S * B * H > 1 << 28 else 20
     case.update({
         "ms": cuda_ms(lambda: run_backward(kernel, q, k, v, out, lse, do,
@@ -3093,9 +3107,10 @@ def flash_backward_cases(lm_shape: tuple, device) -> Dict[str, dict]:
     bit identity and profiled for its three kernels' device times; at D
     128 (16 heads over 16, S 1,023), at qwen3's GQA at D 128 (64 heads
     over 4, S 980, the forward's row), ragged causal at D 64 (32 over 8, S
-    1,000) and at ragged S 1, 37 and 129 non-causal; the scalar route in
+    1,000) and at ragged S 1, 37 and 129 non-causal; the split-TF32 route in
     f32 at D 8 and 16 (the REDUCED configs' widths) and 64 (granite's
-    heads, S 1,024), and in bf16 at D 16."""
+    heads, S 1,024; run twice for bit identity and profiled for its
+    kernels), and in bf16 at D 16."""
     gen = torch.Generator(device=device).manual_seed(48)
     bf, f32 = torch.bfloat16, torch.float32
     _, H, Hkv, _, D = lm_shape
@@ -3109,7 +3124,7 @@ def flash_backward_cases(lm_shape: tuple, device) -> Dict[str, dict]:
         "s129_bf16": ((1, H, Hkv, 129, D), bf, False, False, False),
         "d8_f32": ((2, 8, 2, 517, 8), f32, True, False, False),
         "d16_f32": ((2, 4, 4, 517, 16), f32, True, False, False),
-        "d64_f32": ((1, H, Hkv, 1024, D), f32, True, False, False),
+        "d64_f32": ((1, H, Hkv, 1024, D), f32, True, False, True),
         "d16_bf16": ((2, 4, 4, 517, 16), bf, True, False, False),
     }
     out = {}
@@ -3126,8 +3141,8 @@ def lm_reduced_checks(device, kernels=()) -> dict:
     ``Trainer`` (the launcher's optimizer, 2 microbatches) on the card
     against the CPU; per-step losses within TRAIN_LOSS_RTOL, parameters
     and optimizer state within TRAIN_PARAM_TOL.  f32 at D 8 and 16 is the
-    scalar routes' path: ``kernels``' launches on the card are counted,
-    and the scalar backward must launch once a layer and microbatch."""
+    f32 routes' path: ``kernels``' launches on the card are counted,
+    and the f32-route backward must launch once a layer and microbatch."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.train import synth_lm_batches
     from repro_torch.models.transformer import init_params, lm_loss
@@ -3933,7 +3948,7 @@ def main(argv: Sequence[str] = ()) -> int:
                         FLASH_ATTENTION_BACKWARD)
     train_kernels = serve_kernels + backward_kernels
     # the case each serve kernel's row of the kernels line shows: the
-    # scalar flash kernel serves f32 (the parity phase), the others bf16
+    # f32-route flash kernel serves f32 (the parity phase), the others bf16
     row_dtype = {FLASH_ATTENTION_WGMMA.symbol: "bf16",
                  FLASH_ATTENTION.symbol: "f32",
                  PAGED_ATTENTION.symbol: "bf16"}
@@ -4076,9 +4091,9 @@ def main(argv: Sequence[str] = ()) -> int:
     log(f"gnn train phase: {gnn['seconds']:.1f} s")
 
     # each attention kernel's launches by path: bf16 serving (granite,
-    # Moonshot, Qwen3), the f32 parity engines (the scalar flash kernel's
+    # Moonshot, Qwen3), the f32 parity engines (the f32-route flash kernel's
     # path), LM training (forward and remat recompute; the backward) and
-    # its REDUCED f32 steps (the scalar routes' training path)
+    # its REDUCED f32 steps (the f32 routes' training path)
     launch_paths = {"serve": serve, "parity": parity, "moe_serve": moe,
                     "moe_serve_qwen3": qwen3, "moe_parity": mparity,
                     "lm_train": lm, "lm_reduced": lm["reduced_checks"],
@@ -4087,9 +4102,12 @@ def main(argv: Sequence[str] = ()) -> int:
                           for path, rep in launch_paths.items()}
                for k in train_kernels}
     # the backward rows show the lm train microbatch (tensor cores) and
-    # REDUCED Moonshot's width in f32 (scalar)
+    # REDUCED Moonshot's width in f32 (split-TF32)
     backward_row = {FLASH_ATTENTION_BACKWARD_WGMMA.symbol: "lm_train_bf16",
                     FLASH_ATTENTION_BACKWARD.symbol: "d16_f32"}
+    # the cases run twice for bit identity and profiled by kernel
+    repeat_row = {FLASH_ATTENTION_BACKWARD_WGMMA.symbol: "lm_train_bf16",
+                  FLASH_ATTENTION_BACKWARD.symbol: "d64_f32"}
     # the search path's own launch: a decoded chunk, a join round
     search_case = {VARINT_DECODE.symbol: "search",
                    SORTED_MEMBER_MASK.symbol: "round"}
@@ -4144,9 +4162,8 @@ def main(argv: Sequence[str] = ()) -> int:
             "within_tolerance": all(
                 c["within_tolerance"] for c in lm["backward"].values()
                 if c["kernel"] == k.symbol),
-            **({key: lm["backward"]["lm_train_bf16"][key]
-                for key in ("bit_identical_rerun", "kernels_ms")}
-               if k is FLASH_ATTENTION_BACKWARD_WGMMA else {}),
+            **{key: lm["backward"][repeat_row[k.symbol]][key]
+               for key in ("bit_identical_rerun", "kernels_ms")},
         }
         for k in backward_kernels
     ] + [

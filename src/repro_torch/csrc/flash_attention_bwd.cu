@@ -72,34 +72,49 @@
 // P is exp2 on the special-function unit (ex2.approx.ftz), its
 // subnormal results flushed to zero.
 //
-// The scalar route (f32 at any D, bf16 at D 8 to 32;
-// flash_attention_backward) is the same three steps on f32 FMAs: one
-// thread a row in the row pass, then four threads a row, each a quarter of
-// D, the dot products summed across the quad.
+// The split-TF32 route (f32 at any D, bf16 at D 8 to 32;
+// flash_attention_backward).  Its bound is the same count of operations
+// over 165 TFLOP/s: each f32 product is three TF32 products at 495
+// TFLOP/s (tf32.cuh); f32 FMAs fed from shared memory reached 7 TFLOP/s
+// at f32 D 64.  Its five products are split-TF32 wgmma: Q_hi K_lo + Q_lo
+// K_hi + Q_hi K_hi for S, and so on, the small terms first, with P and dS
+// split from their f32 fragments as register A operands (bf16 operands
+// are exact in TF32 and take only their hi terms).
+//  (a) the row pass: one thread a row, delta in f32 from the saved output.
+//  (b) dK/dV: one block per (b, query head, 64-key tile), one warpgroup;
+//      K and V staged once as hi and lo tiles; the head's query tiles of
+//      16 rows streamed, each staged as it is (the B of S^T = K Q^T and
+//      dP^T = V dO^T) and transposed (the B of dV += P^T dO and dK += dS^T
+//      Q: tf32 wgmma reads shared memory K-major only), its next tile
+//      loaded into registers while this one's products run.  Up to D 64
+//      that is 96 KB of shared memory, two blocks an SM (32-row tiles, one
+//      block an SM, measured 7% slower at f32 D 64).
+//      Under GQA each head's share goes to f32 scratch, and a fourth
+//      kernel sums a group's shares in head order: a block per KV head
+//      leaves the longest causal block G heads' tiles and the grid G
+//      times fewer blocks (128 at f32 D 64, S 1,024: measured 1.4× slower,
+//      scripts/tf32_variants.py).
+//  (c) dQ: one block per (b, head, 64-query tile), the same shape; K and V
+//      tiles streamed up to the diagonal, K also transposed for dQ += dS K.
+// Each streamed tile's share of dK, dV or dQ is summed on the tensor cores
+// from zero and added in f32, as on the bf16 route, and the group's sum
+// runs in head order: a fixed order of sums here too.
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kRows = 64;   // scalar route: rows a block owns
 
 struct AllStrides {
   Strides q, k, v, dout, dq, dk, dv;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// ------------------------------------------------- (a) scalar row pass
+// ------------------------------------------------------- (a) f32 row pass
 // One thread a (b, h, s) row; delta is (B, H, S) contiguous.
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -565,183 +580,363 @@ dq_wgmma_kernel(const __grid_constant__ Maps maps, WgArgs p) {
                    p.scale, c0);
 }
 
-// ------------------------------------------------------ f32 FMA: scalar route
-constexpr int kSThreads = 256;
-constexpr int kTPR = kSThreads / kRows;  // threads a row: 4
-constexpr int kST = 32;                  // rows of a streamed tile
-
+// ------------------------------------------- f32: split-TF32 tensor route
+// Tiles of the route (tf32.cuh): one warpgroup a block, owning 64 rows
+// (keys in (b), queries in (c)), and streamed tiles of kN rows.
+// Shared memory: the owned tiles (K and V in (b), Q and dO in (c)) hi and
+// lo, the streamed tiles hi and lo as they are, then transposed (Q^T and
+// dO^T in (b), K^T in (c)), then (b)'s lse and delta rows.
 template <int D>
-constexpr int scalar_smem_bytes() {
-  return (2 * kST * (D + 1) + 2 * kST) * static_cast<int>(sizeof(float));
-}
-
-// A quad's sum of its four partial dot products.
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+struct Tc {
+  static constexpr int kThreads = 128;
+  static constexpr int kOwn = 64;
+  static constexpr int kN = 16;
+  static constexpr int kDBox = (D + 31) / 32;   // box columns across D
+  static constexpr int kCN = D < 64 ? D : 64;   // columns of a dK/dV/dQ chunk
+  static constexpr int kOwnBox = kOwn * kSwizzleRow;
+  static constexpr int kOwnTile = kDBox * kOwnBox;
+  static constexpr int kNBox = kN * kSwizzleRow;
+  static constexpr int kNTile = kDBox * kNBox;
+  static constexpr int kTBox = D * kSwizzleRow;  // transposed: one box column
+  static constexpr int kOwnA = 0, kOwnB = 2 * kOwnTile;
+  static constexpr int kStr = 4 * kOwnTile;
+  static constexpr int kTr = kStr + 4 * kNTile;
+  static constexpr int kLse = kTr + 4 * kTBox;
+  static constexpr int kBytesB = kLse + 2 * kN * 4;
+  static constexpr int kBytesC = kTr + 2 * kTBox;
+};
 
 template <typename T>
-struct ScalarPtrs {
+struct Ptrs {
   const T *q, *k, *v, *dout;
   const float *lse, *delta;
   T *dq, *dk, *dv;
+  float* parts;  // G > 1: each query head's dK, then its dV, (B, H, S, D)
 };
 
-// (b) dK and dV of one (b, KV head, 64-key tile): thread 4 r + t owns key
-// k0 + r and columns t, t + 4, ... of D.
-template <typename T, int D>
-__global__ void __launch_bounds__(kSThreads)
-dkdv_scalar_kernel(ScalarPtrs<T> p, AllStrides st, int H, int Hkv, int S,
-                   int causal, float c, float scale) {
-  constexpr int kDT = D / kTPR;
-  extern __shared__ float fs[];
-  float* qs = fs;                 // kST x (D + 1)
-  float* dos = qs + kST * (D + 1);  // kST x (D + 1)
-  float* ls = dos + kST * (D + 1);  // kST
-  float* ds = ls + kST;             // kST
-
-  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
-  const int group = H / Hkv;
-  const int k0 = blockIdx.y * kRows;
-  const int tid = threadIdx.x, t = tid % kTPR;
-  const int key = k0 + tid / kTPR;
-  const bool valid = key < S;
-  float kr[kDT], vr[kDT], dk[kDT], dv[kDT];
-  {
-    const T* krow = p.k + b * st.k.b + hk * st.k.h + key * st.k.s;
-    const T* vrow = p.v + b * st.v.b + hk * st.v.h + key * st.v.s;
+// acc[c] += a b over one streamed tile: a the (hi, lo) fragments of its
+// kSteps k8 steps, b the transposed tile at b_hi / b_lo, in chunks of kCN
+// of its D rows.  Each chunk's share is summed on the tensor cores from
+// zero, then added in f32.
+template <bool kSplit, int kSteps, int D, int kNC, int kR>
+__device__ __forceinline__ void add_tf32(float (&acc)[kNC][kR],
+                                         const uint32_t (&hi)[kSteps][4],
+                                         const uint32_t (&lo)[kSteps][4],
+                                         uint32_t b_hi, uint32_t b_lo) {
 #pragma unroll
-    for (int dd = 0; dd < kDT; ++dd) {
-      kr[dd] = valid ? to_f32(krow[dd * kTPR + t]) : 0.f;
-      vr[dd] = valid ? to_f32(vrow[dd * kTPR + t]) : 0.f;
-      dk[dd] = dv[dd] = 0.f;
-    }
-  }
-  const int qstart = causal ? k0 : 0;
-  for (int h = hk * group; h < (hk + 1) * group; ++h) {
-    const T* qb = p.q + b * st.q.b + h * st.q.h;
-    const T* db = p.dout + b * st.dout.b + h * st.dout.h;
-    const long long bh = static_cast<long long>(b) * H + h;
-    for (int q0 = qstart; q0 < S; q0 += kST) {
-      __syncthreads();  // the previous tile is consumed
-      for (int i = tid; i < kST * D; i += kSThreads) {
-        const int r = i / D, d = i % D;
-        const int row = q0 + r;
-        const bool ok = row < S;
-        qs[r * (D + 1) + d] = ok ? to_f32(qb[row * st.q.s + d]) : 0.f;
-        dos[r * (D + 1) + d] = ok ? to_f32(db[row * st.dout.s + d]) : 0.f;
-      }
-      if (tid < kST) {
-        const int row = q0 + tid;
-        ls[tid] = row < S ? p.lse[bh * S + row] : INFINITY;
-        ds[tid] = row < S ? p.delta[bh * S + row] : 0.f;
-      }
-      __syncthreads();
-      for (int i = 0; i < kST; ++i) {
-        const float* qrow = qs + i * (D + 1);
-        const float* drow = dos + i * (D + 1);
-        float sc = 0.f, dp = 0.f;
+  for (int c = 0; c < kNC; ++c) {
+    float part[kR];
 #pragma unroll
-        for (int dd = 0; dd < kDT; ++dd) {
-          sc = fmaf(kr[dd], qrow[dd * kTPR + t], sc);
-          dp = fmaf(vr[dd], drow[dd * kTPR + t], dp);
-        }
-        sc = quad_sum(sc);
-        dp = quad_sum(dp);
-        float pv = exp2f(fmaf(sc, c, -ls[i]));
-        if (causal && key > q0 + i) pv = 0.f;
-        const float dsv = pv * (dp - ds[i]);
+    for (int i = 0; i < kR; ++i) part[i] = 0.f;
+    const uint32_t rows = c * 2 * kR * kSwizzleRow;
+    wgmma_fence();
+    issue_rs<kSplit, kSteps, D * kSwizzleRow>(part, hi, lo, b_hi + rows,
+                                              b_lo + rows);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(part);
 #pragma unroll
-        for (int dd = 0; dd < kDT; ++dd) {
-          dv[dd] = fmaf(pv, drow[dd * kTPR + t], dv[dd]);
-          dk[dd] = fmaf(dsv, qrow[dd * kTPR + t], dk[dd]);
-        }
-      }
-    }
-  }
-  if (valid) {
-    T* dkrow = p.dk + b * st.dk.b + hk * st.dk.h + key * st.dk.s;
-    T* dvrow = p.dv + b * st.dv.b + hk * st.dv.h + key * st.dv.s;
-#pragma unroll
-    for (int dd = 0; dd < kDT; ++dd) {
-      store(dkrow + dd * kTPR + t, dk[dd] * scale);
-      store(dvrow + dd * kTPR + t, dv[dd]);
-    }
+    for (int i = 0; i < kR; ++i) acc[c][i] += part[i];
   }
 }
 
-// (c) dQ of one (b, head, 64-query tile): thread 4 r + t owns query
-// q0 + r and columns t, t + 4, ... of D.
+// Store a warpgroup's 64 x D accumulator, times `mul`, as rows row0 and
+// row0 + 8 of this thread (those below S), columns c0, c0 + 1 of each
+// 8-wide chunk.
+template <typename T, int kNC, int kR>
+__device__ __forceinline__ void store_tc(T* base, long long rs,
+                                         const float (&acc)[kNC][kR],
+                                         int row0, int S, float mul, int c0) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = row0 + 8 * j;
+    if (row >= S) continue;
+    T* out = base + row * rs;
+#pragma unroll
+    for (int c = 0; c < kNC; ++c)
+#pragma unroll
+      for (int n8 = 0; n8 < kR / 4; ++n8) {
+        const int i = 4 * n8 + 2 * j;
+        const int col = c * 2 * kR + 8 * n8 + c0;
+        store(out + col, acc[c][i] * mul);
+        store(out + col + 1, acc[c][i + 1] * mul);
+      }
+  }
+}
+
+// (b)'s streamed query tile of head h, rows from q0, into registers: Q
+// and dO, and for the first kN threads that row's lse and delta (+inf
+// and 0 past S, so those rows' P is 0 with no mask).
 template <typename T, int D>
-__global__ void __launch_bounds__(kSThreads)
-dq_scalar_kernel(ScalarPtrs<T> p, AllStrides st, int H, int Hkv, int S,
-                 int causal, float c, float scale) {
-  constexpr int kDT = D / kTPR;
-  extern __shared__ float fs[];
-  float* ks = fs;                  // kST x (D + 1)
-  float* vs = ks + kST * (D + 1);  // kST x (D + 1)
+__device__ __forceinline__ void fetch_queries(
+    const Ptrs<T>& p, const AllStrides& st, int b, int h, int H, int q0,
+    int S, int tid, float (&qx)[Stage<Tc<D>::kN, D, Tc<D>::kThreads>::kPer],
+    float (&dx)[Stage<Tc<D>::kN, D, Tc<D>::kThreads>::kPer], float& lv,
+    float& dl) {
+  constexpr int kN = Tc<D>::kN, NT = Tc<D>::kThreads;
+  load_tile<kN, D, NT>(qx, p.q + b * st.q.b + h * st.q.h, st.q.s, q0, S, tid);
+  load_tile<kN, D, NT>(dx, p.dout + b * st.dout.b + h * st.dout.h, st.dout.s,
+                       q0, S, tid);
+  if (tid < kN) {
+    const int row = q0 + tid;
+    const long long at = (static_cast<long long>(b) * H + h) * S + row;
+    lv = row < S ? p.lse[at] : INFINITY;
+    dl = row < S ? p.delta[at] : 0.f;
+  }
+}
+
+// (b) one query head's share of dK and dV of one (b, KV head, kOwn-key
+// tile), the longest causal tiles first: K and V staged once; the head's
+// query tiles streamed from the first that reaches the tile's keys.  With
+// one head a group the share is dK and dV; else it goes to p.parts, f32,
+// and group_sum_kernel adds the group's shares in head order.
+template <typename T, int D>
+__global__ void __launch_bounds__(Tc<D>::kThreads, 1)
+dkdv_tf32_kernel(Ptrs<T> p, AllStrides st, int H, int Hkv, int S, int causal,
+                 float c, float scale) {
+  using L = Tc<D>;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int kN = L::kN, kCN = L::kCN, kNC = D / kCN, NT = L::kThreads;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (base - smem_addr(smem_raw));
+  float* ls = reinterpret_cast<float*>(sm + L::kLse);  // lse, then delta
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int group = H / Hkv, hk = h / group;
+  const int k0 = blockIdx.y * L::kOwn;
+  const int tid = threadIdx.x;
+  {
+    float x[Stage<L::kOwn, D, NT>::kPer];
+    load_tile<L::kOwn, D, NT>(x, p.k + b * st.k.b + hk * st.k.h, st.k.s, k0,
+                              S, tid);
+    put_tile<kSplit, L::kOwn, D, NT>(x, sm + L::kOwnA,
+                                     sm + L::kOwnA + L::kOwnTile, tid);
+    load_tile<L::kOwn, D, NT>(x, p.v + b * st.v.b + hk * st.v.h, st.v.s, k0,
+                              S, tid);
+    put_tile<kSplit, L::kOwn, D, NT>(x, sm + L::kOwnB,
+                                     sm + L::kOwnB + L::kOwnTile, tid);
+  }
+  const int qt0 = causal ? k0 / kN : 0;
+  const int n_iter = (S + kN - 1) / kN - qt0;  // query tiles
+  float qx[Stage<kN, D, NT>::kPer], dx[Stage<kN, D, NT>::kPer];
+  float lv = 0.f, dl = 0.f;
+  fetch_queries<T, D>(p, st, b, h, H, qt0 * kN, S, tid, qx, dx, lv, dl);
+
+  const int lane = tid % 32;
+  // this thread's keys (fragment rows): key0 and key0 + 8
+  const int key0 = k0 + (tid / 32) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);  // its first column of each 8-wide chunk
+  const uint32_t qs = base + L::kStr, ds = qs + 2 * L::kNTile;
+  const uint32_t qt = base + L::kTr, dt = qt + 2 * L::kTBox;
+
+  float dk[kNC][kCN / 2], dv[kNC][kCN / 2];
+#pragma unroll
+  for (int cc = 0; cc < kNC; ++cc)
+#pragma unroll
+    for (int i = 0; i < kCN / 2; ++i) dk[cc][i] = dv[cc][i] = 0.f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int q0 = (qt0 + it) * kN;
+    __syncthreads();  // the previous tile's products are done
+    uint8_t* s0 = sm + L::kStr;
+    put_tile<kSplit, kN, D, NT>(qx, s0, s0 + L::kNTile, tid);
+    put_tile<kSplit, kN, D, NT>(dx, s0 + 2 * L::kNTile, s0 + 3 * L::kNTile,
+                                tid);
+    uint8_t* t0 = sm + L::kTr;
+    put_tile_t<kSplit, kN, D, NT>(qx, t0, t0 + L::kTBox, tid);
+    put_tile_t<kSplit, kN, D, NT>(dx, t0 + 2 * L::kTBox, t0 + 3 * L::kTBox,
+                                  tid);
+    if (tid < kN) {
+      ls[tid] = lv;
+      ls[kN + tid] = dl;
+    }
+    fence_async_smem();
+    __syncthreads();
+    if (it + 1 < n_iter)
+      fetch_queries<T, D>(p, st, b, h, H, q0 + kN, S, tid, qx, dx, lv, dl);
+
+    // S^T = K Q^T and dP^T = V dO^T, 64 keys x kN queries
+    float sc[kN / 2], dp[kN / 2];
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) sc[i] = dp[i] = 0.f;
+    wgmma_fence();
+    issue_ss<kSplit, D / 8, L::kOwnBox, L::kNBox>(
+        sc, base + L::kOwnA, base + L::kOwnA + L::kOwnTile, qs,
+        qs + L::kNTile);
+    wgmma_commit();
+    issue_ss<kSplit, D / 8, L::kOwnBox, L::kNBox>(
+        dp, base + L::kOwnB, base + L::kOwnB + L::kOwnTile, ds,
+        ds + L::kNTile);
+    wgmma_commit();
+    // register i: key key0 + 8 ((i / 2) % 2), query q0 + col(i)
+    auto col = [c0](int i) { return 8 * (i / 4) + c0 + (i % 2); };
+    const bool diag = causal && k0 + 63 > q0;
+    wgmma_wait<1>();  // S^T is ready; dP^T runs on
+    fence_regs(sc);
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) {
+      sc[i] = exp2f(fmaf(sc[i], c, -ls[col(i)]));
+      if (diag && key0 + 8 * ((i / 2) % 2) > q0 + col(i)) sc[i] = 0.f;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) dp[i] = sc[i] * (dp[i] - ls[kN + col(i)]);
+    uint32_t fh[kN / 8][4], fl[kN / 8][4];
+    a_fragments<kN / 8>(sc, fh, fl);
+    add_tf32<kSplit, kN / 8, D>(dv, fh, fl, dt, dt + L::kTBox);
+    a_fragments<kN / 8>(dp, fh, fl);
+    add_tf32<kSplit, kN / 8, D>(dk, fh, fl, qt, qt + L::kTBox);
+  }
+  if (group == 1) {
+    store_tc(p.dk + b * st.dk.b + hk * st.dk.h, st.dk.s, dk, key0, S, scale,
+             c0);
+    store_tc(p.dv + b * st.dv.b + hk * st.dv.h, st.dv.s, dv, key0, S, 1.f,
+             c0);
+  } else {
+    const long long head = (static_cast<long long>(b) * H + h) * S * D;
+    const long long all = static_cast<long long>(gridDim.x) * S * D;
+    store_tc(p.parts + head, D, dk, key0, S, scale, c0);
+    store_tc(p.parts + all + head, D, dv, key0, S, 1.f, c0);
+  }
+}
+
+// dK and dV of a group of G > 1 query heads: each (b, KV head, s, d)
+// element sums its heads' shares in head order, one thread an element.
+template <typename T>
+__global__ void __launch_bounds__(256)
+group_sum_kernel(const float* __restrict__ parts, T* __restrict__ dk,
+                 T* __restrict__ dv, int H, int Hkv, int S, int D,
+                 long long n, Strides sdk, Strides sdv) {
+  const long long i = blockIdx.x * 256LL + threadIdx.x;
+  if (i >= n) return;
+  const int group = H / Hkv;
+  const int d = static_cast<int>(i % D);
+  const int s = static_cast<int>(i / D % S);
+  const int hk = static_cast<int>(i / D / S % Hkv);
+  const long long b = i / D / S / Hkv;
+  const long long plane = static_cast<long long>(S) * D;
+  const float* pk = parts + (b * H + hk * group) * plane + s * D + d;
+  const float* pv = pk + n * group;  // the dV shares follow all dK shares
+  float sk = 0.f, sv = 0.f;
+  for (int g = 0; g < group; ++g) {
+    sk += pk[g * plane];
+    sv += pv[g * plane];
+  }
+  store(dk + b * sdk.b + hk * sdk.h + s * sdk.s + d, sk);
+  store(dv + b * sdv.b + hk * sdv.h + s * sdv.s + d, sv);
+}
+
+// (c) dQ of one (b, head, kOwn-query tile), the longest causal rows
+// first: Q and dO staged once; key tiles streamed up to the diagonal.
+template <typename T, int D>
+__global__ void __launch_bounds__(Tc<D>::kThreads, 1)
+dq_tf32_kernel(Ptrs<T> p, AllStrides st, int H, int Hkv, int S, int causal,
+               float c, float scale) {
+  using L = Tc<D>;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int kN = L::kN, kCN = L::kCN, kNC = D / kCN, NT = L::kThreads;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (base - smem_addr(smem_raw));
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int hk = h / (H / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
-  const int tid = threadIdx.x, t = tid % kTPR;
-  const int row = q0 + tid / kTPR;
-  const bool valid = row < S;
-  const long long bh = static_cast<long long>(b) * H + h;
-  float qr[kDT], dr[kDT], dq[kDT];
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::kOwn;
+  const int tid = threadIdx.x;
   {
-    const T* qrow = p.q + b * st.q.b + h * st.q.h + row * st.q.s;
-    const T* drow = p.dout + b * st.dout.b + h * st.dout.h + row * st.dout.s;
-#pragma unroll
-    for (int dd = 0; dd < kDT; ++dd) {
-      qr[dd] = valid ? to_f32(qrow[dd * kTPR + t]) : 0.f;
-      dr[dd] = valid ? to_f32(drow[dd * kTPR + t]) : 0.f;
-      dq[dd] = 0.f;
-    }
+    float x[Stage<L::kOwn, D, NT>::kPer];
+    load_tile<L::kOwn, D, NT>(x, p.q + b * st.q.b + h * st.q.h, st.q.s, q0,
+                              S, tid);
+    put_tile<kSplit, L::kOwn, D, NT>(x, sm + L::kOwnA,
+                                     sm + L::kOwnA + L::kOwnTile, tid);
+    load_tile<L::kOwn, D, NT>(x, p.dout + b * st.dout.b + h * st.dout.h,
+                              st.dout.s, q0, S, tid);
+    put_tile<kSplit, L::kOwn, D, NT>(x, sm + L::kOwnB,
+                                     sm + L::kOwnB + L::kOwnTile, tid);
   }
-  const float lse = valid ? p.lse[bh * S + row] : INFINITY;
-  const float delta = valid ? p.delta[bh * S + row] : 0.f;
   const T* kb = p.k + b * st.k.b + hk * st.k.h;
   const T* vb = p.v + b * st.v.b + hk * st.v.h;
-  const int kend = causal ? min(S, q0 + kRows) : S;
-  for (int k0 = 0; k0 < kend; k0 += kST) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < kST * D; i += kSThreads) {
-      const int r = i / D, d = i % D;
-      const int kr = k0 + r;
-      const bool ok = kr < S;
-      ks[r * (D + 1) + d] = ok ? to_f32(kb[kr * st.k.s + d]) : 0.f;
-      vs[r * (D + 1) + d] = ok ? to_f32(vb[kr * st.v.s + d]) : 0.f;
-    }
-    __syncthreads();
-    for (int j = 0; j < kST; ++j) {
-      const float* krow = ks + j * (D + 1);
-      const float* vrow = vs + j * (D + 1);
-      float sc = 0.f, dp = 0.f;
-#pragma unroll
-      for (int dd = 0; dd < kDT; ++dd) {
-        sc = fmaf(qr[dd], krow[dd * kTPR + t], sc);
-        dp = fmaf(dr[dd], vrow[dd * kTPR + t], dp);
-      }
-      sc = quad_sum(sc);
-      dp = quad_sum(dp);
-      const int key = k0 + j;
-      float pv = exp2f(fmaf(sc, c, -lse));
-      if (key >= S || (causal && key > row)) pv = 0.f;
-      const float dsv = pv * (dp - delta);
-#pragma unroll
-      for (int dd = 0; dd < kDT; ++dd)
-        dq[dd] = fmaf(dsv, krow[dd * kTPR + t], dq[dd]);
-    }
-  }
-  if (valid) {
-    T* dqrow = p.dq + b * st.dq.b + h * st.dq.h + row * st.dq.s;
-#pragma unroll
-    for (int dd = 0; dd < kDT; ++dd) store(dqrow + dd * kTPR + t, dq[dd] * scale);
-  }
-}
+  const int n_kt = ((causal ? min(S, q0 + L::kOwn) : S) + kN - 1) / kN;
+  float kx[Stage<kN, D, NT>::kPer], vx[Stage<kN, D, NT>::kPer];
+  load_tile<kN, D, NT>(kx, kb, st.k.s, 0, S, tid);
+  load_tile<kN, D, NT>(vx, vb, st.v.s, 0, S, tid);
 
+  const int lane = tid % 32;
+  // this thread's queries (fragment rows): row0 and row0 + 8
+  const int row0 = q0 + (tid / 32) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const uint32_t ks = base + L::kStr, vs = ks + 2 * L::kNTile;
+  const uint32_t kt = base + L::kTr;
+  // +inf and 0 past S, so those rows' P is 0
+  const long long bh = static_cast<long long>(b) * H + h;
+  float lr[2], dr[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = row0 + 8 * j;
+    lr[j] = row < S ? p.lse[bh * S + row] : INFINITY;
+    dr[j] = row < S ? p.delta[bh * S + row] : 0.f;
+  }
+
+  float dq[kNC][kCN / 2];
+#pragma unroll
+  for (int cc = 0; cc < kNC; ++cc)
+#pragma unroll
+    for (int i = 0; i < kCN / 2; ++i) dq[cc][i] = 0.f;
+
+  for (int t = 0; t < n_kt; ++t) {
+    __syncthreads();  // every warpgroup is done with the previous tile
+    uint8_t* s0 = sm + L::kStr;
+    put_tile<kSplit, kN, D, NT>(kx, s0, s0 + L::kNTile, tid);
+    put_tile<kSplit, kN, D, NT>(vx, s0 + 2 * L::kNTile, s0 + 3 * L::kNTile,
+                                tid);
+    put_tile_t<kSplit, kN, D, NT>(kx, sm + L::kTr, sm + L::kTr + L::kTBox,
+                                  tid);
+    fence_async_smem();
+    __syncthreads();
+    const int kt0 = t * kN;
+    if (t + 1 < n_kt) {
+      load_tile<kN, D, NT>(kx, kb, st.k.s, kt0 + kN, S, tid);
+      load_tile<kN, D, NT>(vx, vb, st.v.s, kt0 + kN, S, tid);
+    }
+
+    // S = Q K^T and dP = dO V^T, 64 queries x kN keys
+    float sc[kN / 2], dp[kN / 2];
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) sc[i] = dp[i] = 0.f;
+    wgmma_fence();
+    issue_ss<kSplit, D / 8, L::kOwnBox, L::kNBox>(
+        sc, base + L::kOwnA, base + L::kOwnA + L::kOwnTile, ks,
+        ks + L::kNTile);
+    wgmma_commit();
+    issue_ss<kSplit, D / 8, L::kOwnBox, L::kNBox>(
+        dp, base + L::kOwnB, base + L::kOwnB + L::kOwnTile, vs,
+        vs + L::kNTile);
+    wgmma_commit();
+    // register i: query row0 + 8 ((i / 2) % 2), key kt0 + col; keys past
+    // S or after the query are masked
+    const bool edge = kt0 + kN > S || (causal && kt0 + kN - 1 > q0);
+    wgmma_wait<1>();  // S is ready; dP runs on
+    fence_regs(sc);
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) {
+      const int r = (i / 2) % 2;
+      const int key = kt0 + 8 * (i / 4) + c0 + (i % 2);
+      sc[i] = exp2f(fmaf(sc[i], c, -lr[r]));
+      if (edge && (key >= S || (causal && key > row0 + 8 * r))) sc[i] = 0.f;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) dp[i] = sc[i] * (dp[i] - dr[(i / 2) % 2]);
+    uint32_t fh[kN / 8][4], fl[kN / 8][4];
+    a_fragments<kN / 8>(dp, fh, fl);
+    add_tf32<kSplit, kN / 8, D>(dq, fh, fl, kt, kt + L::kTBox);
+  }
+  store_tc(p.dq + b * st.dq.b + h * st.dq.h, st.dq.s, dq, row0, S, scale,
+           c0);
+}
 // --------------------------------------------------------------- launches
 struct Problem {
   int B, H, Hkv, S, D, causal;
@@ -825,38 +1020,47 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
 }
 
 template <typename T, int D>
-int launch_scalar(const ScalarPtrs<T>& p, const Problem& pr,
-                  cudaStream_t stream) {
-  constexpr int smem = scalar_smem_bytes<D>();
+int launch_tc(const Ptrs<T>& p, const Problem& pr, cudaStream_t stream) {
+  using L = Tc<D>;
+  constexpr int smem_b = L::kBytesB + 1024;  // + alignment slack
+  constexpr int smem_c = L::kBytesC + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_scalar_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      dkdv_tf32_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_b);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dq_scalar_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(dq_tf32_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_c);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned tiles = static_cast<unsigned>((pr.S + kRows - 1) / kRows);
+  const unsigned tiles = static_cast<unsigned>((pr.S + L::kOwn - 1) / L::kOwn);
   const float c = pr.scale * kLog2e;
-  dkdv_scalar_kernel<T, D><<<dim3(pr.B * pr.Hkv, tiles), kSThreads, smem,
-                             stream>>>(p, pr.st, pr.H, pr.Hkv, pr.S,
-                                       pr.causal, c, pr.scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dq_scalar_kernel<T, D><<<dim3(pr.B * pr.H, tiles), kSThreads, smem,
+  dkdv_tf32_kernel<T, D><<<dim3(pr.B * pr.H, tiles), L::kThreads, smem_b,
                            stream>>>(p, pr.st, pr.H, pr.Hkv, pr.S, pr.causal,
                                      c, pr.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (pr.H != pr.Hkv) {
+    const long long n = static_cast<long long>(pr.B) * pr.Hkv * pr.S * pr.D;
+    group_sum_kernel<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                          stream>>>(p.parts, p.dk, p.dv, pr.H, pr.Hkv, pr.S,
+                                    pr.D, n, pr.st.dk, pr.st.dv);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dq_tf32_kernel<T, D><<<dim3(pr.B * pr.H, tiles), L::kThreads, smem_c,
+                         stream>>>(p, pr.st, pr.H, pr.Hkv, pr.S, pr.causal, c,
+                                   pr.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int scalar_dispatch(const ScalarPtrs<T>& p, const Problem& pr,
-                    cudaStream_t stream) {
+int tc_dispatch(const Ptrs<T>& p, const Problem& pr, cudaStream_t stream) {
   switch (pr.D) {
-    case 8: return launch_scalar<T, 8>(p, pr, stream);
-    case 16: return launch_scalar<T, 16>(p, pr, stream);
-    case 32: return launch_scalar<T, 32>(p, pr, stream);
-    case 64: return launch_scalar<T, 64>(p, pr, stream);
-    case 128: return launch_scalar<T, 128>(p, pr, stream);
+    case 8: return launch_tc<T, 8>(p, pr, stream);
+    case 16: return launch_tc<T, 16>(p, pr, stream);
+    case 32: return launch_tc<T, 32>(p, pr, stream);
+    case 64: return launch_tc<T, 64>(p, pr, stream);
+    case 128: return launch_tc<T, 128>(p, pr, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -906,8 +1110,10 @@ extern "C" int flash_attention_backward_wgmma(
                                      dv, pr, st);
 }
 
-// The scalar route: dtype 0 float32, 1 bfloat16; D in {8, 16, 32, 64,
-// 128}.  delta is scratch of B H S f32, written here.
+// The split-TF32 route: dtype 0 float32, 1 bfloat16; D in {8, 16, 32, 64,
+// 128}; any strides with D contiguous.  delta is scratch written here: B H
+// S f32 (delta), then, when H > Hkv, 2 B H S D f32 (each query head's
+// share of dK, then of dV).
 extern "C" int flash_attention_backward(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -928,29 +1134,30 @@ extern "C" int flash_attention_backward(
   const Problem pr = problem(B, H, Hkv, S, D, s, causal, scale);
   auto st = static_cast<cudaStream_t>(stream);
   float* dl = static_cast<float*>(delta);
+  float* parts = dl + static_cast<long long>(B) * H * S;
   const float* ls = static_cast<const float*>(lse);
   if (dtype == 0) {
     const int err = launch_delta<float>(o, dout, dl, pr, st);
     if (err != 0) return err;
-    return scalar_dispatch<float>(
-        ScalarPtrs<float>{static_cast<const float*>(q),
+    return tc_dispatch<float>(
+        Ptrs<float>{static_cast<const float*>(q),
                           static_cast<const float*>(k),
                           static_cast<const float*>(v),
                           static_cast<const float*>(dout), ls, dl,
                           static_cast<float*>(dq), static_cast<float*>(dk),
-                          static_cast<float*>(dv)},
+                          static_cast<float*>(dv), parts},
         pr, st);
   }
   if (dtype == 1) {
     using bf = __nv_bfloat16;
     const int err = launch_delta<bf>(o, dout, dl, pr, st);
     if (err != 0) return err;
-    return scalar_dispatch<bf>(
-        ScalarPtrs<bf>{static_cast<const bf*>(q), static_cast<const bf*>(k),
+    return tc_dispatch<bf>(
+        Ptrs<bf>{static_cast<const bf*>(q), static_cast<const bf*>(k),
                        static_cast<const bf*>(v),
                        static_cast<const bf*>(dout), ls, dl,
                        static_cast<bf*>(dq), static_cast<bf*>(dk),
-                       static_cast<bf*>(dv)},
+                       static_cast<bf*>(dv), parts},
         pr, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);

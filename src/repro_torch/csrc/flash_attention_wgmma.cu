@@ -5,8 +5,8 @@
 // the output written in bf16.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention_kernel
-// (Pallas, TPU), beside the scalar kernel of flash_attention.cu, which keeps
-// f32 and the small head dims.  The wrapper (kernels/flash_attention/
+// (Pallas, TPU), beside the split-TF32 kernel of flash_attention.cu, which
+// keeps f32 and the small head dims.  The wrapper (kernels/flash_attention/
 // kernel.py) sends bf16 at D 64 and 128 here and nothing else.
 //
 // Bound on an H100: operations.  Causal work is 4 * B * H * D * S (S + 1) / 2

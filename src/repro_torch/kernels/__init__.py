@@ -23,7 +23,7 @@ Kernels:
                     CUDA routes chosen by ``flash_route``: bf16 at D 64
                     or 128 on the tensor cores (``wgmma`` fed by TMA,
                     ``csrc/flash_attention_wgmma.cu``), anything else on
-                    scalar f32 FMAs (``csrc/flash_attention.cu``)
+                    split-TF32 ``wgmma`` (``csrc/flash_attention.cu``)
   paged_attention — one-token attention over a paged KV pool (LM decode)
   embedding_bag   — fixed-size weighted bags of table rows, summed in
                     f32 (DLRM's 26 lookups)

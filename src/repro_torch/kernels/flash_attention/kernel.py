@@ -16,7 +16,11 @@ Two routes, chosen by :func:`flash_route` from the dtype and D alone:
     :func:`tma_problem` (16-byte aligned base, strides of 16 bytes, D
     contiguous); one that does not raises.
   * everything else (f32 at any D; bf16 at D 8, 16, 32) ->
-    ``FLASH_ATTENTION`` (``csrc/flash_attention.cu``): scalar f32 FMAs.
+    ``FLASH_ATTENTION`` (``csrc/flash_attention.cu``): split-TF32
+    ``wgmma`` on the tensor cores (each f32 product as hi lo + lo hi + hi
+    hi of tf32 halves, ``csrc/tf32.cuh``), its tiles staged by its own
+    threads, so any strides with a contiguous D are read in place and
+    nothing is copied.
 
 It is a choice between two hand-written kernels, each with its own launch
 count, never a retry: a CUDA error from either raises.  Either writes each
@@ -101,7 +105,8 @@ BACKWARD_ROW_PAD = 128
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> CudaKernel:
     """The kernel a CUDA call of ``dtype`` and head dim ``head_dim`` takes:
-    the wgmma kernel for bf16 at D 64 or 128, the scalar one otherwise."""
+    the bf16 wgmma kernel for bf16 at D 64 or 128, the split-TF32 one
+    otherwise."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return FLASH_ATTENTION_WGMMA
     return FLASH_ATTENTION
@@ -111,7 +116,8 @@ def flash_backward_route(dtype: torch.dtype, head_dim: int) -> CudaKernel:
     """The backward kernel a CUDA call of ``dtype`` and head dim
     ``head_dim`` takes: the TMA-fed ``wgmma`` route for bf16 at D 64 or
     128 (both fit the consumers' registers: streamed tiles of 64 rows at
-    D 64, 32 at D 128), the scalar f32-FMA route otherwise."""
+    D 64, 32 at D 128), the split-TF32 ``wgmma`` route otherwise (its
+    tiles staged by its own threads, as the forward's f32 route does)."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return FLASH_ATTENTION_BACKWARD_WGMMA
     return FLASH_ATTENTION_BACKWARD
@@ -177,7 +183,7 @@ def run_kernel(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor,
     :func:`flash_attention` has validated, and return its output (and,
     with ``return_lse``, the log-sum-exp it wrote).  The wrapper calls it
     with :func:`flash_route`'s choice; the card's checks call it to time
-    the scalar kernel on bf16 operands too."""
+    the split-TF32 kernel on bf16 operands too."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
@@ -216,8 +222,11 @@ def run_backward(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor,
     the C entry point, which runs the row pass, dK/dV and dQ.  The
     gradients are allocated in the operands' layouts and written whole.
     ``grad_out`` is copied only where the route cannot read it in place
-    (a strided last dim, or the wgmma route's 16-byte conditions, which
-    q, k, v and ``out`` must meet or raise)."""
+    (a strided last dim, or the bf16 wgmma route's 16-byte conditions,
+    which q, k, v and ``out`` must meet or raise; the split-TF32 route
+    stages its own tiles and asks no alignment).  Scratch: delta (and
+    lse's padded copy on the wgmma route; each query head's f32 share of
+    dk and dv on the split-TF32 route under GQA, 2 B H S D floats)."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     if grad_out.shape != q.shape or out.shape != q.shape:
@@ -245,7 +254,9 @@ def run_backward(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor,
         if grad_out.shape[-1] > 1 and grad_out.stride(-1) != 1:
             grad_out = grad_out.contiguous()
         dtype_code = (FLOAT_CODES[q.dtype],)
-        scratch = B * H * S
+        # delta, then (GQA) each query head's f32 share of dk and of dv,
+        # which the kernel sums over the group in head order
+        scratch = B * H * S * (1 + (2 * D if H != Hkv else 0))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk, dv
