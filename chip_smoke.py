@@ -104,19 +104,26 @@ Phases (any failure exits non-zero before the last line is printed):
      ``serve_p99`` calls of 512 rows, 10 ``serve_bulk`` calls of 262,144
      and 5 ``retrieval_cand`` calls over 1,000,000 candidates, ids drawn
      in each table's range and dense features uniform in [0, 1).  The bag
-     kernel's counter must rise by 26 a forward; every score must be
-     finite.  Prints table bytes, peak device memory, p50/p99, samples/s,
-     and over one call of each serve cell the device's busy share, top
-     kernels and the bag kernel's share (``torch.profiler``);
+     kernel's counter must rise by one a forward (all 26 tables in one
+     launch, written into the interaction's input); every score must be
+     finite, and a p99 and a bulk batch must score bit for bit as the
+     per-table launches and the stack of the earlier design do.  Prints
+     table bytes, peak device memory, p50/p99, samples/s, and over one
+     call of each serve cell the device's busy share, top kernels and the
+     bag kernel's share (``torch.profiler``);
   9. recsys parity: the four recsys archs in float32, card against CPU
      with the same weights (dlrm-mlperf at its published widths with each
      table cut to 10,000 rows; the others at REDUCED): scores within
      1e-4, top-100 ids equal but for adjacent pairs of scores within it;
  10. embedding_bag kernel: against its plain version in bf16 and f32 at
-     the serve phase's largest launch (K = 1, w = 1: bit identical), over
-     t19's 48,937,457 rows (and a 20M-row f32 table) with K = 8 and ids
-     among the tables' last rows, and at DIN's D = 18, K = 100; timed
-     beside its bytes bound and ``torch.nn.functional.embedding_bag``;
+     DLRM's one-table serve launch (262,144 bags, K = 1, w = 1: bit
+     identical), over t19's 48,937,457 rows (and a 20M-row f32 table)
+     with K = 8 and ids among the tables' last rows, at DIN's D = 18,
+     K = 100, and grouped: the 26 DLRM tables at ``serve_bulk``'s batch
+     in one launch, bit for bit against the per-table plain versions
+     (also with out-of-range ids under both rules); timed beside its
+     bytes bound (each distinct row its ids read counted once) and
+     ``torch.nn.functional.embedding_bag``;
  11. recsys train: dlrm-mlperf at its published widths with each table
      capped at 2^22 rows (5 of 26 cut: 23,458,556 rows, 3.0G parameters;
      the cut is printed as ``reduced``), f32 masters drawn on the card,
@@ -127,7 +134,7 @@ Phases (any failure exits non-zero before the last line is printed):
      autograd: equal losses, and every table's gradient within the
      f32 bound of ``table_grad_check`` of the exact sum and non-zero on
      the rows the batch touched; then 3 warm-up and 10 timed steps (the
-     bag kernel must launch 26 times a step), one profiled step (device
+     bag kernel must launch once a step), one profiled step (device
      busy share, top ops, the bag forward, the bag backward and AdamW
      apart), AdamW and the bag's backward timed alone (beside its bound
      and ``F.embedding``'s backward); REDUCED in f32, 3 steps card
@@ -282,6 +289,7 @@ RECSYS_PARITY_CANDIDATES = 1000
 # bag kernel against its plain version: f32 within the reference's own
 # limit (tests/test_kernels.py), bf16 within one rounding of each side
 BAG_F32_TOL = 1e-5
+BAG_SERVE_B = 262_144        # DLRM's serve launch: serve_bulk's batch
 BAG_F32_ROWS = 20_000_000     # 10.24 GB of f32 at D = 128: past 2^31
 BAG_DEPLOY_B, BAG_DEPLOY_K = 262_144, 8   # kernel_bench's K
 BAG_DIN_ROWS, BAG_DIN_D = 1_000_000, 18   # DIN's items and width
@@ -2049,12 +2057,38 @@ def retrieval_batch(sv, n_cand: int, gen: torch.Generator, device) -> dict:
                                           generator=gen, device=device)}
 
 
+def dlrm_forward_per_table(cfg, p: dict, batch: dict) -> torch.Tensor:
+    """``dlrm_forward`` as the port computed it before its bags were
+    grouped: a one-table bag launch a table, cast to ``cfg.dtype``,
+    stacked with the bottom MLP's output and widened to f32.  The serve
+    phase holds the grouped forward's scores to it bit for bit."""
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_fixed
+    from repro_torch.nn.layers import mlp_apply
+
+    dense_x, sparse = batch["dense"], batch["sparse"]
+    d = mlp_apply(p["bot"], dense_x.to(cfg.dtype), dtype=cfg.dtype,
+                  final_act=True)
+    cols = sparse.to(torch.int32).t().contiguous()
+    ones = torch.ones((dense_x.shape[0], 1), dtype=torch.float32,
+                      device=dense_x.device)
+    z = torch.stack([d] + [
+        embedding_bag_fixed(p["tables"][f"t{i}"]["table"], cols[i, :, None],
+                            ones, id_rule="fill").to(cfg.dtype)
+        for i in range(cfg.n_sparse)], dim=1)
+    zf = z.float()
+    inter = zf @ zf.transpose(1, 2)
+    iu = torch.triu_indices(z.shape[1], z.shape[1], 1, device=z.device)
+    flat = inter[:, iu[0], iu[1]].to(cfg.dtype)
+    return mlp_apply(p["top"], torch.cat([d, flat], dim=-1),
+                     dtype=cfg.dtype)[:, 0]
+
+
 def recsys_serve_phase(device, bag) -> tuple:
     """dlrm-mlperf at its published config (26 bf16 tables of 177,944,225
     rows, seeded random weights) through ``dlrm_forward`` and
     ``dlrm_retrieval``: the ``serve_p99``, ``serve_bulk`` and
     ``retrieval_cand`` cells.  Returns the report and the parameters
-    (the kernel phase reads two of the tables)."""
+    (the kernel phase reads the tables)."""
     from repro_torch.configs.registry import get_serving
     from repro_torch.models.recsys import DLRM_RETRIEVAL_CHUNK, top_ids
 
@@ -2118,12 +2152,20 @@ def recsys_serve_phase(device, bag) -> tuple:
                             "candidate positions")
     launches, largest = bag.launches, bag.largest
     peak = torch.cuda.max_memory_allocated(device)
-    expect = cfg.n_sparse * forwards
+    expect = forwards
     if launches != expect:
         failures.append(f"{bag.symbol}: {launches} launches, {expect} "
-                        f"expected ({cfg.n_sparse} a forward, {forwards} "
-                        "forwards)")
+                        f"expected (one a forward, {forwards} forwards)")
     # after the launch count is read: checks and profiles do not count
+    same = {}
+    for cell in ("serve_p99", "serve_bulk"):
+        batch = recsys_batch(sv, sizes[cell], gen, device)
+        same[cell] = bool(torch.equal(
+            sv.score(cfg, params, batch),
+            dlrm_forward_per_table(cfg, params, batch)))
+        if not same[cell]:
+            failures.append(f"recsys {cell}: the grouped launch's scores "
+                            "differ from the per-table launches'")
     scores = sv.candidate_scores(cfg, params, ret)
     finite.append(torch.isfinite(scores).all())
     if not torch.equal(top_ids(scores, 100), ids):
@@ -2154,6 +2196,7 @@ def recsys_serve_phase(device, bag) -> tuple:
                            **percentiles_ms(lat["retrieval_cand"])},
         "forwards": forwards, "launches": launches,
         "expected_launches": expect, "largest": largest,
+        "equal_to_per_table": same,
         "peak_mem_bytes": peak, "profile": profile, "failures": failures,
     }
     return report, params
@@ -2252,6 +2295,33 @@ def bag_ids(V: int, B: int, K: int, gen: torch.Generator,
     return ids
 
 
+def bag_bytes(tables: Sequence[torch.Tensor], ids: torch.Tensor,
+              id_rule: str, weight_bytes: int, out_bytes: int) -> int:
+    """The bytes a bag launch must move: each distinct row that table
+    ``t``'s ids (``ids[t]``) read under ``id_rule`` once (an id that
+    reads a NaN row reads none), every id once, and the weights and the
+    output as the caller counts them (shared weights once)."""
+    from repro_torch.kernels.embedding_bag.ref import resolve_ids
+
+    rows = 0
+    for t, table in enumerate(tables):
+        r, ok = resolve_ids(ids[t], table.shape[0], id_rule)
+        if ok is not None:
+            r = r[ok]
+        rows += torch.unique(r).numel() * table.shape[1] * table.element_size()
+    return rows + ids.numel() * 4 + weight_bytes + out_bytes
+
+
+def bound_of(nbytes: int, flops: int) -> dict:
+    """The least time on the card for ``nbytes`` and ``flops`` (f32
+    scalar operations), and which of the two bounds it."""
+    by_bytes = nbytes / HBM_BYTES_PER_S >= flops / SCALAR_OPS_PER_S
+    return {"bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            flops / SCALAR_OPS_PER_S) * 1e3,
+            "bound_by": "bytes" if by_bytes else "operations",
+            "bytes": nbytes}
+
+
 def bag_case(table: torch.Tensor, ids: torch.Tensor,
              w: torch.Tensor) -> dict:
     import torch.nn.functional as F
@@ -2267,8 +2337,6 @@ def bag_case(table: torch.Tensor, ids: torch.Tensor,
     del got, plain
     (V, D), (B, K) = table.shape, ids.shape
     esize = table.element_size()
-    nbytes = B * K * (D * esize + 8) + B * D * esize
-    flops = 2 * B * K * D
     lib_w = w.to(table.dtype)
     return {
         "shape": [V, D, B, K], "dtype": str(table.dtype).split(".")[-1],
@@ -2279,12 +2347,88 @@ def bag_case(table: torch.Tensor, ids: torch.Tensor,
         "plain_ms": cuda_ms(lambda: embedding_bag_fixed_plain(table, ids, w)),
         "library_ms": cuda_ms(lambda: F.embedding_bag(
             ids, table, mode="sum", per_sample_weights=lib_w)),
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                        flops / SCALAR_OPS_PER_S) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-        >= flops / SCALAR_OPS_PER_S else "operations",
-        "bytes": nbytes,
+        **bound_of(bag_bytes([table], ids[None], "clip", B * K * 4,
+                             B * D * esize), 2 * B * K * D),
     }
+
+
+def bag_group_case(tables: Sequence[torch.Tensor], B: int,
+                   gen: torch.Generator, device) -> dict:
+    """The tables in one launch of ``embedding_bags`` as DLRM's forward
+    makes it: ``B`` bags of one id a table, ids a transposed (B, T)
+    matrix, weight 1 shared, the ``fill`` rule, into a (B, T, D) block in
+    the tables' dtype.  Bit for bit against the per-table plain versions,
+    also with :func:`bad_ids` mixed into every table's ids under both
+    rules (NaN in the same places); timed beside the T one-table
+    launches it replaces (``per_table_ms``) and its bytes bound; and the
+    interaction's input written as f32 directly against bf16 widened
+    after (``interaction_input``).  No PyTorch call computes T tables
+    into strided slots, so ``library_ms`` is None."""
+    from repro_torch.kernels.embedding_bag.kernel import (
+        embedding_bag_fixed,
+        embedding_bags,
+    )
+    from repro_torch.kernels.embedding_bag.ref import embedding_bags_plain
+
+    n, D, dtype = len(tables), tables[0].shape[1], tables[0].dtype
+    sparse = torch.stack([bag_ids(t.shape[0], B, 1, gen, device)[:, 0]
+                          for t in tables], 1)                  # (B, T)
+    ids = sparse.t()[..., None]                                 # (T, B, 1)
+    w = torch.ones((1, 1, 1), device=device).expand(n, B, 1)
+    got = embedding_bags(tables, ids, w, "fill")
+    plain = embedding_bags_plain(tables, ids, w, "fill")
+    torch.cuda.synchronize()
+    out = {"tables": n, "shape": [sum(t.shape[0] for t in tables), D, B, 1],
+           "dtype": str(dtype).split(".")[-1],
+           **bag_check(got, plain),
+           "bit_identical": bool(torch.equal(got, plain))}
+    del got, plain
+    bad = torch.stack([bad_ids(sparse[:, i].contiguous(), t.shape[0])
+                       for i, t in enumerate(tables)], 1).t()[..., None]
+    out["bad_ids"] = int(sparse[:, 0][::BAG_BAD_EVERY].numel()) * n
+    for rule in ("clip", "fill"):
+        got = embedding_bags(tables, bad, w, rule)
+        plain = embedding_bags_plain(tables, bad, w, rule)
+        nan_g, nan_p = torch.isnan(got), torch.isnan(plain)
+        out[f"rules_{rule}"] = {
+            "bit_identical": bool(torch.equal(nan_g, nan_p)) and bool(
+                torch.equal(torch.where(nan_g, 0, got),
+                            torch.where(nan_p, 0, plain))),
+            "nan_bags": int(nan_g.any(2).sum())}
+        del got, plain, nan_g, nan_p
+    out["within_tolerance"] = (
+        out["within_tolerance"] and out["bit_identical"]
+        and out["rules_clip"]["bit_identical"]
+        and out["rules_fill"]["bit_identical"]
+        and out["rules_clip"]["nan_bags"] == 0
+        and out["rules_fill"]["nan_bags"] > 0)
+    cols = sparse.t().contiguous()
+    ones = torch.ones((B, 1), device=device)
+    head = torch.zeros((B, D), dtype=dtype, device=device)
+
+    def per_table():
+        return [embedding_bag_fixed(t, cols[i, :, None], ones, id_rule="fill")
+                for i, t in enumerate(tables)]
+
+    out.update({
+        "ms": cuda_ms(lambda: embedding_bags(tables, ids, w, "fill")),
+        "clip_ms": cuda_ms(lambda: embedding_bags(tables, ids, w, "clip")),
+        "per_table_ms": cuda_ms(per_table),
+        "plain_ms": cuda_ms(lambda: embedding_bags_plain(tables, ids, w,
+                                                         "fill"), reps=3),
+        "library_ms": None,
+        "library_note": "no PyTorch call computes several tables' bags "
+                        "into strided slots of one buffer",
+        "interaction_input": {
+            "f32_ms": cuda_ms(lambda: embedding_bags(
+                tables, ids, w, "fill", dtype=torch.float32, head=head)),
+            "bf16_then_float_ms": cuda_ms(lambda: embedding_bags(
+                tables, ids, w, "fill", head=head).float())},
+        **bound_of(bag_bytes(tables, ids, "fill", 4,
+                             B * n * D * tables[0].element_size()),
+                   2 * n * B * D),
+    })
+    return out
 
 
 def bad_ids(ids: torch.Tensor, V: int) -> torch.Tensor:
@@ -2339,17 +2483,18 @@ def bag_rule_case(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
-def bag_phase(params: dict, largest, device) -> Dict[str, dict]:
-    """The bag kernel against its plain version in bf16 and f32: at the
-    serve phase's largest launch (K = 1, w = 1; bit identical, and with
-    out-of-range ids under both id rules, :func:`bag_rule_case`), at a
-    multi-hot deployment shape over t19's 48,937,457 rows (and a 20M-row
-    f32 table; both past 2^31 elements), and at DIN's widths (D = 18,
-    K = 100)."""
+def bag_phase(params: dict, device) -> Dict[str, dict]:
+    """The bag kernel against its plain version in bf16 and f32: at
+    DLRM's one-table serve launch (BAG_SERVE_B bags, K = 1, w = 1; bit
+    identical, and with out-of-range ids under both id rules,
+    :func:`bag_rule_case`), at a multi-hot deployment shape over t19's
+    48,937,457 rows (and a 20M-row f32 table; both past 2^31 elements),
+    at DIN's widths (D = 18, K = 100), and grouped: the 26 DLRM tables
+    in one launch at ``serve_bulk``'s batch (:func:`bag_group_case`)."""
     gen = torch.Generator(device=device).manual_seed(31)
-    B, K, D = largest or (262_144, 1, 128)
-    t0 = params["tables"]["t0"]["table"]
-    t19 = params["tables"]["t19"]["table"]
+    tables = [t["table"] for t in params["tables"].values()]
+    t0, t19 = tables[0], tables[19]
+    B, K, D = BAG_SERVE_B, 1, t0.shape[1]
     f32 = torch.empty((BAG_F32_ROWS, D), device=device).normal_(
         0.0, 0.02, generator=gen)
     ones = torch.ones((B, K), device=device)
@@ -2370,7 +2515,27 @@ def bag_phase(params: dict, largest, device) -> Dict[str, dict]:
                             device=device).normal_(0.0, 0.02, generator=gen)
         out[f"din_{tag}"] = bag_case(
             table, bag_ids(BAG_DIN_ROWS, BAG_DIN_B, BAG_DIN_K, gen, device), w)
+    del table
+    out["grouped_bf16"] = bag_group_case(tables, BAG_SERVE_B, gen, device)
     return out
+
+
+def bag_failures(bags: Dict[str, dict]) -> List[str]:
+    """What :func:`bag_phase`'s cases say failed."""
+    failures = []
+    for where, case in bags.items():
+        if where.startswith("rules") and not case["within_tolerance"]:
+            failures.append(f"embedding_bag's id rules differ from its plain "
+                            f"version's at {where}: {json.dumps(case)}")
+        elif not case["within_tolerance"]:
+            failures.append(f"embedding_bag disagrees with its plain version "
+                            f"at {where} shape {case['shape']}: error "
+                            f"{case['max_err_ratio']:.3g} times its limit")
+        if (where.startswith(("serve", "grouped"))
+                and not case["bit_identical"]):
+            failures.append(f"embedding_bag at {where} (K = 1, w = 1) is not "
+                            "bit identical to its plain version")
+    return failures
 
 
 # -------------------------------------------------------- recsys train --
@@ -2403,37 +2568,39 @@ def numpy_train_batch(cfg, n: int, seed: int) -> dict:
             "label": (rng.rand(n) < TRAIN_CTR).astype(np.float32)}
 
 
-def route_grads(cfg, params: dict, batch: dict, bag: Callable) -> dict:
+def route_grads(cfg, params: dict, batch: dict, bags: Callable) -> dict:
     """One forward and backward of ``dlrm_loss`` with its table lookups
-    through ``bag`` (the kernel's ``embedding_bag_fixed``, or its plain
-    version under autograd): the loss, each table's gradient, and each
-    table's ids and the cotangent of its bag output (the K = 1, w = 1
-    bags of DLRM's path)."""
+    through ``bags`` (the kernel's ``embedding_bags``, or its plain
+    version ``embedding_bags_plain`` under autograd): the loss, each
+    table's gradient, and each table's ids and the cotangent of its slot
+    of the interaction's input (the K = 1, w = 1 bags of DLRM's path)."""
     from repro_torch.models import recsys as RS
 
     names = [f"t{i}" for i in range(cfg.n_sparse)]
     tables = {n: params["tables"][n]["table"].detach().requires_grad_(True)
               for n in names}
-    outs = []
+    calls = []
 
-    def recording(table, ids, w, id_rule="clip"):
-        out = bag(table, ids, w, id_rule=id_rule)
-        outs.append((ids, out))
+    def recording(tabs, ids, w, id_rule="clip", **kw):
+        out = bags(tabs, ids, w, id_rule=id_rule, **kw)
+        calls.append((ids, out))
         return out
 
     p = {**params, "tables": {n: {"table": t} for n, t in tables.items()}}
-    orig, RS.embedding_bag_fixed = RS.embedding_bag_fixed, recording
+    orig, RS.embedding_bags = RS.embedding_bags, recording
     try:
         loss = RS.dlrm_loss(cfg, p, batch)
     finally:
-        RS.embedding_bag_fixed = orig
-    grads = torch.autograd.grad(
-        loss, [tables[n] for n in names] + [out for _, out in outs])
+        RS.embedding_bags = orig
+    (ids, z), = calls
     n = len(names)
+    grads = torch.autograd.grad(loss, [tables[name] for name in names] + [z])
+    lead = z.shape[1] - n
     return {"loss": loss.detach(),
             "grads": dict(zip(names, grads[:n])),
-            "ids": {name: ids.reshape(-1) for name, (ids, _) in zip(names, outs)},
-            "cots": dict(zip(names, grads[n:]))}
+            "ids": {name: ids[i].reshape(-1) for i, name in enumerate(names)},
+            "cots": {name: grads[n][:, lead + i]
+                     for i, name in enumerate(names)}}
 
 
 def table_grad_check(grad: torch.Tensor, ids: torch.Tensor,
@@ -2522,19 +2689,13 @@ def bag_backward_case(V: int, D: int, B: int, gen: torch.Generator,
     (lib,) = torch.autograd.grad(out, table, grad_out, retain_graph=True)
     err = float((got - lib).abs().max())
     del got, lib
-    nbytes = V * D * 4 + B * (D * 4 + 8)
-    flops = 2 * B * D
     return {
         "shape": [V, D, B, 1], "dtype": "float32", "max_abs_err": err,
         "ms": cuda_ms(lambda: embedding_bag_fixed_backward(
             grad_out, ids, w, (V, D), torch.float32), reps=10),
         "library_ms": cuda_ms(lambda: torch.autograd.grad(
             out, table, grad_out, retain_graph=True), reps=10),
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                        flops / SCALAR_OPS_PER_S) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-        >= flops / SCALAR_OPS_PER_S else "operations",
-        "bytes": nbytes,
+        **bound_of(V * D * 4 + B * (D * 4 + 8), 2 * B * D),
     }
 
 
@@ -2764,12 +2925,12 @@ def recsys_train_phase(device, bag) -> dict:
     ``Trainer`` with the recsys bundle's optimizer on batches of
     ``train_batch`` rows: the kernel route's table gradients against the
     plain route's on one batch, TRAIN_WARMUP_STEPS warm-up steps and
-    TRAIN_TIMED_STEPS timed ones (the bag kernel must launch once a table
-    and step), one profiled step, AdamW and the bag's backward timed
+    TRAIN_TIMED_STEPS timed ones (the bag kernel must launch once a
+    step), one profiled step, AdamW and the bag's backward timed
     alone, then the REDUCED checks."""
     from repro_torch.configs.registry import get_training
-    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_fixed
-    from repro_torch.kernels.embedding_bag.ref import embedding_bag_fixed_plain
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bags
+    from repro_torch.kernels.embedding_bag.ref import embedding_bags_plain
     from repro_torch.train.optim import adamw_update
     from repro_torch.train.trainer import Trainer, TrainerConfig
     from repro_torch.tree import leaves, tree_map
@@ -2796,8 +2957,8 @@ def recsys_train_phase(device, bag) -> dict:
 
     # the gradient is real: kernel route against plain route, one batch
     gbatch = train_batch(cfg, B, TRAIN_SEED - 1, device)
-    kern = route_grads(cfg, params, gbatch, embedding_bag_fixed)
-    plain = route_grads(cfg, params, gbatch, embedding_bag_fixed_plain)
+    kern = route_grads(cfg, params, gbatch, embedding_bags)
+    plain = route_grads(cfg, params, gbatch, embedding_bags_plain)
     tables, fails = grad_failures(kern, plain)
     failures += fails
     grad_loss = float(kern["loss"])
@@ -2832,11 +2993,10 @@ def recsys_train_phase(device, bag) -> dict:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t1)
     launches = bag.launches
-    expect = cfg.n_sparse * n_steps
+    expect = n_steps
     if launches != expect:
         failures.append(f"{bag.symbol}: {launches} launches in training, "
-                        f"{expect} expected ({cfg.n_sparse} a step, "
-                        f"{n_steps} steps)")
+                        f"{expect} expected (one a step, {n_steps} steps)")
     losses = [h["loss"] for h in trainer.history]
     if not all(np.isfinite(losses)) or len(losses) != n_steps:
         failures.append(f"recsys train: losses {losses}")
@@ -4008,20 +4168,11 @@ def main(argv: Sequence[str] = ()) -> int:
     rparity = recsys_parity_phase(device)
     log("recsys parity: " + json.dumps(rparity))
     failures += rparity["failures"]
-    bags = bag_phase(dlrm_params, recsys["largest"], device)
+    bags = bag_phase(dlrm_params, device)
     del dlrm_params
     for where, case in bags.items():
         log(f"kernel embedding_bag {where}: " + json.dumps(case))
-        if where.startswith("rules") and not case["within_tolerance"]:
-            failures.append(f"embedding_bag's id rules differ from its plain "
-                            f"version's at {where}: {json.dumps(case)}")
-        elif not case["within_tolerance"]:
-            failures.append(f"embedding_bag disagrees with its plain version "
-                            f"at {where} shape {case['shape']}: error "
-                            f"{case['max_err_ratio']:.3g} times its limit")
-        if where.startswith("serve") and not case["bit_identical"]:
-            failures.append(f"embedding_bag at {where} (K = 1, w = 1) is not "
-                            "bit identical to its plain version")
+    failures += bag_failures(bags)
     log(f"recsys phases: {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
@@ -4182,6 +4333,10 @@ def main(argv: Sequence[str] = ()) -> int:
             "within_tolerance": all(c["within_tolerance"]
                                     for c in bags.values()),
             "deploy": bags["deploy_bf16"],
+            "grouped": {key: bags["grouped_bf16"][key]
+                        for key in ("tables", "shape", "ms", "per_table_ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "bit_identical")},
             "backward": train["backward"],
         }
     ]}

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Run some of ``chip_smoke.py``'s MoE, LM-training and GNN-training
-phases alone on one CUDA card, to iterate on them without the whole smoke
-run.
+"""Run some of ``chip_smoke.py``'s recsys, MoE, LM-training and
+GNN-training phases alone on one CUDA card, to iterate on them without
+the whole smoke run.
 
-    python3 scripts/smoke_phases.py moe,qwen3,mparity,lm,mesh,guard,attn,gnn \
+    python3 scripts/smoke_phases.py recsys,rtrain,moe,qwen3,mparity,lm,mesh,guard,attn,gnn \
         [--seed 0] [--out build/smoke_phases.json]
 
-Phases: ``moe`` (Moonlight-16B-A3B served at its full config), ``qwen3``
+Phases: ``recsys`` (DLRM-MLPerf served at its published config, the four
+recsys archs card against CPU, and the bag kernel's cases, the grouped
+launch among them), ``rtrain`` (DLRM-MLPerf trained with tables capped at
+2^22 rows), ``moe`` (Moonlight-16B-A3B served at its full config), ``qwen3``
 (Qwen3-235B-A22B widths at 8 layers), ``mparity`` (both MoE configs at
 REDUCED, card against CPU), ``lm`` (granite-3-2b trained at its published
 widths), ``mesh`` (granite-3-2b's step on a one-rank NCCL mesh against
@@ -34,7 +37,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("moe", "qwen3", "mparity", "lm", "mesh", "guard", "attn", "bwd",
+PHASES = ("recsys", "rtrain", "moe", "qwen3", "mparity", "lm", "mesh", "guard", "attn", "bwd",
           "gnn")
 PATH_NAMES = {"moe": "moe_serve", "qwen3": "moe_serve_qwen3", "lm": "lm_train"}
 SUMMARY_KEYS = ("tokens_per_s", "prefill", "decode_step", "dropped",
@@ -60,6 +63,18 @@ def backward_phase(cs, device) -> dict:
                  for name, case in cases.items()
                  if case.get("bit_identical_rerun") is False]
     return {"cases": cases, "failures": failures}
+
+
+def recsys_phase(cs, device, bag) -> dict:
+    """The smoke run's recsys serve, parity and bag-kernel phases."""
+    serve, params = cs.recsys_serve_phase(device, bag)
+    parity = cs.recsys_parity_phase(device)
+    bags = cs.bag_phase(params, device)
+    del params
+    return {"serve": serve, "parity": parity, "bags": bags,
+            "launches": serve["launches"],
+            "failures": serve["failures"] + parity["failures"]
+            + cs.bag_failures(bags)}
 
 
 def main(argv=None) -> int:
@@ -101,6 +116,8 @@ def main(argv=None) -> int:
     cs.log(f"build: {time.perf_counter() - t0:.1f} s")
     cs.log(cs.smi_line())
     calls = {
+        "recsys": lambda: recsys_phase(cs, device, EMBEDDING_BAG),
+        "rtrain": lambda: cs.recsys_train_phase(device, EMBEDDING_BAG),
         "moe": lambda: cs.moe_serve_phase(device, kernels),
         "qwen3": lambda: cs.moe_qwen3_phase(device, kernels),
         "mparity": lambda: cs.moe_parity_phase(device, kernels),

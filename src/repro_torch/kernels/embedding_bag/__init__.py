@@ -1,2 +1,8 @@
-from repro_torch.kernels.embedding_bag.ops import embedding_bag_fixed  # noqa: F401
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_fixed_plain  # noqa: F401
+from repro_torch.kernels.embedding_bag.ops import (  # noqa: F401
+    embedding_bag_fixed,
+    embedding_bags,
+)
+from repro_torch.kernels.embedding_bag.ref import (  # noqa: F401
+    embedding_bag_fixed_plain,
+    embedding_bags_plain,
+)

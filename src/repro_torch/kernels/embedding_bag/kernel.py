@@ -3,15 +3,18 @@
 ``out[b] = sum_k weights[b, k] * table[ids[b, k]]`` for K ids a bag,
 summed in f32 and cast to the table's dtype, as in the Pallas
 ``embedding_bag_kernel`` that the CUDA kernel (``csrc/embedding_bag.cu``)
-ports; the source says how and what bounds it.  Under autograd the bag
-is one ``torch.autograd.Function`` whose backward is plain PyTorch on
-both devices (:func:`embedding_bag_fixed_backward`).
+ports; the source says how and what bounds it.  One C entry serves any
+number of tables of one width and dtype in one launch
+(:func:`embedding_bags`, DLRM's lookups into the interaction's input);
+:func:`embedding_bag_fixed` is its group of one.  Under autograd each is
+one ``torch.autograd.Function`` whose backward is plain PyTorch on both
+devices (:func:`embedding_bag_fixed_backward`, once a table).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -23,15 +26,18 @@ from repro_torch.kernels.cuda_lib import (
 from repro_torch.kernels.embedding_bag.ref import (
     ID_RULES,
     embedding_bag_fixed_plain,
+    embedding_bags_plain,
     resolve_ids,
 )
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 EMBEDDING_BAG = CudaKernel(
-    "embedding_bag",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6,
+    "embedding_bags",
+    [_P, _P, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L] + [_I] * 6,
     source="src/repro_torch/csrc/embedding_bag.cu",
     replaces="src/repro/kernels/embedding_bag/kernel.py:40",
 )
+MAX_TABLES = 64   # tables a launch: csrc/embedding_bag.cu's kMaxTables
 
 
 def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
@@ -73,18 +79,25 @@ def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
     return _EmbeddingBagFixed.apply(table, ids, weights, id_rule)
 
 
-def _launch(table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
-            id_rule: str = "clip") -> torch.Tensor:
-    (B, K), (V, D) = ids.shape, table.shape
-    out = torch.empty((B, D), dtype=table.dtype, device=table.device)
+def _launch(tables: Sequence[torch.Tensor], ids: torch.Tensor,
+            weights: torch.Tensor, out: torch.Tensor, id_rule: str) -> None:
+    """One launch over ``tables``: ``ids`` and ``weights`` (T, B, K) and
+    ``out`` (T, B, D), views whose last dim is contiguous, each table's
+    bags written into ``out[t]``."""
+    n, B, K = ids.shape
+    D = out.shape[2]
     if B == 0 or D == 0:
-        return out
+        return
     EMBEDDING_BAG.launch(
-        table.device, (B, K, D),
-        table.data_ptr(), ids.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        FLOAT_CODES[table.dtype], B, K, D, V, ID_RULES.index(id_rule),
+        ids.device, (n, B, K, D),
+        (ctypes.c_void_p * n)(*[t.data_ptr() for t in tables]),
+        (ctypes.c_int * n)(*[t.shape[0] for t in tables]), n,
+        ids.data_ptr(), ids.stride(0), ids.stride(1),
+        weights.data_ptr(), weights.stride(0), weights.stride(1),
+        out.data_ptr(), out.stride(0), out.stride(1),
+        FLOAT_CODES[tables[0].dtype], FLOAT_CODES[out.dtype], B, K, D,
+        ID_RULES.index(id_rule),
     )
-    return out
 
 
 def embedding_bag_fixed_backward(
@@ -142,7 +155,9 @@ class _EmbeddingBagFixed(torch.autograd.Function):
             out = embedding_bag_fixed_plain(table, ids, weights,
                                             id_rule=id_rule)
         else:
-            out = _launch(table, ids, weights, id_rule)
+            out = torch.empty((ids.shape[0], table.shape[1]),
+                              dtype=table.dtype, device=table.device)
+            _launch((table,), ids[None], weights[None], out[None], id_rule)
         ctx.table_shape, ctx.table_dtype = tuple(table.shape), table.dtype
         ctx.id_rule = id_rule
         ctx.save_for_backward(ids, weights,
@@ -157,3 +172,114 @@ class _EmbeddingBagFixed(torch.autograd.Function):
             ctx.id_rule)
         return (grad_table if ctx.needs_input_grad[0] else None, None,
                 grad_weights, None)
+
+
+def embedding_bags(tables: Sequence[torch.Tensor], ids: torch.Tensor,
+                   weights: torch.Tensor, id_rule: str = "clip", *,
+                   dtype: Optional[torch.dtype] = None,
+                   head: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The bags of ``T`` tables in one launch: a (B, T, D) result whose
+    slot ``t`` is ``sum_k weights[t, b, k] * tables[t][ids[t, b, k]]``,
+    summed in f32, rounded to the tables' dtype and converted to
+    ``dtype`` (the tables' by default), as
+    ``embedding_bag_fixed(tables[t], ids[t], weights[t]).to(dtype)``
+    gives it, bit for bit.  With ``head`` (B, D) the result is (B, T + 1,
+    D) with ``head`` converted into slot 0 and table ``t`` in slot
+    ``t + 1``: DLRM's interaction input, written once.
+
+    ``tables`` are 1 to MAX_TABLES (V_t, D) contiguous tables of one
+    dtype (f32 or bf16) and one D; ``ids`` (T, B, K) int32 and
+    ``weights`` (T, B, K) f32 may be any views whose K dim is contiguous
+    (a stride of 0 shares, as ``ones.expand``; the caller's (B, T) ids
+    transposed need no copy).  Ids outside a table follow ``id_rule`` as
+    in :func:`embedding_bag_fixed`.  CUDA operands launch the kernel,
+    CPU ones take :func:`~.ref.embedding_bags_plain`.  Differentiable in
+    the tables and head (weights that need a gradient take
+    :func:`embedding_bag_fixed`): the backward is
+    :func:`embedding_bag_fixed_backward` once a table, given the
+    result's gradient cast back through the output's and the table's
+    dtypes, as autograd would through the per-table bag and its cast."""
+    if id_rule not in ID_RULES:
+        raise ValueError(f"id_rule must be one of {ID_RULES}, got {id_rule!r}")
+    tables = tuple(tables)
+    if not 1 <= len(tables) <= MAX_TABLES:
+        raise ValueError(f"1 to {MAX_TABLES} tables a launch, got "
+                         f"{len(tables)}")
+    first = tables[0]
+    check_float_operand(first, "tables[0]", 2)
+    D, device = first.shape[1], first.device
+    if not isinstance(ids, torch.Tensor) or ids.dtype != torch.int32:
+        raise TypeError("ids must be an int32 tensor")
+    if ids.dim() != 3 or ids.shape[0] != len(tables):
+        raise ValueError(f"ids must be (T, B, K) with T = {len(tables)}, "
+                         f"got {tuple(ids.shape)}")
+    if not isinstance(weights, torch.Tensor) or weights.dtype != torch.float32:
+        raise TypeError("weights must be a float32 tensor")
+    if weights.shape != ids.shape:
+        raise ValueError(f"weights {tuple(weights.shape)} and ids "
+                         f"{tuple(ids.shape)} differ in shape")
+    if weights.requires_grad and torch.is_grad_enabled():
+        raise ValueError("the grouped bag gives no gradient of its weights; "
+                         "call embedding_bag_fixed a table")
+    for i, t in enumerate(tables):
+        if (not isinstance(t, torch.Tensor) or t.dtype != first.dtype
+                or t.dim() != 2 or t.shape[1] != D):
+            raise ValueError(f"tables[{i}] is not a (V, {D}) {first.dtype} "
+                             "table")
+        if not t.is_contiguous():
+            raise ValueError(f"tables[{i}] must be contiguous")
+        if t.shape[0] >= 2 ** 31 or (t.shape[0] == 0 and ids.numel() > 0):
+            raise ValueError(f"tables[{i}] has {t.shape[0]} rows")
+    dtype = first.dtype if dtype is None else dtype
+    if dtype not in FLOAT_CODES:
+        raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
+    if head is not None and (not isinstance(head, torch.Tensor)
+                             or head.shape != (ids.shape[1], D)):
+        raise ValueError(f"head must be ({ids.shape[1]}, {D})")
+    operands = [*tables, ids, weights] + ([] if head is None else [head])
+    devices = {t.device for t in operands}
+    if len(devices) != 1:
+        raise ValueError(f"operands on several devices: {devices}")
+    if device.type != "cpu" and ids.shape[2] > 1 and (
+            ids.stride(2) != 1 or weights.stride(2) != 1):
+        raise ValueError("ids and weights must be contiguous along K")
+    return _EmbeddingBags.apply(head, ids, weights, id_rule, dtype, *tables)
+
+
+class _EmbeddingBags(torch.autograd.Function):
+    """The grouped bag under autograd: one launch forward (the plain
+    version on the CPU), the plain backward once a table that needs a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, head, ids, weights, id_rule, dtype, *tables):
+        n, B, _ = ids.shape
+        lead = 0 if head is None else 1
+        out = torch.empty((B, n + lead, tables[0].shape[1]), dtype=dtype,
+                          device=ids.device)
+        if head is not None:
+            out[:, 0] = head
+        slots = out[:, lead:]
+        if ids.device.type == "cpu":
+            embedding_bags_plain(tables, ids, weights, id_rule, out=slots)
+        else:
+            _launch(tables, ids, weights, slots.transpose(0, 1), id_rule)
+        ctx.lead, ctx.id_rule = lead, id_rule
+        ctx.head_dtype = None if head is None else head.dtype
+        ctx.tables = [(tuple(t.shape), t.dtype) for t in tables]
+        ctx.save_for_backward(ids, weights)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ids, weights = ctx.saved_tensors
+        grad_tables = [
+            embedding_bag_fixed_backward(
+                grad_out[:, ctx.lead + t].to(dtype), ids[t], weights[t],
+                shape, dtype, id_rule=ctx.id_rule)[0]
+            if ctx.needs_input_grad[5 + t] else None
+            for t, (shape, dtype) in enumerate(ctx.tables)]
+        grad_head = None
+        if ctx.lead and ctx.needs_input_grad[0]:
+            grad_head = grad_out[:, 0].to(ctx.head_dtype)
+        return (grad_head, None, None, None, None, *grad_tables)

@@ -53,3 +53,27 @@ def embedding_bag_fixed_plain(
     if mode == "mean":
         out = out / weights.float().sum(1).clamp(min=1e-9)[:, None]
     return out.to(table.dtype)
+
+
+def embedding_bags_plain(tables, ids: torch.Tensor, weights: torch.Tensor,
+                         id_rule: str = "clip", *, dtype=None, head=None,
+                         out=None) -> torch.Tensor:
+    """The grouped bag of :func:`~.kernel.embedding_bags` in plain
+    PyTorch: table ``t``'s bags, :func:`embedding_bag_fixed_plain` of
+    ``tables[t]``, ``ids[t]`` and ``weights[t]`` (rounded to the table's
+    dtype), converted into slot ``t`` of a (B, T, D) result in ``dtype``
+    (the tables' by default), or slot ``t + 1`` of a (B, T + 1, D) one
+    whose slot 0 is ``head`` (B, D).  ``out`` takes the result in place
+    of a new tensor.  Differentiable in the tables, weights and head by
+    autograd."""
+    lead = 0 if head is None else 1
+    if out is None:
+        out = torch.empty(
+            (ids.shape[1], len(tables) + lead, tables[0].shape[1]),
+            dtype=dtype or tables[0].dtype, device=ids.device)
+    if head is not None:
+        out[:, 0] = head
+    for t, table in enumerate(tables):
+        out[:, lead + t] = embedding_bag_fixed_plain(
+            table, ids[t], weights[t], id_rule=id_rule)
+    return out

@@ -17,9 +17,10 @@ stay f32): at DLRM-MLPerf's widths the 26 tables are 45.5 GB in bf16 and
 would not fit a card in f32.  Training takes the reference's layout,
 f32 masters (``masters=True``), which every forward casts to
 ``cfg.dtype`` at use, as the reference does.  DLRM's 26 single-hot
-lookups go through the embedding-bag kernel (differentiable: its
-``autograd.Function``) as bags of one id of weight 1, which is the row
-itself, bit for bit; every other lookup is a plain gather, as in the
+lookups go through the embedding-bag kernel in one launch a forward
+(differentiable: its grouped ``autograd.Function``) as bags of one id of
+weight 1, which is the row itself, bit for bit, written into the
+interaction's input; every other lookup is a plain gather, as in the
 reference.
 
 Top-k keeps the lower index first among equal scores, as
@@ -38,7 +39,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.embedding_bag.ops import embedding_bag_fixed
+from repro_torch.kernels.embedding_bag.ops import embedding_bags
 from repro_torch.models.attention import mha
 from repro_torch.nn.layers import (
     cast_params,
@@ -131,26 +132,27 @@ def dlrm_init(cfg: DLRMConfig, gen: torch.Generator,
 
 def dlrm_forward(cfg: DLRMConfig, p: Params, batch: Dict) -> torch.Tensor:
     """(B,) scores from ``dense`` (B, 13) and ``sparse`` (B, 26) ids: one
-    embedding-bag launch a table, then the dot interaction of the 27
-    vectors in f32 and the top MLP.  The bags read ids under the ``fill``
-    rule of the reference's ``embedding_lookup`` (``jnp.take``): an id
-    in ``[-rows, 0)`` wraps, any other id outside its table gives a NaN
-    row and so a NaN score."""
+    embedding-bag launch for all 26 tables that writes each lookup into
+    its slot of the interaction's input beside the bottom MLP's output,
+    then the dot interaction of the 27 vectors in f32 and the top MLP.
+    The bags read ids under the ``fill`` rule of the reference's
+    ``embedding_lookup`` (``jnp.take``): an id in ``[-rows, 0)`` wraps,
+    any other id outside its table gives a NaN row and so a NaN score."""
     dense_x = batch["dense"]
     sparse = batch["sparse"]
     B = dense_x.shape[0]
     d = mlp_apply(p["bot"], dense_x.to(cfg.dtype), dtype=cfg.dtype,
                   final_act=True)                                # (B, D)
-    # one transposed copy makes every column's (B, 1) ids contiguous
-    cols = sparse.to(torch.int32).t().contiguous()
-    ones = torch.ones((B, 1), dtype=torch.float32, device=dense_x.device)
-    embs = [
-        embedding_bag_fixed(p["tables"][f"t{i}"]["table"], cols[i, :, None],
-                            ones, id_rule="fill").to(cfg.dtype)
-        for i in range(cfg.n_sparse)
-    ]
-    z = torch.stack([d] + embs, dim=1)                           # (B, 27, D)
-    del embs
+    tables = [p["tables"][f"t{i}"]["table"] for i in range(cfg.n_sparse)]
+    ids = sparse.to(torch.int32).t()[..., None]            # (26, B, 1) view
+    ones = torch.ones((1, 1, 1), dtype=torch.float32,
+                      device=dense_x.device).expand(cfg.n_sparse, B, 1)
+    # each lookup is rounded to its table's dtype; where that is cfg.dtype
+    # the bags go straight into the f32 input of the interaction (a bf16
+    # value widens exactly), else into cfg.dtype and are widened after
+    zdt = torch.float32 if tables[0].dtype == cfg.dtype else cfg.dtype
+    z = embedding_bags(tables, ids, ones, id_rule="fill", dtype=zdt,
+                       head=d)                                   # (B, 27, D)
     zf = z.float()
     inter = zf @ zf.transpose(1, 2)                              # (B, 27, 27)
     iu = torch.triu_indices(z.shape[1], z.shape[1], 1, device=z.device)

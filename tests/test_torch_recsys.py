@@ -302,24 +302,27 @@ def test_dlrm_retrieval_scores_in_chunks(monkeypatch):
 
 
 def test_dlrm_forward_goes_through_embedding_bag(monkeypatch):
-    """One ``embedding_bag_fixed`` call a table, each a (B, 1) bag of
-    int32 ids with weight 1, read under the ``fill`` rule of the
-    reference's ``embedding_lookup``."""
+    """One ``embedding_bags`` call a forward for all 26 tables: (26, B,
+    1) int32 ids with weight 1, read under the ``fill`` rule of the
+    reference's ``embedding_lookup``, written beside the bottom MLP's
+    output (``head``) into the interaction's f32 input."""
     _, _, sv, pparams = _models("dlrm-mlperf", "bf16")
     calls = []
-    bag = port_rs.embedding_bag_fixed
+    bags = port_rs.embedding_bags
 
-    def spy(table, ids, weights, id_rule="clip"):
-        calls.append((tuple(ids.shape), ids.dtype, bool((weights == 1).all()),
-                      id_rule))
-        return bag(table, ids, weights, id_rule=id_rule)
+    def spy(tables, ids, weights, id_rule="clip", **kw):
+        calls.append((len(tables), tuple(ids.shape), ids.dtype,
+                      bool((weights == 1).all()), id_rule, kw["dtype"],
+                      tuple(kw["head"].shape)))
+        return bags(tables, ids, weights, id_rule=id_rule, **kw)
 
-    monkeypatch.setattr(port_rs, "embedding_bag_fixed", spy)
+    monkeypatch.setattr(port_rs, "embedding_bags", spy)
     batch = _both(_retrieval_batch("dlrm-mlperf", sv.config,
                                    np.random.RandomState(8), 1))[1]
     batch = {"dense": batch["dense"], "sparse": batch["sparse"]}
     port_rs.dlrm_forward(sv.config, pparams, batch)
-    assert calls == [((1, 1), torch.int32, True, "fill")] * 26
+    assert calls == [(26, (26, 1, 1), torch.int32, True, "fill",
+                      torch.float32, (1, sv.config.embed_dim))]
 
 
 # -------------------------------------------------------------- registry --

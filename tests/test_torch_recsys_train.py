@@ -48,6 +48,8 @@ from repro_torch.kernels.cuda_lib import require_no_grad
 from repro_torch.kernels.embedding_bag import (
     embedding_bag_fixed,
     embedding_bag_fixed_plain,
+    embedding_bags,
+    embedding_bags_plain,
 )
 from repro_torch.kernels.flash_attention.kernel import (
     NO_GRAD_HINT,
@@ -484,8 +486,8 @@ def test_chip_grad_check_passes_clean_and_fails_a_cut_gradient(dtype):
     cfg = dataclasses.replace(tr.config, dtype=dtype)
     params = tr.init(cfg, torch.Generator().manual_seed(0), masters=True)
     batch = cs.train_batch(cfg, 256, 5, CPU)
-    kern = cs.route_grads(cfg, params, batch, embedding_bag_fixed)
-    plain = cs.route_grads(cfg, params, batch, embedding_bag_fixed_plain)
+    kern = cs.route_grads(cfg, params, batch, embedding_bags)
+    plain = cs.route_grads(cfg, params, batch, embedding_bags_plain)
     tables, failures = cs.grad_failures(kern, plain)
     assert failures == [] and len(tables) == 26
     assert all(t["kernel"]["nonzero"] and t["max_abs_diff"] <= 1e-6
