@@ -180,8 +180,13 @@ Phases (any failure exits non-zero before the last line is printed):
      against CPU (the f32-route backward must launch once a layer and
      microbatch); the bare attention wrappers must raise on a ``q`` that
      requires grad, and the ``Function`` must give the plain version's
-     gradient.  Then both attention kernels against their plain versions
-     (outputs and log-sum-exps) at the shapes these paths gave them;
+     gradient.  Then the mesh phase on a one-rank NCCL (1, 1) mesh: the
+     granite step through the tensor-parallel route
+     (``distributed.tensor_parallel``) bit for bit against the unsharded
+     step, with its count of ``model`` collectives, and moonshot at its
+     published widths cut to 2 layers likewise (``mesh_phase``).  Then
+     both attention kernels against their plain versions (outputs and
+     log-sum-exps) at the shapes these paths gave them;
  15. gnn train: MACE at its published widths (2 layers, k 128, l_max 2,
      correlation 3, 8 radial functions) through ``get_bundle("mace")``'s
      four cells and ``Trainer`` with the bundle's AdamW, data synthetic
@@ -346,6 +351,9 @@ LM_TRAIN_PARITY_STEPS = 3    # REDUCED, card against CPU
 # the mesh phase: a one-rank NCCL mesh's granite step against the
 # unsharded one, its peak at most this much above that step's
 MESH_PEAK_RATIO = 1.05
+MESH_MOE_LAYERS = 2              # moonshot-v1-16b-a3b cut to 2 layers
+MESH_MOE_BATCH = (2, 1024)       # one microbatch of 2 x 1,024 tokens
+MESH_MOE_RTOL = 1e-6             # the CPU mesh tests' relative tolerance
 MESH_PSUM_SHAPE = (2048, 8192)   # one of granite's (d, d_ff) gradients
 # kernel route against plain route, one microbatch in bf16.  The two
 # forwards differ only in the order of f32 sums before each attention
@@ -989,21 +997,49 @@ def cuda_ms(fn: Callable[[], object], reps: int = 20) -> float:
 
 
 def profiler_ms(fn: Callable[[], object], match: Optional[str] = None,
-                reps: int = 20) -> Optional[float]:
+                reps: int = 20, counts: Optional[dict] = None
+                ) -> Optional[float]:
     """The mean device time of the kernels named ``match`` (of all its
     kernels, without one) over ``reps`` calls of ``fn``
     (``torch.profiler``): the kernel's own time, where CUDA events over
     calls that the host cannot issue as fast as the device runs them read
     the host's time.  A session that returns no device activity is run
-    again, up to three times; then None."""
+    again, up to three times; then None.
+
+    With ``match``, the launches of those kernels that the session
+    captured must be ``reps`` times one call's (a call profiled alone
+    first, again up to three times until it holds one of them): a session
+    that lost some of them would divide less than ``reps`` calls' time by
+    ``reps``.  Where they differ, or no lone call held a launch, the
+    reading is None; the counts are logged and, where ``counts`` is
+    given, written into it (``one_call``, and ``launches`` and
+    ``expected`` of the session over ``reps`` calls)."""
     fn()
     torch.cuda.synchronize()
+    one = 0
     for _ in range(3):
+        if match is not None and not one:
+            one = device_profile(fn, match=match)[f"{match}_launches"]
+            if counts is not None:
+                counts.update(one_call=one)
+            if not one:
+                continue
         prof = device_profile(lambda: [fn() for _ in range(reps)],
                               match=match)
-        if prof["captured"]:
-            key = f"{match}_ms" if match else "device_busy_ms"
-            return prof[key] / reps
+        if not prof["captured"]:
+            continue
+        if match is not None:
+            got, want = prof[f"{match}_launches"], reps * one
+            if counts is not None:
+                counts.update(launches=got, expected=want)
+            if got != want:
+                log(f"profiler: {got} {match} launches captured over {reps} "
+                    f"calls, {want} expected: no reading")
+                return None
+        key = f"{match}_ms" if match else "device_busy_ms"
+        return prof[key] / reps
+    if match is not None and not one:
+        log(f"profiler: no {match} launch captured in one call: no reading")
     return None
 
 
@@ -1902,8 +1938,10 @@ def paged_case(R: int, G: int, D: int, page: int, max_pages: int,
         else "bytes",
         "flops": flops, "bytes": nbytes,
     }
+    case["profiler_launches"] = {}
     case["profiler_kernel_ms"] = profiler_ms(
-        lambda: paged_attention(q, kp, vp, table, lens), "paged_attention")
+        lambda: paged_attention(q, kp, vp, table, lens), "paged_attention",
+        counts=case["profiler_launches"])
     if cold:
         n = max(2, -(-2 * L2_BYTES // (2 * tokens * D * esize)))
         pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(n - 1)]
@@ -1915,8 +1953,10 @@ def paged_case(R: int, G: int, D: int, page: int, max_pages: int,
 
         case["cold_copies"] = n
         case["ms_cold"] = cuda_ms(next_pool)
-        case["profiler_kernel_ms_cold"] = profiler_ms(next_pool,
-                                                      "paged_attention")
+        case["profiler_launches_cold"] = {}
+        case["profiler_kernel_ms_cold"] = profiler_ms(
+            next_pool, "paged_attention",
+            counts=case["profiler_launches_cold"])
         del pools
     return case
 
@@ -3537,6 +3577,90 @@ def one_step(trainer, batch: dict, device) -> dict:
             "step_peak_bytes": torch.cuda.max_memory_allocated(device) - held}
 
 
+def mesh_moe_step(mesh, device, kernels, failures: List[str]) -> dict:
+    """moonshot-v1-16b-a3b at its published widths, MESH_MOE_LAYERS
+    layers, f32 masters: one step of one MESH_MOE_BATCH microbatch
+    without a mesh, then on ``mesh`` through the tensor- and
+    expert-parallel route, from the same params and batch."""
+    from repro_torch.configs.families import lm_bundle
+    from repro_torch.configs.registry import get_bundle
+    from repro_torch.distributed.hooks import use_mesh
+    from repro_torch.distributed.sharding import place
+    from repro_torch.distributed.tensor_parallel import MODEL_COLLECTIVES
+    from repro_torch.launch.train import synth_lm_batches
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import flatten_with_path, leaves, path_name, tree_map
+
+    full = get_bundle("moonshot-v1-16b-a3b")
+    cfg = dataclasses.replace(full.config, n_layers=MESH_MOE_LAYERS)
+    bundle = lm_bundle(full.name, cfg, opt=full.opt, microbatches=1)
+    params = bundle.init(torch.Generator(device=device).manual_seed(0))
+    n_params = sum(t.numel() for t in leaves(params))
+    batch = {k: torch.as_tensor(v, device=device) for k, v in
+             synth_lm_batches(cfg.vocab, *MESH_MOE_BATCH)(0).items()}
+    tc = TrainerConfig(opt=bundle.opt, microbatches=1, log_every=1)
+    plain_tr = Trainer(bundle.loss_fn(), params, tc, device=device)
+    plain = one_step(plain_tr, batch, device)
+    plain["dropped_tokens"] = plain_tr.loss_fn.take_dropped()
+    plain_params = plain_tr.params
+    del plain_tr
+    torch.cuda.empty_cache()
+    placed = tree_map(place, params, bundle.param_shardings(mesh))
+    mesh_tr = Trainer(bundle.loss_fn(), placed, tc, device=device)
+    del placed, params
+    for k in kernels:
+        k.launches = 0
+    MODEL_COLLECTIVES.reset()
+    with use_mesh(mesh):
+        sharded = one_step(mesh_tr, batch, device)
+    launches = {k.symbol: k.launches for k in kernels}
+    sharded["dropped_tokens"] = mesh_tr.loss_fn.take_dropped()
+    collectives = MODEL_COLLECTIVES.count
+    worst, same = 0.0, 0
+    for (p, a), b in zip(flatten_with_path(mesh_tr.params),
+                         leaves(plain_params)):
+        a = a.to_local()
+        same += bool(torch.equal(a, b))
+        scale = max(float(b.abs().max()), 1e-30)
+        worst = max(worst, float((a.double() - b.double()).abs().max())
+                    / scale)
+    loss_rel = abs(sharded["loss"] / plain["loss"] - 1)
+    expect = 2 * cfg.n_layers
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "batch": list(MESH_MOE_BATCH), "unsharded": plain,
+           "sharded": sharded, "model_collectives": collectives,
+           "loss_rel_err": loss_rel,
+           "loss_bit_identical": sharded["loss"] == plain["loss"],
+           "params_bit_identical": same,
+           "n_params_leaves": len(leaves(plain_params)),
+           "param_max_rel_err": worst, "launches": launches,
+           "expected_flash_wgmma_launches": expect,
+           "expected_flash_backward_wgmma_launches": cfg.n_layers}
+    log(f"mesh moe: {n_params:,} params, unsharded step {plain['s']:.2f} s, "
+        f"mesh step {sharded['s']:.2f} s, loss {sharded['loss']:.6f} vs "
+        f"{plain['loss']:.6f}, params within {worst:.3g} ({same} of "
+        f"{out['n_params_leaves']} bit for bit), drops "
+        f"{sharded['dropped_tokens']:.0f} vs {plain['dropped_tokens']:.0f}, "
+        f"{collectives} model collectives")
+    if loss_rel > MESH_MOE_RTOL or worst > MESH_MOE_RTOL:
+        failures.append(f"mesh moe: the mesh step differs from the "
+                        f"unsharded one: loss {loss_rel:.3g}, params "
+                        f"{worst:.3g} relative (at most {MESH_MOE_RTOL})")
+    if sharded["dropped_tokens"] != plain["dropped_tokens"]:
+        failures.append(f"mesh moe: {sharded['dropped_tokens']} drops on the "
+                        f"mesh, {plain['dropped_tokens']} unsharded")
+    if collectives == 0:
+        failures.append("mesh moe: the mesh step issued no model collective")
+    if launches.get("flash_attention_wgmma") != expect or launches.get(
+            "flash_attention_backward_wgmma") != cfg.n_layers:
+        failures.append(f"mesh moe: flash kernels launched {launches}, "
+                        f"{expect} forward and {cfg.n_layers} backward "
+                        f"expected")
+    del mesh_tr, plain_params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_phase(device, kernels) -> dict:
     """The sharding slice on a one-rank NCCL group, set up from a
     FileStore in a temporary directory (no network): ``compressed_psum``
@@ -3549,7 +3673,18 @@ def mesh_phase(device, kernels) -> dict:
     param bit for bit, the step's peak at most MESH_PEAK_RATIO of the
     unsharded step's, and the wgmma flash kernel and the backward kernel
     launched by it (the backward has no float atomics, so both steps'
-    gradients are the same bits)."""
+    gradients are the same bits).  The mesh step computes on the
+    weights' ``model`` shards (``distributed.tensor_parallel``: on a
+    one-rank axis each shard is the whole weight, and every collective of
+    the route runs over the one rank); the count of ``model`` collectives
+    it issued must be above 0.  Then moonshot-v1-16b-a3b at its published
+    widths cut to MESH_MOE_LAYERS layers (about 1.5 B params, f32
+    masters): one step of one microbatch of MESH_MOE_BATCH, unsharded and
+    then on the mesh (the first trainer freed before the second), held
+    to each other within MESH_MOE_RTOL (loss and each param, over its
+    largest value; bit-identity reported) with equal MoE drops, the
+    ``model`` collectives above 0 and the flash kernels launched as
+    expected."""
     import os
 
     import torch.distributed as dist
@@ -3563,6 +3698,7 @@ def mesh_phase(device, kernels) -> dict:
     )
     from repro_torch.distributed.hooks import use_mesh
     from repro_torch.distributed.sharding import is_sharded, place
+    from repro_torch.distributed.tensor_parallel import MODEL_COLLECTIVES
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import synth_lm_batches
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -3629,12 +3765,15 @@ def mesh_phase(device, kernels) -> dict:
             del placed, params
             for k in kernels:
                 k.launches = 0
+            MODEL_COLLECTIVES.reset()
             with use_mesh(mesh):
                 sharded = one_step(mesh_tr, batch, device)
             launches = {k.symbol: k.launches for k in kernels}
+            collectives = MODEL_COLLECTIVES.count
             log(f"mesh: one-rank mesh step {sharded['s']:.2f} s, loss "
                 f"{sharded['loss']:.6f}, step peak "
-                f"{sharded['step_peak_bytes']:,} B")
+                f"{sharded['step_peak_bytes']:,} B, {collectives} model "
+                f"collectives")
             differ = [path_name(p) for (p, a), b in zip(
                 flatten_with_path(mesh_tr.params), leaves(plain_params))
                 if not (is_sharded(a) and torch.equal(a.to_local(), b))]
@@ -3649,8 +3788,12 @@ def mesh_phase(device, kernels) -> dict:
                 "params_differing": differ[:10],
                 "n_params_differing": len(differ),
                 "step_peak_ratio": ratio, "launches": launches,
+                "model_collectives": collectives,
                 "expected_flash_wgmma_launches": expect,
                 "expected_flash_backward_wgmma_launches": expect_bwd})
+            if collectives == 0:
+                failures.append("mesh: the mesh step issued no model "
+                                "collective (not the tensor-parallel route)")
             if not same_loss or differ:
                 failures.append(
                     f"mesh: the one-rank mesh step differs from the unsharded "
@@ -3672,6 +3815,7 @@ def mesh_phase(device, kernels) -> dict:
                     f"in the mesh step, {expect_bwd} expected (one a layer "
                     f"and microbatch: {cfg.n_layers} x {mb})")
             del mesh_tr, plain_params, batch
+            out["moe"] = mesh_moe_step(mesh, device, kernels, failures)
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -4244,11 +4388,12 @@ def main(argv: Sequence[str] = ()) -> int:
     # each attention kernel's launches by path: bf16 serving (granite,
     # Moonshot, Qwen3), the f32 parity engines (the f32-route flash kernel's
     # path), LM training (forward and remat recompute; the backward) and
-    # its REDUCED f32 steps (the f32 routes' training path)
+    # its REDUCED f32 steps (the f32 routes' training path); the mesh
+    # phase's granite and moonshot steps
     launch_paths = {"serve": serve, "parity": parity, "moe_serve": moe,
                     "moe_serve_qwen3": qwen3, "moe_parity": mparity,
                     "lm_train": lm, "lm_reduced": lm["reduced_checks"],
-                    "mesh": mesh}
+                    "mesh": mesh, "mesh_moe": mesh["moe"]}
     by_path = {k.symbol: {path: rep["launches"].get(k.symbol, 0)
                           for path, rep in launch_paths.items()}
                for k in train_kernels}

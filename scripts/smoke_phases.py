@@ -12,9 +12,10 @@ launch among them), ``rtrain`` (DLRM-MLPerf trained with tables capped at
 2^22 rows), ``moe`` (Moonlight-16B-A3B served at its full config), ``qwen3``
 (Qwen3-235B-A22B widths at 8 layers), ``mparity`` (both MoE configs at
 REDUCED, card against CPU), ``lm`` (granite-3-2b trained at its published
-widths), ``mesh`` (granite-3-2b's step on a one-rank NCCL mesh against
-the unsharded step, ``compressed_psum`` and a bf16 checkpoint on the
-card), ``guard`` (the attention wrappers' grad guard and the flash
+widths), ``mesh`` (granite-3-2b's step and moonshot-v1-16b-a3b's at 2
+layers on a one-rank NCCL mesh through the tensor-parallel route, each
+against its unsharded step with the count of ``model`` collectives,
+``compressed_psum`` and a bf16 checkpoint on the card), ``guard`` (the attention wrappers' grad guard and the flash
 ``Function``), ``attn`` (both attention kernels at the shapes the
 ``moe``, ``qwen3`` and ``lm`` phases gave them), ``bwd`` (the flash
 backward kernel on both routes against the plain backward at the cases
@@ -45,7 +46,8 @@ SUMMARY_KEYS = ("tokens_per_s", "prefill", "decode_step", "dropped",
                 "grad_check", "configs", "reduced_checks", "backward",
                 "adamw_ms", "setup_s", "split_s", "checks",
                 "reduced_checks", "hand_kernel_launches", "seconds",
-                "unsharded", "sharded", "step_peak_ratio", "failures")
+                "unsharded", "sharded", "step_peak_ratio",
+                "model_collectives", "moe", "failures")
 
 
 def backward_phase(cs, device) -> dict:

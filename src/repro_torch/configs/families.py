@@ -196,9 +196,9 @@ class LMBundle(_Sharded):
 
     def loss_fn(self) -> Callable:
         """``loss(params, batch)``: ``lm_loss`` of ``batch["tokens"]``
-        against ``batch["labels"]``."""
-        cfg = self.config
-        return lambda p, b: TF.lm_loss(cfg, p, b["tokens"], b["labels"])[0]
+        against ``batch["labels"]`` (``TF.LMLoss``: on a mesh, the step
+        computes on the weights' ``model`` shards)."""
+        return TF.LMLoss(self.config)
 
     def train_step(self):
         """The ``train_4k`` cell's ``step(params, opt_state, batch)``; it

@@ -17,16 +17,25 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.tree import tree_map
+from repro_torch.distributed.tensor_parallel import (
+    ModelGroup,
+    all_reduce,
+    model_shards,
+)
+from repro_torch.tree import leaves, unflatten
 
 
 def _scale(xf: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.max(torch.abs(xf)), min=1e-12) / 127.0
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, scale: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` as int8 and its scale: ``x``'s own, or ``scale`` where given
+    (a shard quantized as the whole tensor it is part of)."""
     xf = x.float()
-    scale = _scale(xf)
+    if scale is None:
+        scale = _scale(xf)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -36,14 +45,25 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale).to(dtype)
 
 
-def compress_tree(grads: Any) -> Any:
-    """Quantize and dequantize every leaf (wire-format simulation)."""
-
-    def one(g):
-        q, s = quantize_int8(g)
-        return dequantize_int8(q, s, g.dtype)
-
-    return tree_map(one, grads)
+def compress_tree(grads: Any, dims: Any = None,
+                  mg: Optional[ModelGroup] = None) -> Any:
+    """Quantize and dequantize every leaf (wire-format simulation), each
+    with its own scale.  A leaf that ``dims`` keeps as this rank's
+    ``model`` shard of ``mg`` (``tensor_parallel.model_shards``) takes
+    the scale of its whole leaf, the largest over ``model`` (one
+    collective for all of them), so its values are the whole leaf's."""
+    flat = leaves(grads)
+    where = model_shards(dims, mg)
+    scales = {}
+    if where:
+        own = torch.stack([_scale(flat[i].float()) for i in where])
+        common = all_reduce(own, mg, op=dist.ReduceOp.MAX)
+        scales = dict(zip(where, common.unbind(0)))
+    out = []
+    for i, g in enumerate(flat):
+        q, s = quantize_int8(g, scales.get(i))
+        out.append(dequantize_int8(q, s, g.dtype))
+    return unflatten(grads, out)
 
 
 def compressed_psum(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None

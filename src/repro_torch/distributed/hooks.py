@@ -13,11 +13,14 @@ hook resolves them against the active mesh as the reference does:
 
 Outside any mesh the hook is a no-op, so the same model code runs
 everywhere.  Inside one it redistributes a DTensor to the resolved spec
-and returns a local tensor unchanged.  No path hands it a DTensor yet:
-a step on a mesh gathers the weights and the losses take their rows as
-local tensors before any model code runs, so every call is a no-op
-until the ``model`` axis computes (tensor parallelism, ROADMAP 12c).
-The calls stand at the reference's sites for that.
+and returns a local tensor unchanged.  No path hands it a DTensor: a
+step on a mesh gathers each weight over the batch axes, the losses take
+their rows as local tensors, and the LM computes on its ``model``
+shards with the explicit collectives of
+:mod:`repro_torch.distributed.tensor_parallel`, whose plan places heads,
+experts and vocabulary rows where these calls' specs place them.  So
+every call is a no-op on the local tensors it is given; the calls stand
+at the reference's sites, as its record of where each activation lies.
 
 A step on a mesh hands a loss its batch as DTensors sharded over the
 batch axes.  A loss takes its rows with :func:`local` (or the whole
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 from typing import Any, Iterator, List, Optional, Tuple
 
 import torch
@@ -89,6 +93,10 @@ def resolve_entries(names: Tuple[str, ...], entries) -> PartitionSpec:
 
 
 def constrain(x, *entries):
+    """``x`` laid out as ``entries`` say on the active mesh: a DTensor is
+    redistributed; a local tensor, which is what model code computes on
+    (already this rank's shard where the spec names ``model``), is
+    returned as it is."""
     mesh = active_mesh()
     if mesh is None:
         return x
@@ -176,6 +184,72 @@ class _BatchSum(torch.autograd.Function):
         for g in ctx.groups:
             dist.all_reduce(grad, group=g)
         return grad, None
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchAxes:
+    """The active mesh's batch axes of more than one rank, taken where a
+    forward starts (a recomputed block runs again in the backward pass,
+    which on the card runs on autograd's own thread, where the mesh
+    context is not set): their process groups, the outermost first, this
+    rank's index along them and their count of ranks."""
+    groups: Tuple[Any, ...]
+    rank: int
+    size: int
+
+
+def batch_axes() -> Optional[BatchAxes]:
+    """The active mesh's :class:`BatchAxes`; None outside a mesh or where
+    its batch axes have one rank.  This rank's index counts their ranks
+    in mesh order, the first outermost: the order of the global batch's
+    row blocks."""
+    groups = _batch_groups()
+    if not groups:
+        return None
+    mesh = active_mesh()
+    sizes = axis_sizes(mesh)
+    coord = mesh.get_coordinate()
+    r = 0
+    for i, n in enumerate(sizes):
+        if n in BATCH_AXES:
+            r = r * sizes[n] + coord[i]
+    return BatchAxes(tuple(groups), r, batch_ranks())
+
+
+class _BatchGather(torch.autograd.Function):
+    """Every batch rank's ``x`` along dim 0 in global-batch order; the
+    gradient of this rank's block is the sum of every rank's gradient
+    of it."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        for g in reversed(groups):     # the innermost axis first
+            parts = [torch.empty_like(x)
+                     for _ in range(dist.get_world_size(g))]
+            dist.all_gather(parts, x.contiguous(), group=g)
+            x = torch.cat(parts, 0)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        for g in ctx.groups:           # the outermost axis first
+            grad = grad.contiguous().clone()
+            dist.all_reduce(grad, group=g)
+            n = grad.shape[0] // dist.get_world_size(g)
+            r = dist.get_rank(g)
+            grad = grad[r * n:(r + 1) * n]
+        return grad, None
+
+
+def batch_gather(x: torch.Tensor, axes: Optional[BatchAxes]
+                 ) -> torch.Tensor:
+    """The rows of ``x`` of every rank along the batch ``axes``, in the
+    global batch's order, differentiably (``x`` itself where ``axes`` is
+    None).  Every rank must call it, in the same order."""
+    if axes is None:
+        return x
+    return _BatchGather.apply(x, list(axes.groups))
 
 
 def batch_pmean(x: torch.Tensor) -> torch.Tensor:

@@ -323,6 +323,36 @@ def mesh_of(tree: Any) -> Optional[Any]:
     return first[0].device_mesh if first and is_sharded(first[0]) else None
 
 
+def gather_except(x: Any, axis: str) -> Any:
+    """The local tensor of ``x`` gathered over every mesh dimension but
+    ``axis``, along which it stays this rank's block; where those
+    dimensions do not shard it or have one rank each, its local tensor
+    itself (nothing is allocated).  Anything but a DTensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    keep = list(axis_sizes(mesh)).index(axis)
+    if all(i == keep or not isinstance(pl, Shard) or mesh.size(i) == 1
+           for i, pl in enumerate(x.placements)):
+        return x.to_local()
+    return x.redistribute(mesh, [pl if i == keep else Replicate()
+                                 for i, pl in enumerate(x.placements)]
+                          ).to_local()
+
+
+def block_except(y: torch.Tensor, like: Any, axis: str) -> torch.Tensor:
+    """This rank's block of ``y``, a tensor already cut along ``axis`` as
+    the DTensor ``like`` is and whole along its other mesh dimensions,
+    cut along those as ``like`` is (``y`` itself where ``like`` is no
+    DTensor)."""
+    if not isinstance(like, DTensor):
+        return y
+    mesh = like.device_mesh
+    keep = list(axis_sizes(mesh)).index(axis)
+    return local_shard(y, mesh, [Replicate() if i == keep else pl
+                                 for i, pl in enumerate(like.placements)])
+
+
 def full_tensor(x: Any) -> Any:
     """The whole tensor of ``x``, gathered over the mesh dimensions that
     shard it; where each of those has one rank, its local tensor itself

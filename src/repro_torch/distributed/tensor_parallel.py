@@ -1,0 +1,189 @@
+"""Tensor and expert parallelism over the mesh's ``model`` axis: the
+process group, the collectives that the Megatron column and row splits
+need, written as autograd Functions, and their count.  The splits
+themselves are the model's: ``models.transformer`` plans which of an
+LM's dimensions a rank computes on its ``model`` shard (``LMPlan``) and
+declares it to the train step (``LMLoss.model_dims``), which computes
+inside :func:`use_model_group`.
+
+Every replicated value keeps its whole gradient on every rank: where
+replicated values enter a rank's share of the compute,
+:func:`copy_to_model` (identity, gradient summed over ``model``) stands
+before them, and a rank's partial sums leave through
+:func:`reduce_from_model` (summed, gradient passed through).  Both issue
+their collective even on a ``model`` axis of one rank, so the route and
+its count (:data:`MODEL_COLLECTIVES`) are the same on one card as on
+many.  :func:`vocab_parallel_xent` is the cross-entropy over logits whose
+vocabulary is split over ``model``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import math
+from typing import Any, Iterator, List, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.tree import leaves
+
+MODEL = "model"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelGroup:
+    """The ``model`` axis of this rank's mesh: its process group, size and
+    this rank's index along it."""
+    group: Any
+    size: int
+    rank: int
+
+
+def model_group_of(mesh: Any) -> Optional[ModelGroup]:
+    """``mesh``'s ``model`` axis, or None where it has none."""
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    if mesh is None or MODEL not in names:
+        return None
+    i = names.index(MODEL)
+    return ModelGroup(mesh.get_group(MODEL), mesh.size(i),
+                      mesh.get_coordinate()[i])
+
+
+_GROUP: contextvars.ContextVar = contextvars.ContextVar("model_group",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def use_model_group(mg: Optional[ModelGroup]) -> Iterator[None]:
+    """Compute on ``model`` shards inside the block (None: whole)."""
+    token = _GROUP.set(mg)
+    try:
+        yield
+    finally:
+        _GROUP.reset(token)
+
+
+def model_group() -> Optional[ModelGroup]:
+    return _GROUP.get()
+
+
+class CollectiveCount:
+    """The count of collectives issued over ``model`` (forward and
+    backward); a test or the smoke run zeroes it, runs a step and reads
+    it."""
+
+    def __init__(self) -> None:
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0
+
+
+MODEL_COLLECTIVES = CollectiveCount()
+
+
+def all_reduce(x: torch.Tensor, mg: ModelGroup,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` (contiguous, as NCCL wants it) reduced in place over ``mg``,
+    counted."""
+    MODEL_COLLECTIVES.count += 1
+    dist.all_reduce(x, op=op, group=mg.group)
+    return x
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over ``model``."""
+
+    @staticmethod
+    def forward(ctx, x, mg):
+        ctx.mg = mg
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(memory_format=torch.contiguous_format),
+                          ctx.mg), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Summed over ``model`` forward; the gradient passed through."""
+
+    @staticmethod
+    def forward(ctx, x, mg):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), mg)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, mg: Optional[ModelGroup]
+                  ) -> torch.Tensor:
+    """``x`` (replicated over ``model``) entering a rank's share of the
+    compute over ``mg``; ``x`` itself where ``mg`` is None."""
+    return x if mg is None else _CopyToModel.apply(x, mg)
+
+
+def reduce_from_model(x: torch.Tensor, mg: Optional[ModelGroup]
+                      ) -> torch.Tensor:
+    """The sum over ``mg`` of every rank's partial ``x``; ``x`` itself
+    where ``mg`` is None."""
+    return x if mg is None else _ReduceFromModel.apply(x, mg)
+
+
+def model_shards(dims: Any, mg: Optional[ModelGroup]) -> List[int]:
+    """The indices, in leaf order, of the leaves that ``dims`` (a tree of
+    dimensions or None, as ``LMLoss.model_dims`` gives) keeps as this
+    rank's ``model`` shards; none where ``dims`` or ``mg`` is None."""
+    if dims is None or mg is None:
+        return []
+    return [i for i, d in enumerate(leaves(dims)) if d is not None]
+
+
+# ------------------------------------------- vocab-parallel cross-entropy --
+class _VocabLogsumexp(torch.autograd.Function):
+    """Each row's log-sum-exp over a vocabulary split over ``model``, in
+    ``torch.logsumexp``'s steps: the row maximum (reduced over ``model``,
+    an infinite one taken as 0), the sum of exponentials (summed over
+    ``model``), its log plus the maximum.  The gradient is this rank's
+    logits' share, ``grad * exp(x - result)``, as ``torch.logsumexp``'s;
+    it needs no collective."""
+
+    @staticmethod
+    def forward(ctx, x, mg):
+        mx = x.amax(-1, keepdim=True)
+        all_reduce(mx, mg, op=dist.ReduceOp.MAX)
+        mx.masked_fill_(mx.abs() == math.inf, 0)
+        total = (x - mx).exp().sum(-1)
+        all_reduce(total, mg)
+        out = total.log().add(mx[..., 0])
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return grad[..., None] * (x - out[..., None]).exp(), None
+
+
+def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
+                        start: int, mg: ModelGroup,
+                        ignore_id: int = -1) -> torch.Tensor:
+    """``nn.layers.softmax_xent`` of logits whose last dim is this rank's
+    block of the vocabulary, ids ``start`` on, split over ``mg``: the
+    log-sum-exp's maximum and sum and the gold logit (0 on the ranks
+    whose block does not hold it) are reduced over ``model``; the value
+    is the whole vocabulary's on every rank."""
+    logits = logits.float()
+    n = logits.shape[-1]
+    logz = _VocabLogsumexp.apply(logits, mg)
+    at = labels.clamp(min=0).long() - start
+    here = (at >= 0) & (at < n)
+    gold = torch.gather(logits, -1, at.clamp(0, n - 1)[..., None])[..., 0]
+    gold = reduce_from_model(torch.where(here, gold, 0.0), mg)
+    nll = logz - gold
+    mask = (labels != ignore_id).float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -1,5 +1,5 @@
 """Training launcher, the port of ``repro.launch.train``: ``--arch <id>``
-through ``Trainer`` with ``lm_loss``, on the CUDA card by default.
+through ``Trainer`` with ``lm_loss`` (``LMLoss``), on the CUDA card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --steps 200 --ckpt-dir /tmp/ckpt [--device cpu]
@@ -13,7 +13,8 @@ production mesh, (16, 16) or (2, 16, 16) ranks, as the reference does:
 under ``torchrun`` with that many processes (a world of another size
 raises the mesh's ``ValueError``), params placed by the bundle's
 ``param_shardings`` and ``fit`` inside the mesh context
-(``launch.mesh``, ``distributed.sharding``).  A recsys or GNN id exits
+(``launch.mesh``, ``distributed.sharding``); the step computes on the
+weights' ``model`` shards (``LMLoss``, ``distributed.tensor_parallel``).  A recsys or GNN id exits
 with the reference's message.
 
     torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
@@ -35,7 +36,7 @@ from repro_torch.configs.registry import ARCH_IDS, family, get_bundle
 from repro_torch.device import resolve_device
 from repro_torch.distributed.hooks import use_mesh
 from repro_torch.distributed.sharding import place
-from repro_torch.models.transformer import lm_loss
+from repro_torch.models.transformer import LMLoss
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tree import leaves, tree_map
@@ -103,7 +104,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
         params = tree_map(place, params, bundle.param_shardings(mesh))
 
     trainer = Trainer(
-        lambda p, b: lm_loss(cfg, p, b["tokens"], b["labels"])[0],
+        LMLoss(cfg),
         params,
         TrainerConfig(
             opt=OptConfig(lr=3e-3, schedule="wsd", warmup_steps=20,

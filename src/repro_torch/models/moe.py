@@ -22,13 +22,20 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import TYPE_CHECKING, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.hooks import constrain
+from repro_torch.distributed.hooks import BatchAxes, batch_gather, constrain
+from repro_torch.distributed.tensor_parallel import (
+    copy_to_model,
+    reduce_from_model,
+)
 from repro_torch.nn.layers import dense_init
+
+if TYPE_CHECKING:
+    from repro_torch.models.transformer import LMPlan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,38 +177,67 @@ def _sort_slots(gates: torch.Tensor, top_k: int, C: int) -> Dict:
 
 def _sorted_dispatch_apply(
     p: Dict, xg: torch.Tensor, gates: torch.Tensor, cfg: MoEConfig,
-    C: int, dtype: torch.dtype,
+    C: int, dtype: torch.dtype, plan: Optional[LMPlan] = None,
+    xs: Optional[torch.Tensor] = None, kept: bool = False,
 ) -> Tuple[torch.Tensor, Dict]:
     """Sort-based expert dispatch: stable-argsort the token->expert picks,
     scatter tokens into (E, C, d) buffers, gather results back — the
     one-hot route's capacity and priority semantics (first come within an
-    expert, round-0 picks before round-1 picks, then token order)."""
+    expert, round-0 picks before round-1 picks, then token order).
+
+    Where ``plan`` splits the experts, the buffers are this rank's
+    experts' (picks of other experts go to the trash row) from ``xs``,
+    the tokens as they enter this rank's share, and the output is this
+    rank's part of the combine.  With ``kept``, the aux values hold each
+    token's picks that fit their experts' capacity, (G, T)."""
     G, T, E = gates.shape
     kT = cfg.top_k * T
     d = xg.shape[-1]
     dev = gates.device
     sl = _sort_slots(gates, cfg.top_k, C)
     slot, keep, t_sort = sl["slot"], sl["keep"], sl["t"]
+    gate = sl["gate"]
+    El, x_in = E, xg
+    if plan is not None and plan.experts:
+        El, x_in = E // plan.size, xs
+        e0 = plan.rank * El
+        keep = keep & (slot >= e0 * C) & (slot < (e0 + El) * C)
+        slot = torch.where(keep, slot - e0 * C, El * C)
+        gate = copy_to_model(gate, plan.group)
 
-    xt = torch.gather(xg.to(dtype), 1, t_sort[..., None].expand(G, kT, d))
-    # scatter into (G, E*C + 1, d): duplicate writes go to the trash row
+    xt = torch.gather(x_in.to(dtype), 1, t_sort[..., None].expand(G, kT, d))
+    # scatter into (G, El*C + 1, d): duplicate writes go to the trash row
     # only, so the kept rows are deterministic
-    rows = (torch.arange(G, device=dev)[:, None] * (E * C + 1) + slot).reshape(-1)
-    xe = torch.zeros((G * (E * C + 1), d), dtype=dtype, device=dev).index_put(
-        (rows,), xt.reshape(-1, d))
-    xe = xe.reshape(G, E * C + 1, d)[:, : E * C].reshape(G, E, C, d)
+    rows = (torch.arange(G, device=dev)[:, None] * (El * C + 1)
+            + slot).reshape(-1)
+    xe = torch.zeros((G * (El * C + 1), d), dtype=dtype,
+                     device=dev).index_put((rows,), xt.reshape(-1, d))
+    xe = xe.reshape(G, El * C + 1, d)[:, : El * C].reshape(G, El, C, d)
     xe = constrain(xe, "batch", "model", None, None)
     ye = constrain(_experts(p, xe, dtype), "batch", "model", None, None)
     # gather back + weighted combine into token order
-    ye_flat = ye.reshape(G, E * C, d)
+    ye_flat = ye.reshape(G, El * C, d)
     yt = torch.gather(ye_flat, 1,
-                      slot.clamp(max=E * C - 1)[..., None].expand(G, kT, d)) \
-        * (keep[..., None] * sl["gate"][..., None]).to(dtype)
+                      slot.clamp(max=El * C - 1)[..., None].expand(G, kT, d)) \
+        * (keep[..., None] * gate[..., None]).to(dtype)
     seg = (torch.arange(G, device=dev)[:, None] * T + t_sort).reshape(-1)
     y = torch.zeros((G * T, d), dtype=yt.dtype, device=dev).index_add(
         0, seg, yt.reshape(-1, d)).reshape(G, T, d)
     aux = {"dropped_tokens": sl["dropped"], "experts": sl["experts"]}
+    if kept:
+        aux["kept"] = torch.zeros((G * T,), dtype=torch.float32,
+                                  device=dev).index_add(
+            0, seg, sl["keep"].reshape(-1).float()).reshape(G, T)
     return y.to(dtype), aux
+
+
+def _group_size(cfg: MoEConfig, n: int) -> int:
+    """The largest group size <= ``group_tokens`` that divides ``n``
+    tokens."""
+    Tg = min(cfg.group_tokens, n)
+    while n % Tg:
+        Tg -= 1
+    return Tg
 
 
 def moe_apply(
@@ -209,7 +245,8 @@ def moe_apply(
     x: torch.Tensor,  # (B, S, d)
     cfg: MoEConfig,
     dtype: torch.dtype = torch.bfloat16,
-    ranks: int = 1,
+    batch: Optional[BatchAxes] = None,
+    plan: Optional[LMPlan] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """(B, S, d) expert output in ``x.dtype`` and the aux values
     ``dropped_tokens`` and ``balance_loss`` (f32 0-d tensors),
@@ -217,36 +254,68 @@ def moe_apply(
     ``gate_mean`` and ``route_frac`` ((E,) means over the groups), for a
     caller that takes it over more tokens than ``x``'s.
 
-    ``ranks`` is the count of batch ranks whose ``x`` make up the batch
-    (a step on a mesh): the group size is cut from all ``ranks * B * S``
-    tokens, as the reference cuts it from the global batch, and a group
-    may not span two ranks."""
+    ``batch`` are the batch axes whose ranks' ``x`` make up the batch (a
+    step on a mesh, ``hooks.batch_axes``): the group size is cut from all
+    ``batch.size * B * S`` tokens, as the reference cuts it from the
+    global batch.  Where a group spans ranks, the tokens of the ranks
+    that share groups with this one are gathered
+    (``hooks.batch_gather``), their groups are
+    routed and computed on each of those ranks, and each keeps its own
+    rows; ``gate_mean`` and ``route_frac`` are then those ranks' groups',
+    ``experts`` their picks, and ``dropped_tokens`` counts the picks of
+    this rank's own tokens, as it does where groups do not span.
+
+    ``plan`` (a step computing on ``model`` shards) names whether ``p``
+    holds this rank's experts and its share of the shared experts' hidden
+    units; the routing is computed whole on every rank, and the partial
+    outputs are summed over ``model``."""
     B, S, d = x.shape
     N = B * S
-    Tg = min(cfg.group_tokens, N * ranks)
-    while (N * ranks) % Tg:  # largest group size <= group_tokens dividing it
-        Tg -= 1
-    if N % Tg:
-        raise ValueError(f"a dispatch group of {Tg} tokens would span ranks "
-                         f"of {N} tokens each")
-    G = N // Tg
-    xg = x.reshape(G, Tg, d)
+    Tg = _group_size(cfg, N * (1 if batch is None else batch.size))
+    if N % Tg == 0:
+        y, aux = _moe_groups(p, x.reshape(N // Tg, Tg, d), cfg, dtype, plan)
+        return y.reshape(B, S, d).to(x.dtype), aux
+    # groups span ranks: k ranks, each of N tokens, share whole groups
+    k = math.lcm(N, Tg) // N
+    r = batch.rank
+    c0 = r // k * k
+    xs = batch_gather(x.reshape(N, d), batch)[c0 * N:(c0 + k) * N]
+    y, aux = _moe_groups(p, xs.reshape(k * N // Tg, Tg, d), cfg, dtype,
+                         plan, kept=True)
+    own = slice((r - c0) * N, (r - c0 + 1) * N)
+    kept = aux.pop("kept").reshape(-1)[own]
+    aux["dropped_tokens"] = cfg.top_k * N - kept.sum()
+    return y.reshape(k * N, d)[own].reshape(B, S, d).to(x.dtype), aux
+
+
+def _moe_groups(p: Dict, xg: torch.Tensor, cfg: MoEConfig,
+                dtype: torch.dtype, plan: Optional[LMPlan],
+                kept: bool = False) -> Tuple[torch.Tensor, Dict]:
+    """The layer over (G, Tg, d) groups: (G, Tg, d) output in ``dtype``
+    and the aux values; with ``kept`` also ``kept`` (G, Tg), each
+    token's picks that fit their experts' capacity."""
+    G, Tg, d = xg.shape
     E = cfg.n_experts
     C = max(1, int(Tg * cfg.top_k * cfg.capacity_factor / E))
 
     logits = xg.float() @ p["router"]["w"].float()
     gates = torch.softmax(logits, dim=-1)
+    # the tokens as they enter this rank's share of the experts: after
+    # the router, whose gradient every rank takes whole
+    split = plan is not None and (plan.experts or plan.shared)
+    xs = copy_to_model(xg, plan.group) if split else xg
 
     if cfg.dispatch == "sort":
-        y, aux = _sorted_dispatch_apply(p, xg, gates, cfg, C, dtype)
+        y, aux = _sorted_dispatch_apply(p, xg, gates, cfg, C, dtype, plan,
+                                        xs, kept)
         me = gates.mean(dim=(0, 1))
         aux["balance_loss"] = E * torch.sum(me * me)  # proxy (no dispatch tensor)
         aux["gate_mean"] = aux["route_frac"] = me
-        if cfg.n_shared_experts:
-            y = y + _shared(p, xg, dtype)
-        return y.reshape(B, S, d).to(x.dtype), aux
+        return _add_shared(p, y, xg, xs, cfg, dtype, plan), aux
 
     dispatch, combine, aux = _top_k_dispatch(gates, cfg.top_k, C)
+    if kept:
+        aux["kept"] = dispatch.sum(dim=(2, 3))
 
     # load-balancing aux loss (Shazeer): E * sum_e f_e * p_e
     me = gates.mean(dim=(0, 1))
@@ -257,10 +326,34 @@ def moe_apply(
     # expert-parallel placement: groups follow the batch axes, experts the
     # model axis
     xg = constrain(xg, "batch", None, None)
-    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(dtype), xg.to(dtype))
+    x_in = xg
+    if plan is not None and plan.experts:
+        own = plan.part(E)
+        dispatch = dispatch[:, :, own]
+        combine = copy_to_model(combine, plan.group)[:, :, own]
+        x_in = xs
+    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(dtype), x_in.to(dtype))
     xe = constrain(xe, "batch", "model", None, None)
     ye = constrain(_experts(p, xe, dtype), "batch", "model", None, None)
     y = torch.einsum("gtec,gecd->gtd", combine.to(dtype), ye)
+    return _add_shared(p, y, xg, xs, cfg, dtype, plan), aux
+
+
+def _add_shared(p: Dict, y: torch.Tensor, xg: torch.Tensor,
+                xs: torch.Tensor, cfg: MoEConfig, dtype: torch.dtype,
+                plan: Optional[LMPlan]) -> torch.Tensor:
+    """The experts' output ``y`` plus the shared experts', with this
+    rank's partial parts summed over ``model``: under ``plan`` each of
+    the two is partial where it is split and whole where it is not."""
+    experts = plan is not None and plan.experts
+    shared = plan is not None and plan.shared
+    ys = None
     if cfg.n_shared_experts:
-        y = y + _shared(p, xg, dtype)
-    return y.reshape(B, S, d).to(x.dtype), aux
+        ys = _shared(p, xs if shared else xg, dtype)
+    if experts == shared:           # both partial, or both whole
+        y = y if ys is None else y + ys
+        return reduce_from_model(y, plan.group) if experts else y
+    if experts:
+        y = reduce_from_model(y, plan.group)
+        return y if ys is None else y + ys
+    return y + reduce_from_model(ys, plan.group)

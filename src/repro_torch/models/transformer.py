@@ -42,11 +42,20 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.hooks import (
+    BatchAxes,
+    batch_axes,
     batch_mean,
     batch_pmean,
     batch_ranks,
     constrain,
     local,
+)
+from repro_torch.distributed.tensor_parallel import (
+    ModelGroup,
+    copy_to_model,
+    model_group,
+    reduce_from_model,
+    vocab_parallel_xent,
 )
 from repro_torch.models.attention import (
     attention,
@@ -63,7 +72,13 @@ from repro_torch.nn.layers import (
     rope_tables,
     softmax_xent,
 )
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import (
+    flatten_with_path,
+    leaves,
+    path_name,
+    tree_map,
+    unflatten,
+)
 
 Params = Dict[str, Any]
 
@@ -77,8 +92,10 @@ class TransformerConfig:
     configs compare field for field; nothing reads it (the flash kernel
     has no chunk).  ``att_shard`` ("heads", "seq" or "none") is carried
     for the same comparison: it picks the attention activations'
-    ``constrain``, as in the reference, and every such call is a no-op
-    until the ``model`` axis computes (``distributed.hooks``)."""
+    ``constrain``, as in the reference.  Those calls are no-ops on the
+    local tensors the port computes on; a train step on a mesh splits
+    the heads over ``model`` itself (:class:`LMPlan`), which is where
+    "heads" places them."""
 
     name: str
     n_layers: int
@@ -203,12 +220,130 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
+# ------------------------------------------------- the split over model ---
+@dataclasses.dataclass(frozen=True)
+class LMPlan:
+    """Which dimensions of an LM this rank computes on its ``model``
+    shard (True) or whole (False): the Megatron column and row splits
+    that GSPMD makes of the reference's LM under ``LM_RULES``, their
+    collectives in ``distributed.tensor_parallel``.
+
+      * attention: this rank's query heads (``wq``/``wk``/``wv``
+        columns), ``wo``'s matching rows, the output summed over
+        ``model``; K/V whole where ``model`` does not divide their heads,
+        each rank taking the K/V head of its own query heads' group;
+      * the MLP: ``wg``/``wu`` columns, ``wd`` rows, the output summed;
+      * MoE: this rank's experts, dispatched into from the whole routing
+        and combined partially; the shared experts split as the MLP; one
+        sum;
+      * the vocabulary: the embedding's rows (ids out of range look up
+        zeros, then a sum) and the unembedding's columns, whose logits go
+        through ``tensor_parallel.vocab_parallel_xent``."""
+    group: ModelGroup
+    heads: bool      # query heads (and wo's rows)
+    kv: bool         # K/V heads
+    mlp: bool        # the dense MLP's hidden
+    experts: bool    # MoE experts
+    shared: bool     # MoE shared experts' hidden
+    vocab: bool      # embedding rows, unembedding columns
+
+    @property
+    def size(self) -> int:
+        return self.group.size
+
+    @property
+    def rank(self) -> int:
+        return self.group.rank
+
+    def part(self, n: int) -> slice:
+        """This rank's block of ``n`` split ``size`` ways."""
+        k = n // self.size
+        return slice(self.rank * k, (self.rank + 1) * k)
+
+
+def plan_for(cfg: TransformerConfig, mg: ModelGroup) -> LMPlan:
+    """The split of ``cfg`` over ``mg``: a dimension is split where
+    ``mg.size`` divides its count of heads, hidden units, experts or
+    vocabulary rows (``LM_RULES`` then shard it whole units a rank); K/V
+    only where the query heads are, and the query heads under whole K/V
+    only where each rank's fall in one K/V group.  Any other dimension
+    is computed whole."""
+    m = mg.size
+    moe = cfg.moe
+    kv = cfg.n_kv_heads % m == 0
+    G = cfg.n_heads // cfg.n_kv_heads
+    heads = cfg.n_heads % m == 0 and (kv or G % (cfg.n_heads // m) == 0)
+    return LMPlan(
+        group=mg,
+        heads=heads,
+        kv=heads and kv,
+        mlp=moe is None and cfg.d_ff % m == 0,
+        experts=moe is not None and moe.n_experts % m == 0,
+        shared=(moe is not None and moe.n_shared_experts > 0
+                and (moe.d_ff * moe.n_shared_experts) % m == 0),
+        vocab=cfg.vocab % m == 0)
+
+
+def lm_plan(cfg: TransformerConfig) -> Optional[LMPlan]:
+    """The active model group's plan for ``cfg``; None outside one.  Model
+    code asks once a forward, outside any recomputed part (a recomputed
+    block runs again in the backward pass, which on the card runs on
+    autograd's own thread, where the context is not set), and passes the
+    plan down."""
+    mg = model_group()
+    return None if mg is None else plan_for(cfg, mg)
+
+
+# the plan entry that splits each leaf, and the dimension (from the
+# right) it splits
+_LM_LEAVES = {
+    "embed/table": ("vocab", -2),
+    "unembed/w": ("vocab", -1),
+    "block/wq/w": ("heads", -1), "block/wq/b": ("heads", -1),
+    "block/wk/w": ("kv", -1), "block/wk/b": ("kv", -1),
+    "block/wv/w": ("kv", -1), "block/wv/b": ("kv", -1),
+    "block/wo/w": ("heads", -2),
+    "block/mlp/wg/w": ("mlp", -1), "block/mlp/wu/w": ("mlp", -1),
+    "block/mlp/wd/w": ("mlp", -2),
+    "block/moe/wg": ("experts", -3), "block/moe/wu": ("experts", -3),
+    "block/moe/wd": ("experts", -3),
+    "block/moe/shared/wg": ("shared", -1),
+    "block/moe/shared/wu": ("shared", -1),
+    "block/moe/shared/wd": ("shared", -2),
+}
+
+
+def lm_model_dims(cfg: TransformerConfig, params: Params, mg: ModelGroup
+                  ) -> Any:
+    """A tree like ``params``: the dimension of each leaf that the plan
+    keeps as this rank's ``model`` shard, or None for a leaf computed
+    whole (the router, the norms, and any dimension the plan does not
+    split)."""
+    plan = plan_for(cfg, mg)
+    out = []
+    for path, leaf in flatten_with_path(params):
+        entry = _LM_LEAVES.get(path_name(path))
+        split = entry is not None and getattr(plan, entry[0])
+        out.append(leaf.dim() + entry[1] if split else None)
+    return unflatten(params, out)
+
+
 # ---------------------------------------------------------------- forward ---
-def _embed(cfg: TransformerConfig, params: Params,
-           tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+           plan: Optional[LMPlan] = None) -> torch.Tensor:
     """The tokens' rows of the table in ``cfg.dtype`` (gathered, then cast:
-    the reference's cast-then-gather, without casting the whole table)."""
-    return params["embed"]["table"][tokens].to(cfg.dtype)
+    the reference's cast-then-gather, without casting the whole table).
+    Where ``plan`` splits the vocabulary, the table is this rank's block
+    of rows: ids outside it look up zeros and the rows are summed over
+    ``model``."""
+    table = params["embed"]["table"]
+    if plan is None or not plan.vocab:
+        return table[tokens].to(cfg.dtype)
+    n = table.shape[0]
+    at = tokens.long() - plan.rank * n
+    here = ((at >= 0) & (at < n))[..., None]
+    rows = torch.where(here, table[at.clamp(0, n - 1)], 0.0)
+    return reduce_from_model(rows, plan.group).to(cfg.dtype)
 
 
 def _constrain_qkv(cfg: TransformerConfig, q, k, v):
@@ -219,67 +354,112 @@ def _constrain_qkv(cfg: TransformerConfig, q, k, v):
     return q, k, v
 
 
-def _qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor):
+def _own_kv_head(cfg: TransformerConfig, plan: LMPlan) -> int:
+    """The K/V head that this rank's query heads read, where the query
+    heads are split over ``model`` and K/V are not: :func:`plan_for`
+    splits them so only where a rank's heads fall in one group."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    return plan.rank * (cfg.n_heads // plan.size) // G
+
+
+def _qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
+         plan: Optional[LMPlan] = None):
+    """Q, K and V (B, S, heads, D).  Where ``plan`` splits the heads,
+    this rank's: ``wq``'s columns (and ``wk``'s, ``wv``'s where K/V
+    split too) are its shards; whole K/V weights give the columns of
+    :func:`_own_kv_head`, and their gradient is summed over ``model``."""
     dt = cfg.dtype
     h = h.to(dt)
-    q = h @ lp["wq"]["w"].to(dt)
-    k = h @ lp["wk"]["w"].to(dt)
-    v = h @ lp["wv"]["w"].to(dt)
+    nq, nkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    cols = None
+    if plan is not None and plan.heads:
+        h = copy_to_model(h, plan.group)
+        nq //= plan.size
+        if plan.kv:
+            nkv //= plan.size
+        else:
+            nkv = 1
+            cols = (_own_kv_head(cfg, plan) * D
+                    + torch.arange(D, device=h.device))
+
+    def weight(name: str, key: str) -> torch.Tensor:
+        t = lp[name][key]
+        if cols is not None and name != "wq":
+            t = copy_to_model(t, plan.group).index_select(-1, cols)
+        return t.to(dt)
+
+    q = h @ weight("wq", "w")
+    k = h @ weight("wk", "w")
+    v = h @ weight("wv", "w")
     if cfg.qkv_bias:
-        q = q + lp["wq"]["b"].to(dt)
-        k = k + lp["wk"]["b"].to(dt)
-        v = v + lp["wv"]["b"].to(dt)
+        q = q + weight("wq", "b")
+        k = k + weight("wk", "b")
+        v = v + weight("wv", "b")
     B, S, _ = h.shape
-    return (q.reshape(B, S, cfg.n_heads, cfg.d_head),
-            k.reshape(B, S, cfg.n_kv_heads, cfg.d_head),
-            v.reshape(B, S, cfg.n_kv_heads, cfg.d_head))
+    return (q.reshape(B, S, nq, D), k.reshape(B, S, nkv, D),
+            v.reshape(B, S, nkv, D))
 
 
 def _out(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
-         o: torch.Tensor) -> torch.Tensor:
+         o: torch.Tensor, plan: Optional[LMPlan] = None) -> torch.Tensor:
     """The residual ``x`` plus the attention output ``o`` (B, S, H, D)
-    projected by ``wo``."""
+    projected by ``wo`` (this rank's heads' rows under a ``plan`` that
+    splits them, the products summed over ``model``)."""
     B, S = o.shape[:2]
-    o = o.reshape(B, S, cfg.n_heads * cfg.d_head) @ lp["wo"]["w"].to(cfg.dtype)
+    o = o.reshape(B, S, -1) @ lp["wo"]["w"].to(cfg.dtype)
+    if plan is not None and plan.heads:
+        o = reduce_from_model(o, plan.group)
     return constrain(x + o.to(x.dtype), "batch", None, None)
 
 
 def _attend(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
-            cos: torch.Tensor, sin: torch.Tensor):
+            cos: torch.Tensor, sin: torch.Tensor,
+            plan: Optional[LMPlan] = None):
     """Causal self-attention over ``x`` (B, S, d) added to it, and the
-    layer's roped K and its V, (B, S, n_kv, D) each."""
+    layer's roped K and its V, (B, S, n_kv, D) each (this rank's heads
+    under ``plan``)."""
     h = rms_norm(lp["ln1"], x, cfg.rms_eps)
-    q, k, v = _qkv(cfg, lp, h)
+    q, k, v = _qkv(cfg, lp, h, plan)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     q, k, v = _constrain_qkv(cfg, q, k, v)
-    return _out(cfg, lp, x, attention(q, k, v, causal=True)), k, v
+    return _out(cfg, lp, x, attention(q, k, v, causal=True), plan), k, v
 
 
 def _ffn(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
-         ranks: int = 1) -> Tuple[torch.Tensor, Dict]:
+         batch: Optional[BatchAxes] = None, plan: Optional[LMPlan] = None
+         ) -> Tuple[torch.Tensor, Dict]:
     """``x`` plus its SwiGLU MLP or MoE layer, and the MoE's aux values
-    (empty for a dense layer); ``ranks`` as ``moe_apply`` takes it."""
+    (empty for a dense layer); ``batch`` and ``plan`` as ``moe_apply``
+    takes them (the MLP's hidden units split under ``plan``, its output
+    summed over ``model``)."""
     h = rms_norm(lp["ln2"], x, cfg.rms_eps)
     dt = cfg.dtype
     if cfg.moe is not None:
-        y, aux = moe_apply(lp["moe"], h, cfg.moe, dtype=dt, ranks=ranks)
+        y, aux = moe_apply(lp["moe"], h, cfg.moe, dtype=dt, batch=batch,
+                           plan=plan)
     else:
         m = lp["mlp"]
+        split = plan is not None and plan.mlp
         h = h.to(dt)
+        if split:
+            h = copy_to_model(h, plan.group)
         g = F.silu(h @ m["wg"]["w"].to(dt))
         u = h @ m["wu"]["w"].to(dt)
         y = (g * u) @ m["wd"]["w"].to(dt)
+        if split:
+            y = reduce_from_model(y, plan.group)
         aux = {}
     return x + y.to(x.dtype), aux
 
 
 def _block_fwd(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
                cos: torch.Tensor, sin: torch.Tensor,
-               ranks: int = 1) -> Tuple[torch.Tensor, Dict]:
+               batch: Optional[BatchAxes] = None,
+               plan: Optional[LMPlan] = None) -> Tuple[torch.Tensor, Dict]:
     """One block: attention then the MLP or MoE, with the aux values."""
-    x, _, _ = _attend(cfg, lp, x, cos, sin)
-    return _ffn(cfg, lp, x, ranks)
+    x, _, _ = _attend(cfg, lp, x, cos, sin, plan)
+    return _ffn(cfg, lp, x, batch, plan)
 
 
 def _remat(cfg: TransformerConfig, fn):
@@ -304,19 +484,26 @@ def backbone(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     rank, the MoE groups are cut as from the global batch and each
     layer's ``balance_loss`` is the global batch's, from the means of its
     factors over the ranks (``hooks.batch_pmean``, outside the
-    recomputed block); ``dropped_tokens`` stays this rank's."""
+    recomputed block); ``dropped_tokens`` stays this rank's.
+
+    Inside a model group (``distributed.tensor_parallel``), the block
+    and embedding weights are this rank's ``model`` shards as
+    :func:`lm_plan` splits them, and the hidden state is whole on every
+    rank."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = constrain(_embed(cfg, params, tokens), "batch", None, None)
+    # the mesh's axes are taken here, once: a recomputed block runs
+    # where the mesh context is not set
+    plan, axes = lm_plan(cfg), batch_axes()
+    x = constrain(_embed(cfg, params, tokens, plan), "batch", None, None)
     cos, sin = rope_tables(positions, cfg.d_head, cfg.rope_theta)
-    ranks = batch_ranks()
     body = _remat(cfg, lambda lp, xx: _block_fwd(cfg, lp, xx, cos, sin,
-                                                 ranks))
+                                                 axes, plan))
     sums: Dict = {}
     for lp in _unstack(params["block"], cfg.n_layers):
         x, aux = body(lp, x)
-        if ranks > 1 and "gate_mean" in aux:
+        if axes is not None and "gate_mean" in aux:
             aux["balance_loss"] = cfg.moe.n_experts * torch.sum(
                 batch_pmean(aux["gate_mean"]) * batch_pmean(aux["route_frac"]))
         for key in AUX_SUMS:
@@ -338,9 +525,15 @@ def _unembed_chunk(cfg: TransformerConfig, params: Params,
     return h @ _unembed_w(cfg, params, h.dtype)
 
 
-def _chunk_nll(h: torch.Tensor, w: torch.Tensor,
-               labels: torch.Tensor) -> torch.Tensor:
-    return softmax_xent(constrain(h @ w, "batch", None, "model"), labels)
+def _chunk_nll(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+               plan: Optional[LMPlan] = None) -> torch.Tensor:
+    """A chunk's mean cross-entropy; under a ``plan`` that splits the
+    vocabulary, over this rank's columns (``vocab_parallel_xent``)."""
+    logits = constrain(h @ w, "batch", None, "model")
+    if plan is None or not plan.vocab:
+        return softmax_xent(logits, labels)
+    return vocab_parallel_xent(logits, labels, plan.rank * w.shape[-1],
+                               plan.group)
 
 
 def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
@@ -354,18 +547,24 @@ def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     rank's rows and returns its share of the global loss
     (``hooks.batch_mean``); every rank holds the global balance term
     (``backbone``), so its share is that over the count of batch
-    ranks."""
+    ranks.  Where a model group splits the vocabulary, each chunk's
+    logits are this rank's columns and its loss the vocab-parallel
+    cross-entropy."""
     tokens, labels = local(tokens), local(labels)
     h, aux = backbone(cfg, params, tokens)
     B, S, d = h.shape
     C = min(cfg.loss_chunk, S)
     assert S % C == 0
     w = _unembed_w(cfg, params, h.dtype)
+    plan = lm_plan(cfg)
+    if plan is not None and plan.vocab:
+        h = copy_to_model(h, plan.group)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     n = torch.zeros((), dtype=torch.int64, device=h.device)
     for i in range(0, S, C):
         ll = labels[:, i:i + C]
-        nll = checkpoint(_chunk_nll, h[:, i:i + C], w, ll, use_reentrant=False)
+        nll = checkpoint(_chunk_nll, h[:, i:i + C], w, ll, plan,
+                         use_reentrant=False)
         cnt = (ll != -1).sum()
         tot = tot + nll * cnt
         n = n + cnt
@@ -373,6 +572,37 @@ def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     if "balance_loss" in aux:
         loss = loss + 0.01 * aux["balance_loss"] / cfg.n_layers / batch_ranks()
     return loss, aux
+
+
+class LMLoss:
+    """``lm_loss`` of ``batch["tokens"]`` against ``batch["labels"]`` as
+    a train step's ``loss(params, batch)``.  It declares the LM's split
+    over a mesh's ``model`` axis (:meth:`model_dims`), so a step on a
+    mesh computes on the weights' ``model`` shards; and it sums the MoE
+    ``dropped_tokens`` of its calls (this rank's) into one 0-d tensor,
+    ``dropped``, which :meth:`take_dropped` reads and clears."""
+
+    def __init__(self, cfg: TransformerConfig):
+        self.cfg = cfg
+        self.dropped: Optional[torch.Tensor] = None
+
+    def __call__(self, params: Params, batch: Dict) -> torch.Tensor:
+        loss, aux = lm_loss(self.cfg, params, batch["tokens"],
+                            batch["labels"])
+        if "dropped_tokens" in aux:
+            d = aux["dropped_tokens"].detach()
+            self.dropped = d if self.dropped is None else self.dropped + d
+        return loss
+
+    def take_dropped(self) -> float:
+        """The tokens dropped since the last call (0 for a dense LM)."""
+        d, self.dropped = self.dropped, None
+        return 0.0 if d is None else float(d)
+
+    def model_dims(self, params: Params, mg: ModelGroup) -> Any:
+        """Each leaf's dimension kept as this rank's ``model`` shard, or
+        None (:func:`lm_model_dims`)."""
+        return lm_model_dims(self.cfg, params, mg)
 
 
 # ------------------------------------------------------------------ serve ---

@@ -19,6 +19,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.tensor_parallel import (
+    ModelGroup,
+    all_reduce,
+    model_shards,
+)
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -70,12 +75,20 @@ def adamw_init(params: Any) -> Dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, dims: Any = None,
+                mg: Optional[ModelGroup] = None) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 sum of squares, summed leaf by
-    leaf in the reference's leaf order."""
-    return torch.sqrt(torch.as_tensor(
-        sum(torch.sum(torch.square(leaf.float())) for leaf in leaves(tree)),
-        dtype=torch.float32))
+    leaf in the reference's leaf order.  The sums of the leaves that
+    ``dims`` keeps as this rank's ``model`` shards of ``mg``
+    (``tensor_parallel.model_shards``) are first summed over ``model``
+    (one collective for all of them), so each is its whole leaf's."""
+    sums = [torch.sum(torch.square(leaf.float())) for leaf in leaves(tree)]
+    where = model_shards(dims, mg)
+    if where:
+        whole = all_reduce(torch.stack([sums[i] for i in where]), mg)
+        for i, s in zip(where, whole.unbind(0)):
+            sums[i] = s
+    return torch.sqrt(torch.as_tensor(sum(sums), dtype=torch.float32))
 
 
 def _update_leaf(cfg: OptConfig, p, g, mu, nu, scale, lr, bc1, bc2,

@@ -11,7 +11,11 @@ the port of ``repro.train.trainer``.
   * periodic async checkpoints and resume from (step, data cursor): a
     restarted run continues from the exact batch,
   * a step on a mesh, taken where the params are DTensors
-    (:mod:`repro_torch.distributed.sharding`): see :func:`build_train_step`.
+    (:mod:`repro_torch.distributed.sharding`), data-parallel over the
+    batch axes and, for a loss that declares its split (the LM's),
+    tensor- and expert-parallel over ``model``
+    (:mod:`repro_torch.distributed.tensor_parallel`): see
+    :func:`build_train_step`.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Shard
 
 from repro_torch.ckpt.checkpoint import (
     CheckpointManager,
@@ -29,6 +34,11 @@ from repro_torch.ckpt.checkpoint import (
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.compression import compress_tree
+from repro_torch.distributed.tensor_parallel import (
+    MODEL,
+    model_group_of,
+    use_model_group,
+)
 from repro_torch.distributed.hooks import (
     batch_sum,
     batch_sum_,
@@ -39,7 +49,9 @@ from repro_torch.distributed.hooks import (
 from repro_torch.distributed.sharding import (
     P,
     NamedSharding,
+    block_except,
     full_tensor,
+    gather_except,
     is_sharded,
     mesh_of,
     place,
@@ -98,9 +110,15 @@ def build_train_step(
     :func:`~repro_torch.distributed.hooks.use_mesh`, with ``batch`` the
     global batch on every rank:
 
-      * it gathers the params it computes with (on a mesh of one rank,
-        their local tensors: nothing is copied) — compute over ``model``
-        is not tensor-parallel;
+      * it gathers the params it computes with over the batch axes (on a
+        mesh of one rank, their local tensors: nothing is copied).  Where
+        ``loss_fn`` has ``model_dims(params, model_group)`` (as
+        ``models.transformer.LMLoss``), the leaves it names stay this
+        rank's ``model`` shards and the loss runs inside
+        ``tensor_parallel.use_model_group``, computing on them (Megatron's
+        column and row splits, experts and vocabulary rows a rank); every
+        other leaf, and every leaf of a loss without it (the recsys, GNN
+        and two-tower families), is gathered whole;
       * each microbatch (rows in the global batch's order, as in the
         reference) is placed by ``shard_batch`` over the batch axes, and
         the loss, which takes its rows with ``hooks.local`` and ends in
@@ -108,9 +126,11 @@ def build_train_step(
         its gradient is this rank's part of the global gradient, whatever
         each rank's count of valid terms;
       * the shares and gradients are summed over the batch axes (an
-        all-reduce), compressed where asked (each leaf whole, as the
-        reference's ``compress_tree``), and each rank's AdamW updates its
-        own shards with the global gradient norm.
+        all-reduce), compressed where asked (each leaf as a whole, as the
+        reference's ``compress_tree``: a ``model`` shard takes its whole
+        leaf's scale), and each rank's AdamW updates its own shards with
+        the global gradient norm (a shard's sum of squares summed over
+        ``model``).
 
     Plain params are the mesh-less case of the same step: every gather,
     cut and sum above is then the identity."""
@@ -138,8 +158,15 @@ def build_train_step(
             return loss, grads
         return value_and_grad(loss_fn, params, placed(batch))
 
+    split = getattr(loss_fn, "model_dims", None)
+
     def step(params, opt_state, batch):
         mesh = mesh_of(params)
+        mg = model_group_of(mesh) if split is not None else None
+        # each leaf's dimension kept as this rank's model shard, or None
+        # where it is gathered whole (every leaf, without a model group)
+        dims = (tree_map(lambda p: None, params) if mg is None
+                else split(params, mg))
 
         def placed(b):
             if mesh is None:
@@ -147,15 +174,16 @@ def build_train_step(
             return tree_map(place, b, shard_batch(b, mesh))
 
         with use_mesh(mesh):
-            full = tree_map(full_tensor, params)
-            loss, grads = grads_of(full, batch, placed)
+            full = tree_map(_compute_leaf, params, dims)
+            with use_model_group(mg):
+                loss, grads = grads_of(full, batch, placed)
             del full
             loss = batch_sum(loss)
             grads = tree_map(batch_sum_, grads)
             if cfg.compress_grads:
-                grads = compress_tree(grads)
-            gn = global_norm(grads)
-            shards = tree_map(rows_like, grads, params)
+                grads = compress_tree(grads, dims, mg)
+            gn = global_norm(grads, dims, mg)
+            shards = tree_map(_grad_block, grads, params, dims)
             del grads
             new_p, new_s, om = adamw_update(
                 cfg.opt, shards, tree_map(local, opt_state),
@@ -164,6 +192,26 @@ def build_train_step(
                 tree_map(rewrap, new_s, opt_state), {"loss": loss, **om})
 
     return step
+
+
+def _compute_leaf(p: Any, dim) -> Any:
+    """What a step computes with: ``p`` gathered whole (``dim`` None), or
+    over the batch axes only, its ``model`` shard along ``dim`` kept."""
+    if dim is None:
+        return full_tensor(p)
+    if is_sharded(p):
+        names = p.device_mesh.mesh_dim_names
+        pl = p.placements[names.index(MODEL)]
+        if pl != Shard(dim):
+            raise ValueError(f"a leaf computed on its model shard along dim "
+                             f"{dim} is placed {pl} on the model axis")
+    return gather_except(p, MODEL)
+
+
+def _grad_block(g: torch.Tensor, p: Any, dim) -> torch.Tensor:
+    """This rank's block of the gradient ``g`` of ``p`` (``g`` whole, or
+    ``p``'s ``model`` shard along ``dim``)."""
+    return rows_like(g, p) if dim is None else block_except(g, p, MODEL)
 
 
 def opt_init(params: Any) -> Dict:

@@ -34,6 +34,7 @@ from repro_torch.kernels.paged_attention import paged_attention, paged_attention
 from repro_torch.kernels.paged_attention.kernel import PAGED_ATTENTION
 from repro_torch.models import attention as port_att
 from repro_torch.nn import layers as port_layers
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

@@ -43,6 +43,7 @@ from repro_torch.kernels.embedding_bag import (
 from repro_torch.kernels.embedding_bag.kernel import EMBEDDING_BAG, MAX_TABLES
 from repro_torch.models import recsys as port_rs
 from repro_torch.tree import flatten_with_path, leaves, path_name, tree_map
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCE = ROOT / EMBEDDING_BAG.source

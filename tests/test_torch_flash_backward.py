@@ -40,6 +40,7 @@ from repro_torch.kernels.flash_attention.ref import (
     flash_attention_backward_plain,
     flash_attention_plain,
 )
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 ROOT = Path(__file__).resolve().parents[1]
 OWN = 128               # rows a block owns: keys in dK/dV, queries in dQ
@@ -90,7 +91,8 @@ def emulate_backward(q, k, v, out, lse, do, causal=True, split=True,
     and dS as hi + lo, or rounded once with ``split=False``, or the one
     of them named in ``single``), then added to the running sum in f32; dk
     and dq scaled by 1/sqrt(D) at the end and each output rounded once to
-    bf16."""
+    bf16.  A half's tiles (and a group's query heads) go through one
+    batched product; only the running sums walk them in order."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     G = H // Hkv
@@ -101,79 +103,89 @@ def emulate_backward(q, k, v, out, lse, do, causal=True, split=True,
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     delta = (dof * out.float()).sum(-1)
 
-    def tile(t, r0, n):
-        """Rows r0 .. r0 + n of (..., S, D), zeros past S."""
-        part = torch.zeros(*t.shape[:-2], n, t.shape[-1])
-        m = max(0, min(n, S - r0))
-        part[..., :m, :] = t[..., r0:r0 + m, :]
-        return part
-
-    def row_vec(t, r0, n, fill):
-        part = torch.full((*t.shape[:-1], n), fill)
-        m = max(0, min(n, S - r0))
-        part[..., :m] = t[..., r0:r0 + m]
-        return part
+    def tiles(t, n, fill=0.0):
+        """(..., S[, D]) as (..., S/n tiles, n[, D]), ``fill`` past S."""
+        vec = t.dim() == lse.dim()
+        T = -(-S // n)
+        shape = (*t.shape[:-1], T * n) if vec else (
+            *t.shape[:-2], T * n, t.shape[-1])
+        part = torch.full(shape, fill)
+        if vec:
+            part[..., :S] = t
+            return part.unflatten(-1, (T, n))
+        part[..., :S, :] = t
+        return part.unflatten(-2, (T, n))
 
     def share(a, b, name):
         """a b from zero over bf16 parts of a (hi + lo, or once)."""
         return sum(part @ b
                    for part in _parts(a, split and name not in single))
 
+    def run(acc, shares):
+        """``shares`` (..., tiles, R, D) added to ``acc`` in tile order."""
+        for i in range(shares.shape[-3]):
+            acc += shares[..., i, :, :]
+        return acc
+
+    # query tiles of N rows, a KV head's group on its own axis:
+    # (B, Hkv, G, T, N[, D])
+    qg, dog = (tiles(t, N).unflatten(1, (Hkv, G)) for t in (qf, dof))
+    lg = tiles(lse, N, math.inf).unflatten(1, (Hkv, G))
+    dg = tiles(delta, N).unflatten(1, (Hkv, G))
+    kh, vh = tiles(kf, HALF), tiles(vf, HALF)
     dk = torch.zeros(B, Hkv, S, D)
     dv = torch.zeros(B, Hkv, S, D)
-    for kw0 in range(0, S, HALF):
+    for w, kw0 in enumerate(range(0, S, HALF)):
         k0 = kw0 - kw0 % OWN          # the block's first key
-        kt, vt = tile(kf, kw0, HALF), tile(vf, kw0, HALF)
-        keys = torch.arange(kw0, kw0 + HALF)
-        acc_k = torch.zeros(B, Hkv, HALF, D)
-        acc_v = torch.zeros(B, Hkv, HALF, D)
-        for g in range(G):
-            heads = torch.arange(Hkv) * G + g
-            for q0 in range(k0 if causal else 0, S, N):
-                if causal and q0 + N <= kw0:
-                    continue
-                qt = tile(qf[:, heads], q0, N)
-                dot = tile(dof[:, heads], q0, N)
-                lc = row_vec(lse[:, heads], q0, N, math.inf)
-                dc = row_vec(delta[:, heads], q0, N, 0.0)
-                st = kt @ qt.transpose(-1, -2)            # keys x queries
-                dpt = vt @ dot.transpose(-1, -2)
-                pt = torch.exp2(st * c - lc[..., None, :])
-                if causal:
-                    cols = torch.arange(q0, q0 + N)
-                    pt = pt.masked_fill(keys[:, None] > cols[None, :], 0.0)
-                dst = pt * (dpt - dc[..., None, :])
-                acc_v += share(pt, dot, "p")
-                acc_k += share(dst, qt, "ds")
+        first = k0 if causal else 0
+        if causal:                    # tiles wholly above the half skipped
+            first = max(first, (kw0 - N) // N * N + N)
+        js = slice(first // N, None)
+        qt, dot = qg[:, :, :, js], dog[:, :, :, js]
+        lc, dc = lg[:, :, :, js], dg[:, :, :, js]
+        kt = kh[:, :, w, None, None]             # (B, Hkv, 1, 1, 64, D)
+        vt = vh[:, :, w, None, None]
+        st = kt @ qt.transpose(-1, -2)           # keys x queries
+        dpt = vt @ dot.transpose(-1, -2)
+        pt = torch.exp2(st * c - lc[..., None, :])
+        if causal:
+            keys = torch.arange(kw0, kw0 + HALF)
+            cols = torch.arange(first, qg.shape[3] * N).view(-1, N)
+            pt = pt.masked_fill(keys[:, None] > cols[:, None, :], 0.0)
+        dst = pt * (dpt - dc[..., None, :])
+        # the group's heads in turn, each over its tiles in order
+        acc_v = run(torch.zeros(B, Hkv, HALF, D),
+                    share(pt, dot, "p").flatten(2, 3))
+        acc_k = run(torch.zeros(B, Hkv, HALF, D),
+                    share(dst, qt, "ds").flatten(2, 3))
         n = min(HALF, S - kw0)
         dk[:, :, kw0:kw0 + n] = acc_k[:, :, :n] * scale
         dv[:, :, kw0:kw0 + n] = acc_v[:, :, :n]
 
     dq = torch.zeros(B, H, S, D)
-    kx = kf.repeat_interleave(G, dim=1)
-    vx = vf.repeat_interleave(G, dim=1)
-    for qw0 in range(0, S, HALF):
+    kt_all = tiles(kf.repeat_interleave(G, dim=1), NK)   # (B, H, T, NK, D)
+    vt_all = tiles(vf.repeat_interleave(G, dim=1), NK)
+    qh, doh = tiles(qf, HALF), tiles(dof, HALF)
+    lh, dh = tiles(lse, HALF, math.inf), tiles(delta, HALF)
+    for w, qw0 in enumerate(range(0, S, HALF)):
         q0 = qw0 - qw0 % OWN          # the block's first query
-        qt, dot = tile(qf, qw0, HALF), tile(dof, qw0, HALF)
-        lr = row_vec(lse, qw0, HALF, math.inf)
-        dr = row_vec(delta, qw0, HALF, 0.0)
-        rows = torch.arange(qw0, qw0 + HALF)
         n_kt = -(-(min(S, q0 + OWN) if causal else S) // NK)
-        acc = torch.zeros(B, H, HALF, D)
-        for t in range(n_kt):
-            if causal and t * NK > qw0 + HALF - 1:
-                continue
-            kt, vt = tile(kx, t * NK, NK), tile(vx, t * NK, NK)
-            s = qt @ kt.transpose(-1, -2)
-            dp = dot @ vt.transpose(-1, -2)
-            p = torch.exp2(s * c - lr[..., None])
-            keys = torch.arange(t * NK, t * NK + NK)
-            mask = keys[None, :] >= S
-            if causal:
-                mask = mask | (keys[None, :] > rows[:, None])
-            p = p.masked_fill(mask, 0.0)
-            ds = p * (dp - dr[..., None])
-            acc += share(ds, kt, "ds")
+        if causal:                    # tiles wholly after the half skipped
+            n_kt = min(n_kt, (qw0 + HALF - 1) // NK + 1)
+        qt, dot = qh[:, :, w, None], doh[:, :, w, None]  # (B, H, 1, 64, D)
+        lr, dr = lh[:, :, w, None], dh[:, :, w, None]
+        kt, vt = kt_all[:, :, :n_kt], vt_all[:, :, :n_kt]
+        s = qt @ kt.transpose(-1, -2)
+        dp = dot @ vt.transpose(-1, -2)
+        p = torch.exp2(s * c - lr[..., None])
+        rows = torch.arange(qw0, qw0 + HALF)
+        keys = torch.arange(n_kt * NK).view(n_kt, 1, NK)
+        mask = keys >= S
+        if causal:
+            mask = mask | (keys > rows[:, None])
+        p = p.masked_fill(mask, 0.0)
+        ds = p * (dp - dr[..., None])
+        acc = run(torch.zeros(B, H, HALF, D), share(ds, kt, "ds"))
         n = min(HALF, S - qw0)
         dq[:, :, qw0:qw0 + n] = acc[:, :, :n] * scale
     return (dq.to(torch.bfloat16), dk.to(torch.bfloat16),

@@ -35,6 +35,7 @@ from repro_torch.kernels.flash_attention.ref import (
     flash_attention_backward_plain,
     flash_attention_plain,
 )
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
@@ -122,40 +123,58 @@ def emulate_backward(q, k, v, out, lse, do, causal=True, single=False):
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     delta = (dof * out.float()).sum(-1)
     pos = torch.arange(S)
-    qg = qf.reshape(B, Hkv, G, S, D)
-    dog = dof.reshape(B, Hkv, G, S, D)
-    lg = lse.reshape(B, Hkv, G, S)
-    dg = delta.reshape(B, Hkv, G, S)
+    ke = kf.repeat_interleave(G, 1)
+    ve = vf.repeat_interleave(G, 1)
+    # the whole tiles of n rows in one batched product and a ragged last
+    # tile in another: [(first row, tiles, rows a tile)]
+    full = S // n * n
+    chunks = [(r0, (S - r0) // m, m) for r0, m in ((0, n), (full, S - full))
+              if S - r0 >= m > 0]
+
+    def tiles(t, r0, T, m):
+        """Rows r0 .. r0 + T m of (B, H, S[, D]) as (B, H, T, m[, D])."""
+        return t[:, :, r0:r0 + T * m].unflatten(2, (T, m))
+
+    dv_t, dk_t, dq_t = [], [], []
+    for r0, T, m in chunks:
+        # a KV head's query tiles, its group's heads on their own axis
+        qt, dot, lt, dt = (tiles(t, r0, T, m).unflatten(1, (Hkv, G))
+                           for t in (qf, dof, lse, delta))
+        cols = torch.arange(r0, r0 + T * m).view(T, 1, m)
+        kx, vx = kf[:, :, None, None], vf[:, :, None, None]
+        p = torch.exp2(mm3(kx, qt.transpose(-1, -2), single) * c
+                       - lt[..., None, :])
+        if causal:
+            p = p.masked_fill(pos[:, None] > cols, 0.0)
+        dp = mm3(vx, dot.transpose(-1, -2), single)
+        ds = p * (dp - dt[..., None, :])
+        dv_t.append(mm3(p, dot, single))          # (B, Hkv, G, T, S, D)
+        dk_t.append(mm3(ds, qt, single))
+        # dQ's key tiles, each query head over its KV head's keys
+        kt, vt = tiles(ke, r0, T, m), tiles(ve, r0, T, m)
+        p = torch.exp2(mm3(qf[:, :, None], kt.transpose(-1, -2), single)
+                       * c - lse[:, :, None, :, None])
+        if causal:
+            p = p.masked_fill(cols > pos[:, None], 0.0)
+        dp = mm3(dof[:, :, None], vt.transpose(-1, -2), single)
+        ds = p * (dp - delta[:, :, None, :, None])
+        dq_t.append(mm3(ds, kt, single))          # (B, H, T, S, D)
+    dv_t, dk_t = torch.cat(dv_t, 3), torch.cat(dk_t, 3)
+    dq_t = torch.cat(dq_t, 2)
+    # each tile's share added in f32, in the kernels' order
     dk = torch.zeros(B, Hkv, S, D)
     dv = torch.zeros(B, Hkv, S, D)
     for g in range(G):      # each head's share, summed in head order
         dkg = torch.zeros(B, Hkv, S, D)
         dvg = torch.zeros(B, Hkv, S, D)
-        for q0 in range(0, S, n):
-            sl = slice(q0, q0 + n)
-            qt, dot = qg[:, :, g, sl], dog[:, :, g, sl]
-            p = torch.exp2(mm3(kf, qt.transpose(-1, -2), single) * c
-                           - lg[:, :, g, None, sl])
-            if causal:
-                p = p.masked_fill(pos[:, None] > pos[None, sl], 0.0)
-            dp = mm3(vf, dot.transpose(-1, -2), single)
-            ds = p * (dp - dg[:, :, g, None, sl])
-            dvg = dvg + mm3(p, dot, single)
-            dkg = dkg + mm3(ds, qt, single)
+        for i in range(dv_t.shape[3]):
+            dvg = dvg + dv_t[:, :, g, i]
+            dkg = dkg + dk_t[:, :, g, i]
         dk = dk + dkg * scale
         dv = dv + dvg
-    ke = kf.repeat_interleave(G, 1)
-    ve = vf.repeat_interleave(G, 1)
     dq = torch.zeros(B, H, S, D)
-    for k0 in range(0, S, n):
-        sl = slice(k0, k0 + n)
-        p = torch.exp2(mm3(qf, ke[:, :, sl].transpose(-1, -2), single) * c
-                       - lse[..., None])
-        if causal:
-            p = p.masked_fill(pos[None, sl] > pos[:, None], 0.0)
-        dp = mm3(dof, ve[:, :, sl].transpose(-1, -2), single)
-        ds = p * (dp - delta[..., None])
-        dq = dq + mm3(ds, ke[:, :, sl], single)
+    for i in range(dq_t.shape[2]):
+        dq = dq + dq_t[:, :, i]
     return (dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -35,6 +35,7 @@ from repro_torch.kernels.flash_attention.kernel import (
 )
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 from repro_torch.models import attention as port_att
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 TILE = 128              # the kernel's q and kv tile
 BF16_TOL = 2e-2         # the reference's bf16 kernel tolerance

@@ -46,6 +46,7 @@ from gnn_cases import (
     to_j,
     to_t,
 )
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 
 # ------------------------------------------------------ segment_softmax --

@@ -33,6 +33,7 @@ from gnn_cases import (
     to_j,
     to_t,
 )
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 
 def _cell_batch(cell, spec, sizes, rng):

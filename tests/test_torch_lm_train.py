@@ -56,6 +56,7 @@ from repro_torch.models import transformer as port_tf
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig, value_and_grad
 from repro_torch.tree import flatten_with_path, leaves
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 CPU = "cpu"
 LOSS_RTOL = 1e-6
@@ -249,6 +250,31 @@ def test_trainer_matches_reference(arch):
     ref = dict(flatten_with_path(jax.tree_util.tree_map(np.asarray, rt.params)))
     for k, t in flatten_with_path(pt.params):
         assert np.abs(ref[k] - t.numpy()).max() < PARAM_TOL, k
+
+
+def test_lm_loss_keeps_one_running_sum_of_drops():
+    """``LMLoss`` sums its calls' MoE ``dropped_tokens`` into one 0-d
+    tensor, however many steps run: after each of three steps of two
+    microbatches, ``take_dropped`` gives the drops of ``lm_loss`` on that
+    step's microbatches at the step's params, and clears the sum."""
+    _, _, pcfg, pparams = _models("moonshot-v1-16b-a3b")
+    batches = port_launch.synth_lm_batches(pcfg.vocab, 4, 32)
+    loss = port_tf.LMLoss(pcfg)
+    tr = Trainer(loss, pparams, TrainerConfig(opt=OptConfig(lr=3e-3),
+                                              microbatches=2), device=CPU)
+    total = 0.0
+    for step in range(3):
+        b = {k: torch.as_tensor(v) for k, v in batches(step).items()}
+        with torch.no_grad():
+            want = sum(float(port_tf.lm_loss(
+                pcfg, tr.params, b["tokens"][i:i + 2],
+                b["labels"][i:i + 2])[1]["dropped_tokens"]) for i in (0, 2))
+        tr.fit(batches, step + 1)
+        assert loss.dropped.dim() == 0
+        assert loss.take_dropped() == want
+        assert loss.dropped is None
+        total += want
+    assert total > 0
 
 
 # ---------------------------------------------------------------- launcher --

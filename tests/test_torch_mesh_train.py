@@ -19,6 +19,12 @@ gloo group (no network).
     within ``tests/test_torch_train.py``'s 1e-6 of the same steps in one
     process (relative, over each leaf's largest value); so do one step
     of DLRM's and of two-tower's REDUCED cells in f32.
+  * Fault 3: moonshot REDUCED on a global batch of 2 x 3 tokens, whose
+    one dispatch group of 6 spans the two batch ranks (3 tokens each):
+    the step within 1e-6 of one process, the drops of the ranks' own
+    tokens summing to the one-process count, and the first layer's
+    ``moe_apply`` on those rows within ``test_torch_moe.py``'s 1e-5 of
+    the reference's on the whole batch.
   * A mesh checkpoint: the files of a save on the mesh equal an
     unsharded save's byte for byte; a save after the steps restores in
     one process (plain tensors), on a (1, 1) mesh and on the mesh it
@@ -30,9 +36,16 @@ import subprocess
 import sys
 from pathlib import Path
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.models import moe as ref_moe
 
 from repro_torch.ckpt.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.configs.registry import get_bundle
@@ -129,6 +142,17 @@ def _recsys_batch(arch: str, cfg, n: int = 16) -> dict:
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
+def _span_inputs(moe) -> dict:
+    """Fault 3's step: a global batch of 2 x 3 tokens (one dispatch group
+    of 6 over two batch ranks), its params, and 2 x 3 hidden rows for
+    one ``moe_apply``."""
+    batch = synth_lm_batches(moe.config.vocab, 2, 3)(0)
+    x = np.random.RandomState(5).randn(2, 3, moe.config.d_model)
+    return {"params": moe.init(torch.Generator().manual_seed(6)),
+            "batch": {k: torch.from_numpy(v) for k, v in batch.items()},
+            "x": torch.from_numpy(x.astype(np.float32))}
+
+
 MESHES = {"2x1": (2, 2), "2x2": (4, 2)}   # mesh: (world, data ranks)
 
 
@@ -151,7 +175,8 @@ def mesh_run(request, tmp_path_factory):
         bundle.config.vocab), "gnn_params": gnn_params, "gnn_batch": gnn_batch,
         # 64-token rows: each rank's half of a microbatch is one MoE group
         "moe_params": moe.init(torch.Generator().manual_seed(3)),
-        "moe_batches": _lm_batches(moe.config.vocab, 64)}
+        "moe_batches": _lm_batches(moe.config.vocab, 64),
+        "span": _span_inputs(moe)}
     for arch in RECSYS_DP:
         tr = recsys_f32(arch)
         inputs[arch] = {"params": tr.init(tr.config,
@@ -192,6 +217,50 @@ def test_data_parallel_moe_steps_match_one_process(mesh_run):
     for g, w in zip(out["moe_losses"], [h["loss"] for h in tr.history]):
         assert abs(g / w - 1) <= TOL
     _close(out["moe_params"], tr.params, "moe")
+
+
+def _model_rank0_sum(per_rank) -> float:
+    """The sum of a per-rank value over the batch ranks (the ranks at
+    ``model`` coordinate 0)."""
+    return sum(v for coord, v in per_rank if coord[1] == 0)
+
+
+def test_moe_group_spanning_batch_ranks_matches_one_process(mesh_run):
+    """Fault 3: the group size is cut from the global 6 tokens, so the
+    one group spans both batch ranks; the ranks gather it, route it as
+    one process does and keep their own rows."""
+    d, inputs, out = mesh_run
+    moe = lm_bundle_f32(MOE_ARCH)
+    span = inputs["span"]
+    assert moe.config.moe.group_tokens > 6
+    tr = Trainer(moe.loss_fn(), span["params"],
+                 TrainerConfig(opt=moe.opt, log_every=1), device="cpu")
+    tr.fit(lambda c: span["batch"], 1)
+    assert abs(out["span_loss"] / tr.history[0]["loss"] - 1) <= TOL
+    _close(out["span_params"], tr.params, "span")
+    want = tr.loss_fn.take_dropped()
+    assert _model_rank0_sum(out["span_dropped"]) == want
+
+
+def test_moe_apply_over_spanning_groups_matches_reference(mesh_run):
+    """The first layer's ``moe_apply`` on the ranks' rows of a 2 x 3
+    batch against the reference's on the whole batch (one group of 6)."""
+    d, inputs, out = mesh_run
+    cfg = lm_bundle_f32(MOE_ARCH).config.moe
+    span = inputs["span"]
+    p = jax.tree_util.tree_map(
+        lambda t: jnp.asarray(t[0].numpy()), span["params"]["block"]["moe"])
+    x = span["x"].numpy()
+    logits = x.reshape(-1, x.shape[-1]) @ np.asarray(p["router"]["w"])
+    g = np.sort(np.exp(logits - logits.max(-1, keepdims=True)), -1)
+    assert np.diff(g, axis=-1).min() > 1e-5 * g.max()
+    y, aux = ref_moe.moe_apply(p, jnp.asarray(x),
+                               ref_moe.MoEConfig(**dataclasses.asdict(cfg)),
+                               dtype=jnp.float32)
+    assert out["span_moe"].shape == x.shape
+    assert np.abs(np.asarray(y) - out["span_moe"].numpy()).max() < 1e-5
+    assert _model_rank0_sum(out["span_moe_dropped"]) == \
+        float(aux["dropped_tokens"])
 
 
 def test_data_parallel_masked_gnn_step_matches_one_process(mesh_run):

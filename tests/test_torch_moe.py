@@ -36,6 +36,7 @@ from repro_torch.convert import transformer_params_from_jax
 from repro_torch.models import moe as port_moe
 from repro_torch.models import transformer as port_tf
 from repro_torch.serve.engine import Request, ServeEngine
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 CPU = "cpu"
 MOE_TOL = 1e-5

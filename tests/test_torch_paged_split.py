@@ -31,6 +31,7 @@ from repro_torch.kernels.paged_attention.kernel import (
     head_group,
     paged_split,
 )
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -189,3 +190,44 @@ def test_split_combine_ragged_lengths(dtype):
     pages = paged_split(B, H, max_pages, page)
     lens = rng.randint(1, max_pages * page + 1, B)
     _check(*_case(rng, B, H, D, page, max_pages, lens, dtype), dtype, pages)
+
+
+# --------------------------------------------- chip_smoke's profiler time --
+@pytest.mark.parametrize("lost", [0, 1, "alone"])
+def test_profiler_ms_takes_no_reading_from_a_profile_missing_launches(
+        monkeypatch, lost):
+    """``chip_smoke.profiler_ms`` divides a session's kernel time by its
+    calls only where the session captured ``reps`` times one call's
+    launches (a stubbed profile: 2 launches a call, 0.5 ms each); with
+    one launch lost it reads None and reports both counts, and where
+    every lone call's session holds no launch it reads None after three
+    of them and takes no session over ``reps`` calls."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs.torch.cuda, "synchronize", lambda: None)
+    calls = []          # one entry a call of the profiled function
+    sessions = []
+
+    def fake_profile(fn, match=None, top=10):
+        before = len(calls)
+        fn()
+        n = 2 * (len(calls) - before)
+        if lost == "alone":
+            n = 0 if n == 2 else n
+        elif sessions:
+            n -= lost
+        sessions.append(n)
+        return {"captured": True, f"{match}_launches": n,
+                f"{match}_ms": 0.5 * n, "device_busy_ms": 0.5 * n}
+
+    monkeypatch.setattr(cs, "device_profile", fake_profile)
+    counts = {}
+    got = cs.profiler_ms(lambda: calls.append(1), "paged_attention",
+                         reps=20, counts=counts)
+    if lost == "alone":
+        assert sessions == [0, 0, 0]
+        assert counts == {"one_call": 0}
+        assert got is None
+        return
+    assert sessions == [2, 40 - lost]
+    assert counts == {"one_call": 2, "launches": 40 - lost, "expected": 40}
+    assert got == (None if lost else 1.0)

@@ -39,6 +39,7 @@ from repro_torch.launch import serve as port_launch
 from repro_torch.models import recsys as port_rs
 from repro_torch.nn import layers as port_layers
 from repro_torch.sparse import embedding as port_sparse
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 CPU = "cpu"
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5),

@@ -61,6 +61,7 @@ from repro_torch.nn import layers as port_layers
 from repro_torch.train.optim import OptConfig, adamw_init, adamw_update
 from repro_torch.train.trainer import Trainer, TrainerConfig, value_and_grad
 from repro_torch.tree import leaves
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 CPU = "cpu"
 DTYPES = {"f32": (jnp.float32, torch.float32),

@@ -38,6 +38,7 @@ from repro_torch.core.paged_kv import PagedKVManager
 from repro_torch.launch import serve as port_launch
 from repro_torch.models import transformer as port_tf
 from repro_torch.serve.engine import Request, ServeEngine
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 CPU = "cpu"
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-4),

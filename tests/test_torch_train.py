@@ -57,6 +57,7 @@ from repro_torch.train.optim import (
 )
 from repro_torch.train.trainer import Trainer, TrainerConfig, build_train_step
 from repro_torch.tree import flatten_with_path, leaves, path_name
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 CPU = "cpu"
 

@@ -5,12 +5,20 @@ whose XLA_FLAGS force enough host devices for the production meshes.
         python tests/torch_mesh_ref.py specs OUT.json
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/torch_mesh_ref.py psum N SEED OUT.npz
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        python tests/torch_mesh_ref.py tpstep IN.npz OUT.npz
 
 ``specs`` writes every bundle's param, opt and input specs, at REDUCED
 and full sizes (abstract shapes), on the (16, 16) and (2, 16, 16)
 meshes; ``psum`` writes ``compressed_psum`` over N devices under
 ``shard_map`` of :func:`psum_inputs` (``x``) and its result per device
-(``out``).
+(``out``).  ``tpstep`` takes granite-3-2b REDUCED in f32 from
+``init_params`` at key 0 through the reference's jitted train step (two
+microbatches, ``OptConfig()``) on a (2, 2) ``("data", "model")`` mesh,
+params and optimizer state placed by the bundle's shardings and the
+batch over ``data``, once for each batch of IN (``tokens``, ``labels``:
+(steps, B, S)); it writes the initial params (``init/<path>``), the
+losses (``losses``) and the final params (``final/<path>``).
 """
 
 from __future__ import annotations
@@ -89,8 +97,58 @@ def dump_psum(n: int, seed: int, out: str) -> None:
     np.savez(out, x=x, out=got.reshape(n, 4, 33))
 
 
+def _flat(tree) -> dict:
+    import jax
+
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in p): np.asarray(v) for p, v in flat}
+
+
+def dump_tp_step(inp: str, out: str) -> None:
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs.registry import get_bundle
+    from repro.models import transformer as tf
+    from repro.train.optim import OptConfig, adamw_init
+    from repro.train.trainer import TrainerConfig, build_train_step
+
+    batches = np.load(inp)
+    bundle = get_bundle("granite-3-2b", reduced=True)
+    cfg = dataclasses.replace(bundle.config, dtype=jnp.float32)
+    params = tf.init_params(cfg, jax.random.PRNGKey(0))
+    # axes of automatic sharding (GSPMD), as the reference's launcher
+    # builds its meshes
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
+                             ("data", "model"))
+    ps, os_ = bundle.param_shardings(mesh), bundle.opt_shardings(mesh)
+    bs = {k: NamedSharding(mesh, P("data")) for k in ("tokens", "labels")}
+    step = jax.jit(build_train_step(
+        lambda p, b: tf.lm_loss(cfg, p, b["tokens"], b["labels"])[0],
+        TrainerConfig(opt=OptConfig(), microbatches=2)),
+        in_shardings=(ps, os_, bs), out_shardings=(ps, os_, None))
+    result = {f"init/{k}": v for k, v in _flat(params).items()}
+    losses = []
+    with mesh:
+        p = jax.device_put(params, ps)
+        o = jax.device_put(adamw_init(params), os_)
+        for i in range(batches["tokens"].shape[0]):
+            b = {k: jnp.asarray(batches[k][i]) for k in bs}
+            p, o, metrics = step(p, o, b)
+            losses.append(float(metrics["loss"]))
+    result.update({f"final/{k}": v for k, v in _flat(p).items()})
+    np.savez(out, losses=np.asarray(losses), **result)
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "specs":
         dump_specs(sys.argv[2])
+    elif sys.argv[1] == "tpstep":
+        dump_tp_step(sys.argv[2], sys.argv[3])
     else:
         dump_psum(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -10,10 +10,19 @@ set up from a file store in DIR (no network):
            initial LM params (``DIR/ckpt_init``), two ``Trainer`` steps of
            granite-3-2b REDUCED in f32 with a checkpoint (``DIR/ckpt``),
            an elastic restore of it onto this mesh, two steps of
-           moonshot-v1-16b-a3b REDUCED in f32 (MoE), one step of DLRM's
-           and two-tower's REDUCED cells in f32 and one of a masked GNN
-           cell; rank 0 writes the gathered results to
-           ``DIR/train_out.pt``.
+           moonshot-v1-16b-a3b REDUCED in f32 (MoE), one step of it on a
+           global batch of 2 x 3 tokens whose one dispatch group spans
+           the batch ranks (fault 3) and its first layer's ``moe_apply``
+           on such rows, one step of DLRM's and two-tower's REDUCED
+           cells in f32 and one of a masked GNN cell; rank 0 writes the
+           gathered results to ``DIR/train_out.pt``.
+``tp``     on the same mesh, from ``DIR/tp_inputs.pt``: for each case
+           (an LM config, its initial params and batches), ``Trainer``
+           steps computing on the ``model`` shards, with the count of
+           ``model`` collectives, the shapes each rank computed with and
+           every rank's MoE drops, and each rank's ``compress_tree`` and
+           ``global_norm`` of its shard of ``reduction_tree()``; rank 0
+           writes ``DIR/tp_out.pt``.
 """
 
 from __future__ import annotations
@@ -29,27 +38,57 @@ import torch.distributed as dist
 from repro_torch.ckpt.checkpoint import save_checkpoint
 from repro_torch.configs.families import REDUCED_LM_CELL_SHAPES, lm_bundle
 from repro_torch.configs.registry import get_bundle, get_config, get_training
-from repro_torch.distributed.compression import compressed_psum
+from repro_torch.distributed.compression import compress_tree, compressed_psum
 from repro_torch.distributed.sharding import (
     RECSYS_RULES,
     full_tensor,
     place,
     shard_by_rules,
 )
+from repro_torch.distributed.hooks import batch_axes, use_mesh
+from repro_torch.distributed.sharding import gather_except
+from repro_torch.distributed.tensor_parallel import (
+    MODEL_COLLECTIVES,
+    model_group_of,
+)
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.moe import moe_apply
+from repro_torch.models.transformer import lm_model_dims
+from repro_torch.train.optim import global_norm
 from repro_torch.train.trainer import Trainer, TrainerConfig, opt_init
-from repro_torch.tree import tree_map
+from repro_torch.tree import flatten_with_path, path_name, tree_map
 
 LM_MICROBATCHES = 2
 RECSYS_DP = ("dlrm-mlperf", "two-tower-retrieval")
 MOE_ARCH = "moonshot-v1-16b-a3b"
 
 
-def lm_bundle_f32(arch: str = "granite-3-2b"):
-    """The arch's REDUCED LM bundle computing in f32."""
+def lm_bundle_f32(arch: str = "granite-3-2b", dispatch: str = "",
+                  **changes):
+    """The arch's REDUCED LM bundle computing in f32 (``changes`` to its
+    config, e.g. ``n_kv_heads``; an MoE ``dispatch`` route)."""
     cfg = dataclasses.replace(get_config(arch, reduced=True),
-                              dtype=torch.float32)
+                              dtype=torch.float32, **changes)
+    if dispatch:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
     return lm_bundle(arch, cfg, shapes=REDUCED_LM_CELL_SHAPES)
+
+
+def reduction_tree():
+    """A gradient tree whose largest value lies in the first columns of
+    its leaf ``a``, so that a shard's own int8 scale is not its leaf's."""
+    g = torch.Generator().manual_seed(7)
+    a = torch.randn(8, 6, generator=g)
+    a[2, 0] = 40.0
+    return {"a": a, "b": torch.randn(5, generator=g)}
+
+
+def every_rank(value):
+    """``value`` of every rank, in rank order (on every rank)."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return out
 
 
 def recsys_f32(arch: str):
@@ -108,6 +147,27 @@ def train(rank: int, world: int, d: str, data: int) -> None:
     out["moe_losses"] = [h["loss"] for h in tr.history]
     out["moe_params"] = gathered(tr.params)
 
+    # fault 3: 2 x 3 tokens, one dispatch group of 6 over the batch ranks
+    span = inputs["span"]
+    tr = Trainer(moe.loss_fn(), tree_map(place, span["params"],
+                                         moe.param_shardings(mesh)),
+                 TrainerConfig(opt=moe.opt, log_every=1), device="cpu")
+    tr.fit(lambda c: span["batch"], 1)
+    out["span_loss"] = tr.history[0]["loss"]
+    out["span_params"] = gathered(tr.params)
+    out["span_dropped"] = every_rank(
+        (mesh.get_coordinate(), tr.loss_fn.take_dropped()))
+    layer0 = tree_map(lambda t: t[0], span["params"]["block"]["moe"])
+    rows = span["x"].shape[0] // mesh.size(0)
+    r = mesh.get_coordinate()[0]
+    with use_mesh(mesh):
+        y, aux = moe_apply(layer0, span["x"][r * rows:(r + 1) * rows],
+                           moe.config.moe, dtype=torch.float32,
+                           batch=batch_axes())
+    out["span_moe"] = torch.cat(every_rank(y)[::world // data])
+    out["span_moe_dropped"] = every_rank(
+        (mesh.get_coordinate(), float(aux["dropped_tokens"])))
+
     for arch in RECSYS_DP:
         tr = recsys_f32(arch)
         rp = tree_map(place, inputs[arch]["params"],
@@ -128,6 +188,50 @@ def train(rank: int, world: int, d: str, data: int) -> None:
         torch.save(out, os.path.join(d, "train_out.pt"))
 
 
+def tp(rank: int, world: int, d: str, data: int) -> None:
+    """Each case of ``DIR/tp_inputs.pt`` (name -> arch, config changes,
+    params, batches, microbatches) through ``Trainer`` on the mesh."""
+    cases = torch.load(os.path.join(d, "tp_inputs.pt"))
+    mesh = make_mesh((data, world // data), ("data", "model"), device="cpu")
+    mg = model_group_of(mesh)
+    out = {}
+    for name, case in cases.items():
+        bundle = lm_bundle_f32(case["arch"], **case["changes"])
+        placed = tree_map(place, case["params"],
+                          bundle.param_shardings(mesh))
+        dims = lm_model_dims(bundle.config, placed, mg)
+        shapes = {path_name(p): tuple(gather_except(t, "model").shape)
+                  for (p, t), (_, dm) in zip(flatten_with_path(placed),
+                                             flatten_with_path(dims))
+                  if dm is not None}
+        tr = Trainer(bundle.loss_fn(), placed,
+                     TrainerConfig(opt=bundle.opt,
+                                   microbatches=case["microbatches"],
+                                   log_every=1), device="cpu")
+        MODEL_COLLECTIVES.reset()
+        with use_mesh(mesh):
+            tr.fit(lambda c: case["batches"][c], len(case["batches"]))
+        out[name] = {
+            "losses": [h["loss"] for h in tr.history],
+            "params": gathered(tr.params),
+            "shapes": shapes,
+            "collectives": MODEL_COLLECTIVES.count,
+            "dropped": every_rank((mesh.get_coordinate(),
+                                   tr.loss_fn.take_dropped())),
+        }
+    # the step's reductions over a tree of one model shard and one whole
+    # leaf: each rank's columns of the 8 x 6 leaf of REDUCTION_TREE
+    whole = reduction_tree()
+    k = whole["a"].shape[1] // mg.size
+    own = {"a": whole["a"][:, mg.rank * k:(mg.rank + 1) * k],
+           "b": whole["b"]}
+    dims = {"a": 1, "b": None}
+    out[f"reductions_{data}x{world // data}"] = every_rank(
+        (mg.rank, compress_tree(own, dims, mg), global_norm(own, dims, mg)))
+    if rank == 0:
+        torch.save(out, os.path.join(d, "tp_out.pt"))
+
+
 def main() -> None:
     case, rank, world, d = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
                             sys.argv[4])
@@ -139,8 +243,9 @@ def main() -> None:
             np.save(os.path.join(d, f"psum_out_{rank}.npy"),
                     compressed_psum(x).numpy())
         else:
-            train(rank, world, d,
-                  int(sys.argv[5]) if len(sys.argv) > 5 else world)
+            run = train if case == "train" else tp
+            run(rank, world, d,
+                int(sys.argv[5]) if len(sys.argv) > 5 else world)
         dist.barrier()
     finally:
         dist.destroy_process_group()
