@@ -204,7 +204,20 @@ Phases (any failure exits non-zero before the last line is printed):
      four cells at REDUCED, 3 steps card against CPU.  TF32 must be off
      and no hand kernel may launch: the reference's MACE reaches no
      Pallas kernel;
- 16. print the kernels line (eight kernels: both flash forward routes,
+ 16. dryrun: granite-3-2b's step on a one-rank NCCL mesh at 8 x 4,096 in
+     4 microbatches held to its own dry run (``launch.dryrun``) at that
+     shape: each hand kernel's charges equal its launches, the ``model``
+     all-reduces equal ``MODEL_COLLECTIVES``, the aten dot FLOPs equal
+     ``FlopCounterMode``'s total; the dry run's peak over
+     ``torch.cuda.max_memory_allocated()`` and its roofline bound over
+     the step's p50 are printed with the card's name and power limit.
+     Then the dry run of every arch x cell on the (16, 16) mesh but the
+     two MoE archs' ``train_4k`` (left to the CLI run ``PERF.md``
+     records), and of granite-3-2b's ``train_4k`` on the (2, 16, 16) one,
+     traced on the CPU in three processes (no card, no data; each cell
+     must be ``ok``, with its roofline terms in ms, the dominant one and
+     its peak GB a rank against 80);
+ 17. print the kernels line (eight kernels: both flash forward routes,
      both flash backward routes, their launches and the paged kernel's
      by path; the search kernels' launches summed over the search and
      replica phases, the bag's over recsys serving and training), then
@@ -219,6 +232,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import os
 import json
 import subprocess
 import sys
@@ -231,17 +245,20 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the 32-bit rate
-# outside the tensor cores (integer compares and adds, and float32 math at
-# full precision), and the dense bf16 tensor-core rate
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
-# the f32 flash-attention routes run each f32 product as three TF32
-# products on the tensor cores (csrc/tf32.cuh): 495 TFLOP/s dense over 3
-F32_TC_OPS_PER_S = 495e12 / 3
-L2_BYTES = 50 * 2 ** 20    # L2 cache of an H100 SXM
+# the card's figures (launch.mesh.HW) and each kernel's least work
+# (kernels.costs): the bound column of the kernels line
+from repro_torch.kernels.costs import (  # noqa: E402
+    Cost,
+    bag_bytes,
+    flash_backward_cost,
+    flash_cost,
+    member_cost,
+    paged_cost,
+    varint_cost,
+)
+from repro_torch.launch.mesh import HW  # noqa: E402
 
 WALL_CLOCK_KEYS = ("shard_fetch_s", "query_s", "busy_s")
 N_QUERIES = 256
@@ -355,6 +372,22 @@ MESH_MOE_LAYERS = 2              # moonshot-v1-16b-a3b cut to 2 layers
 MESH_MOE_BATCH = (2, 1024)       # one microbatch of 2 x 1,024 tokens
 MESH_MOE_RTOL = 1e-6             # the CPU mesh tests' relative tolerance
 MESH_PSUM_SHAPE = (2048, 8192)   # one of granite's (d, d_ff) gradients
+
+# dry run phase: the card's granite step at LM_TRAIN_BATCH x LM_TRAIN_SEQ
+# held to its own dry run, and the cells traced on the CPU (no card:
+# launch.dryrun on a fake process group) in three processes side by
+# side, each a sequence of launch.dryrun arguments.  The two MoE archs'
+# train_4k (about 245 and 60 s of trace on the card's host) are left to
+# the CLI run that PERF.md records.
+DRYRUN_CELLS = (
+    ("--arch moonshot-v1-16b-a3b,qwen3-moe-235b-a22b "
+     "--shape prefill_32k,decode_32k,long_500k --mesh single",),
+    ("--arch minicpm-2b,granite-3-2b,qwen1.5-4b --mesh single",),
+    ("--arch mace,dlrm-mlperf,din,sasrec,two-tower-retrieval --mesh single",
+     "--arch granite-3-2b --shape train_4k --mesh multi"),
+)
+DRYRUN_TIMED = 3             # timed granite steps for the roofline share
+DRYRUN_CELLS_TIMEOUT = 600   # s, for the cells' processes
 # kernel route against plain route, one microbatch in bf16.  The two
 # forwards differ only in the order of f32 sums before each attention
 # output's one bf16 rounding, so an output element differs by one bf16
@@ -1161,9 +1194,8 @@ def decode_case(raw: np.ndarray, device, expect: Optional[np.ndarray] = None,
         "plain_ms": cuda_ms(lambda: varint_decode_plain(buf, n_values)),
         "library_ms": cuda_ms(lambda: lib_out.index_add_(0, vid_t, contrib_t)),
         "library": "index_add_ of the host-prepared payloads: step 3 only",
-        "bound_ms": max((n + 8 * n_values) / HBM_BYTES_PER_S,
-                        n / SCALAR_OPS_PER_S) * 1e3,
-        "bound_by": "bytes",
+        "bound_ms": varint_cost(n, n_values).bound_ms(),
+        "bound_by": varint_cost(n, n_values).bound_by(),
     }
     if n:
         case["profiler_kernel_ms"] = profiler_ms(
@@ -1181,16 +1213,10 @@ def decode_case(raw: np.ndarray, device, expect: Optional[np.ndarray] = None,
 
 
 def member_bound(n: int, m: int, segments: int) -> tuple:
-    """The least time of a membership launch and what sets it: each key of
-    a read once with its mask byte written (9 B), each offset read once,
-    and of b all of it or, where that is less, one 32-byte sector a key of
-    a (the search's least work); one compare a merged element or, for the
-    search, a key and sector's four keys."""
-    nbytes = 9 * n + min(8 * m, 32 * n) + 16 * (segments + 1)
-    ops = n + min(m, 4 * n)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, \
-        "bytes" if t_bytes >= t_ops else "operations"
+    """The least time of a membership launch and what sets it
+    (``costs.member_cost``)."""
+    cost = member_cost(n, m, segments)
+    return cost.bound_ms(), cost.bound_by()
 
 
 def member_case(a: torch.Tensor, a_off: np.ndarray, b: torch.Tensor,
@@ -1857,11 +1883,8 @@ def flash_case(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the yardstick gets K/V expanded to H heads, outside its timing
     ke = k.repeat_interleave(H // Hkv, dim=1)
     ve = v.repeat_interleave(H // Hkv, dim=1)
-    esize = q.element_size()
-    pairs = S * (S + 1) / 2 if causal else S * S
-    flops = 4 * B * H * D * pairs
-    nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * esize
-    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_TC_OPS_PER_S
+    cost = flash_cost(B, H, Hkv, S, D, q.dtype, causal)
+    flops, nbytes = cost.flops, cost.nbytes
     ms = cuda_ms(lambda: run_kernel(kernel, q, k, v, causal))
     return {
         "kernel": kernel.symbol,
@@ -1872,9 +1895,7 @@ def flash_case(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, causal)),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             q, ke, ve, is_causal=causal)),
-        "bound_ms": max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": "operations" if flops / rate >= nbytes / HBM_BYTES_PER_S
-        else "bytes",
+        "bound_ms": cost.bound_ms(), "bound_by": cost.bound_by(),
         "tflops": flops / ms / 1e9,
         "flops": flops, "bytes": nbytes,
     }
@@ -1918,10 +1939,8 @@ def paged_case(R: int, G: int, D: int, page: int, max_pages: int,
     esize = q.element_size()
     used = np.minimum(lengths, T)
     tokens = int(used.sum())
-    nbytes = (2 * tokens * D * esize + 2 * R * G * D * esize
-              + 4 * int(np.ceil(used / page).sum()) + 4 * R)
-    flops = 4 * D * G * tokens
-    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else SCALAR_OPS_PER_S
+    cost = paged_cost(R, G, D, tokens, int(np.ceil(used / page).sum()), dtype)
+    flops, nbytes = cost.flops, cost.nbytes
     case = {
         "shape": [R, G, D, page, max_pages], "tokens": tokens,
         "split_pages": paged_split(R, G, max_pages, page),
@@ -1933,9 +1952,7 @@ def paged_case(R: int, G: int, D: int, page: int, max_pages: int,
             lambda: paged_attention_plain(q, kp, vp, table, lens)),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             qs, kg, vg, attn_mask=mask)),
-        "bound_ms": max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": "operations" if flops / rate >= nbytes / HBM_BYTES_PER_S
-        else "bytes",
+        "bound_ms": cost.bound_ms(), "bound_by": cost.bound_by(),
         "flops": flops, "bytes": nbytes,
     }
     case["profiler_launches"] = {}
@@ -1943,7 +1960,7 @@ def paged_case(R: int, G: int, D: int, page: int, max_pages: int,
         lambda: paged_attention(q, kp, vp, table, lens), "paged_attention",
         counts=case["profiler_launches"])
     if cold:
-        n = max(2, -(-2 * L2_BYTES // (2 * tokens * D * esize)))
+        n = max(2, -(-2 * HW["l2_bytes"] // (2 * tokens * D * esize)))
         pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(n - 1)]
         turn = iter(range(1 << 30))
 
@@ -2335,30 +2352,11 @@ def bag_ids(V: int, B: int, K: int, gen: torch.Generator,
     return ids
 
 
-def bag_bytes(tables: Sequence[torch.Tensor], ids: torch.Tensor,
-              id_rule: str, weight_bytes: int, out_bytes: int) -> int:
-    """The bytes a bag launch must move: each distinct row that table
-    ``t``'s ids (``ids[t]``) read under ``id_rule`` once (an id that
-    reads a NaN row reads none), every id once, and the weights and the
-    output as the caller counts them (shared weights once)."""
-    from repro_torch.kernels.embedding_bag.ref import resolve_ids
-
-    rows = 0
-    for t, table in enumerate(tables):
-        r, ok = resolve_ids(ids[t], table.shape[0], id_rule)
-        if ok is not None:
-            r = r[ok]
-        rows += torch.unique(r).numel() * table.shape[1] * table.element_size()
-    return rows + ids.numel() * 4 + weight_bytes + out_bytes
-
-
 def bound_of(nbytes: int, flops: int) -> dict:
     """The least time on the card for ``nbytes`` and ``flops`` (f32
     scalar operations), and which of the two bounds it."""
-    by_bytes = nbytes / HBM_BYTES_PER_S >= flops / SCALAR_OPS_PER_S
-    return {"bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                            flops / SCALAR_OPS_PER_S) * 1e3,
-            "bound_by": "bytes" if by_bytes else "operations",
+    cost = Cost(flops, nbytes, "peak_f32_flops")
+    return {"bound_ms": cost.bound_ms(), "bound_by": cost.bound_by(),
             "bytes": nbytes}
 
 
@@ -3276,13 +3274,8 @@ def flash_backward_case(B: int, H: int, Hkv: int, S: int, D: int, dtype,
     ve = v.repeat_interleave(H // Hkv, dim=1).detach().requires_grad_(True)
     qs = q.detach().requires_grad_(True)
     sdpa = F.scaled_dot_product_attention(qs, ke, ve, is_causal=causal)
-    pairs = S * (S + 1) / 2 if causal else S * S
-    # recompute q k^T, then dO V^T, P^T dO, dS K and dS^T q: five
-    # products of 2 D flops a (query, key) pair and head
-    flops = 5 * 2 * B * H * D * pairs
-    # q, k, v, o, dO and the log-sum-exp read once, dq, dk, dv written once
-    nbytes = 4 * (B * H + B * Hkv) * S * D * q.element_size() + 4 * B * H * S
-    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_TC_OPS_PER_S
+    cost = flash_backward_cost(B, H, Hkv, S, D, dtype, causal)
+    flops, nbytes = cost.flops, cost.nbytes
     reps = 5 if S * S * B * H > 1 << 28 else 20
     case.update({
         "ms": cuda_ms(lambda: run_backward(kernel, q, k, v, out, lse, do,
@@ -3291,9 +3284,7 @@ def flash_backward_case(B: int, H: int, Hkv: int, S: int, D: int, dtype,
             q, k, v, do, causal, out=out), reps=reps),
         "library_ms": cuda_ms(lambda: torch.autograd.grad(
             sdpa, (qs, ke, ve), do, retain_graph=True), reps=reps),
-        "bound_ms": max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": "operations" if flops / rate >= nbytes / HBM_BYTES_PER_S
-        else "bytes",
+        "bound_ms": cost.bound_ms(), "bound_by": cost.bound_by(),
         "flops": flops, "bytes": nbytes,
     })
     case["tflops"] = flops / case["ms"] / 1e9
@@ -3824,6 +3815,202 @@ def mesh_phase(device, kernels) -> dict:
     return out
 
 
+def start_dryrun_cells(runs: Sequence[Sequence[str]]
+                       ) -> List[subprocess.Popen]:
+    """The dry run of cells (``launch.dryrun``) as the processes of
+    ``runs`` (each a sequence of ``launch.dryrun`` argument strings run
+    in turn): it traces on the CPU with no data and no card, in processes
+    of its own (a fake process group must not meet an NCCL group), each
+    on one thread; they are stopped when this process exits.
+    :func:`dryrun_phase` starts and reads them."""
+    import atexit
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for run in runs:
+        log_file = tempfile.TemporaryFile("w+")   # a pipe could fill
+        procs.append(subprocess.Popen(
+            ["bash", "-c", " && ".join(
+                f"{sys.executable} -m repro_torch.launch.dryrun {args}"
+                for args in run)],
+            cwd=str(ROOT), env=env, stdout=log_file,
+            stderr=subprocess.STDOUT, text=True))
+        procs[-1].log_file = log_file
+
+    def stop():
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    return procs
+
+
+def dryrun_failures(dry: dict, real: dict) -> List[str]:
+    """Where the dry run of a step (``launch.dryrun.run``'s dict) and the
+    real step on the card (``launches`` by kernel, ``model_collectives``,
+    ``flop_counter_total``) disagree: each hand kernel's charges against
+    its launches (a kernel on either side only counts too), the ``model``
+    all-reduces the dry run saw and ``MODEL_COLLECTIVES`` counted, and the
+    dry run's aten dot FLOPs against ``FlopCounterMode``'s total."""
+    failures = []
+    charged = {k: int(v["launches"]) for k, v in dry["kernels"].items()}
+    launched = {k: n for k, n in real["launches"].items() if n}
+    if charged != launched:
+        failures.append(f"dryrun: charges {charged} but the step launched "
+                        f"{launched}")
+    for key in ("model_collectives", "model_collectives_counted"):
+        if dry[key] != real["model_collectives"]:
+            failures.append(f"dryrun: {key} {dry[key]} but the step issued "
+                            f"{real['model_collectives']}")
+    if dry["aten_dot_flops"] != real["flop_counter_total"]:
+        failures.append(f"dryrun: {dry['aten_dot_flops']:.6g} aten dot FLOPs "
+                        f"but FlopCounterMode counted "
+                        f"{real['flop_counter_total']:.6g} over the step")
+    return failures
+
+
+def dryrun_phase(device, kernels, smi: str,
+                 runs: Sequence[Sequence[str]] = DRYRUN_CELLS) -> dict:
+    """(b) granite-3-2b at its published widths, f32 masters,
+    LM_TRAIN_BATCH x LM_TRAIN_SEQ in the bundle's 4 microbatches, on a
+    one-rank NCCL mesh (``make_host_mesh``): its dry run at that exact
+    shape (``--mesh host --lm-train``) is held to the real step by
+    :func:`dryrun_failures`, on one step with the launch counters, one
+    under ``FlopCounterMode``; the dry run's peak of live bytes is
+    reported over ``torch.cuda.max_memory_allocated()`` of the counted
+    step, and its roofline ``bound_s`` over the p50 of DRYRUN_TIMED steps
+    (the step's share of its roofline), beside the card's name and power
+    limit.  (a) The cells of ``runs``.  Both dry runs
+    (:func:`start_dryrun_cells`) start once the timed steps are done, so
+    that no timed work of the run shares the host with them; every cell
+    must be ``ok``, and its line (ms of each roofline term, the dominant
+    one, peak GB against 80) is logged."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import get_bundle
+    from repro_torch.distributed.hooks import use_mesh
+    from repro_torch.distributed.sharding import place
+    from repro_torch.distributed.tensor_parallel import MODEL_COLLECTIVES
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import synth_lm_batches
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    failures = free_check("dryrun", device)
+    out: dict = {"smi": smi}
+    bundle = get_bundle("granite-3-2b")
+    cfg, mb = bundle.config, bundle.microbatches
+    with tempfile.TemporaryDirectory() as tmp:
+        dry_json = os.path.join(tmp, "granite.json")
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device(
+                "cuda", torch.cuda.current_device()))
+        try:
+            mesh = make_host_mesh()
+            params = bundle.init(torch.Generator(device=device).manual_seed(0))
+            batch = {k: torch.as_tensor(v, device=device) for k, v in
+                     synth_lm_batches(cfg.vocab, LM_TRAIN_BATCH,
+                                      LM_TRAIN_SEQ)(0).items()}
+            tc = TrainerConfig(opt=bundle.opt, microbatches=mb, log_every=1)
+            placed = tree_map(place, params, bundle.param_shardings(mesh))
+            del params
+            trainer = Trainer(bundle.loss_fn(), placed, tc, device=device)
+            del placed
+            with use_mesh(mesh):
+                one_step(trainer, batch, device)      # warm-up
+                times = [one_step(trainer, batch, device)["s"]
+                         for _ in range(DRYRUN_TIMED)]
+                # the dry runs (this step's first) share the host with no
+                # timed step
+                procs = start_dryrun_cells([(
+                    f"--arch granite-3-2b --shape train_4k --mesh host "
+                    f"--lm-train {LM_TRAIN_BATCH},{LM_TRAIN_SEQ},{mb} "
+                    f"--flop-counter --out {dry_json}",)] + list(runs))
+                cells_t0 = time.perf_counter()
+                for k in kernels:
+                    k.launches = 0
+                MODEL_COLLECTIVES.reset()
+                counted = one_step(trainer, batch, device)
+                launches = {k.symbol: k.launches for k in kernels}
+                collectives = MODEL_COLLECTIVES.count
+                fc = FlopCounterMode(display=False)
+                with fc:
+                    one_step(trainer, batch, device)
+            del trainer, batch
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        texts = []
+        for proc in procs:
+            try:
+                proc.wait(timeout=max(1.0, DRYRUN_CELLS_TIMEOUT
+                                      - (time.perf_counter() - cells_t0)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                failures.append(f"dryrun: a dry run had not ended in "
+                                f"{DRYRUN_CELLS_TIMEOUT} s")
+            proc.log_file.seek(0)
+            texts.append(proc.log_file.read())
+            proc.log_file.close()
+        out["cells_s"] = time.perf_counter() - cells_t0
+        dry = None
+        if procs[0].returncode != 0:
+            failures.append(f"dryrun: the granite dry run exited "
+                            f"{procs[0].returncode}: {texts[0][-2000:]}")
+        else:
+            with open(dry_json) as f:
+                dry = json.load(f)
+    p50 = float(np.median(times))
+    real = {"launches": launches, "model_collectives": collectives,
+            "flop_counter_total": float(fc.get_total_flops()),
+            "step_ms": [t * 1e3 for t in times], "p50_ms": p50 * 1e3,
+            "max_memory_allocated": counted["peak_bytes"],
+            "held_bytes": counted["held_bytes"]}
+    out["real"] = real
+    if dry is not None:
+        failures += dryrun_failures(dry, real)
+        terms = dry["roofline"]
+        out["dry"] = {k: dry[k] for k in (
+            "kernels", "model_collectives", "model_collectives_counted",
+            "aten_dot_flops", "flops", "flops_by_dtype", "bytes_accessed",
+            "memory", "roofline", "trace_s", "ops")}
+        out["peak_ratio"] = dry["memory"]["peak_size"] / real[
+            "max_memory_allocated"]
+        out["roofline_share"] = terms["bound_s"] / p50
+        log(f"dryrun granite {LM_TRAIN_BATCH}x{LM_TRAIN_SEQ}/{mb} on (1, 1): "
+            f"charges {dry['kernels']} vs launches {launches}; model "
+            f"collectives {dry['model_collectives']} vs {collectives}; aten "
+            f"dot FLOPs {dry['aten_dot_flops']:.6g} vs FlopCounterMode "
+            f"{real['flop_counter_total']:.6g}; peak "
+            f"{dry['memory']['peak_size']:,} B vs max_memory_allocated "
+            f"{real['max_memory_allocated']:,} B (ratio "
+            f"{out['peak_ratio']:.4f}); roofline {terms['bound_s'] * 1e3:.1f}"
+            f" ms ({terms['dominant']}) over the step's p50 "
+            f"{p50 * 1e3:.1f} ms: share {out['roofline_share']:.4f} ({smi})")
+
+    # (a) the cells
+    out["cells"] = []
+    for proc, text in zip(procs[1:], texts[1:]):
+        lines = [ln for ln in text.splitlines() if ln.startswith("[ok]")
+                 or ln.startswith("FAIL") or " ok, " in ln]
+        for ln in lines:
+            log(f"dryrun cell {ln}")
+        out["cells"] += lines
+        if proc.returncode != 0 or any(ln.startswith("FAIL")
+                                       for ln in lines):
+            failures.append(f"dryrun: the cells' dry run exited "
+                            f"{proc.returncode}: {text[-2000:]}")
+    out["failures"] = failures
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def path_attention_phase(paths: Dict[str, dict], device) -> Dict[str, dict]:
     """The attention kernels against their plain versions at the largest
     shapes the MoE serving and LM training paths gave them (bf16): the
@@ -4229,7 +4416,6 @@ def main(argv: Sequence[str] = ()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.embedding_bag.kernel import EMBEDDING_BAG
     from repro_torch.kernels.flash_attention.kernel import (
@@ -4385,6 +4571,14 @@ def main(argv: Sequence[str] = ()) -> int:
     failures += gnn["failures"]
     log(f"gnn train phase: {gnn['seconds']:.1f} s")
 
+    dry = dryrun_phase(device, train_kernels + kernels + (EMBEDDING_BAG,),
+                       smi)
+    log("dryrun: " + json.dumps({k: v for k, v in dry.items()
+                                 if k not in ("cells", "dry")}))
+    failures += dry["failures"]
+    log(f"dryrun phase: {dry['seconds']:.1f} s (the cells "
+        f"{dry['cells_s']:.1f} s of it)")
+
     # each attention kernel's launches by path: bf16 serving (granite,
     # Moonshot, Qwen3), the f32 parity engines (the f32-route flash kernel's
     # path), LM training (forward and remat recompute; the backward) and
@@ -4498,7 +4692,7 @@ def main(argv: Sequence[str] = ()) -> int:
              "embedding_bag": bags, "recsys_train": train,
              "moe_serve": moe, "moe_serve_qwen3": qwen3,
              "moe_parity": mparity, "lm_train": lm, "mesh": mesh,
-             "gnn_train": gnn,
+             "gnn_train": gnn, "dryrun": dry,
              "kernels": line["kernels"], "failures": failures}, indent=1))
     if failures:
         for f in failures:

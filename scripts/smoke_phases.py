@@ -21,7 +21,10 @@ against its unsharded step with the count of ``model`` collectives,
 backward kernel on both routes against the plain backward at the cases
 the ``lm`` phase checks, without the training), ``gnn`` (MACE trained at
 its published widths in the GNN bundle's four cells, data from
-``--seed``; no hand kernel may launch).  Builds the kernels,
+``--seed``; no hand kernel may launch), ``dryrun`` (granite-3-2b's step
+on a one-rank NCCL mesh held to its own dry run, then the dry run of the
+cells; ``--dryrun-cells ARCH,...`` traces only those archs' cells on
+the (16, 16) mesh).  Builds the kernels,
 turns TF32 off as the smoke run does, runs the phases in that order,
 prints each one's failures and main numbers, writes the full reports as
 JSON, and exits 1 if any phase failed.
@@ -39,7 +42,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("recsys", "rtrain", "moe", "qwen3", "mparity", "lm", "mesh", "guard", "attn", "bwd",
-          "gnn")
+          "gnn", "dryrun")
 PATH_NAMES = {"moe": "moe_serve", "qwen3": "moe_serve_qwen3", "lm": "lm_train"}
 SUMMARY_KEYS = ("tokens_per_s", "prefill", "decode_step", "dropped",
                 "peak_mem_bytes", "serve_peak_mem_bytes", "launches", "step",
@@ -47,7 +50,8 @@ SUMMARY_KEYS = ("tokens_per_s", "prefill", "decode_step", "dropped",
                 "adamw_ms", "setup_s", "split_s", "checks",
                 "reduced_checks", "hand_kernel_launches", "seconds",
                 "unsharded", "sharded", "step_peak_ratio",
-                "model_collectives", "moe", "failures")
+                "model_collectives", "moe", "peak_ratio", "roofline_share",
+                "real", "cells", "cells_s", "failures")
 
 
 def backward_phase(cs, device) -> dict:
@@ -85,6 +89,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="build/smoke_phases.json")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the gnn phase's synthetic data")
+    ap.add_argument("--dryrun-cells", default="",
+                    help="the dryrun phase's archs (default: every cell, "
+                    "as the smoke run)")
     args = ap.parse_args(argv)
     wanted = args.phases.split(",")
     unknown = set(wanted) - set(PHASES)
@@ -133,6 +140,11 @@ def main(argv=None) -> int:
         "gnn": lambda: cs.gnn_train_phase(
             device, kernels + (VARINT_DECODE, SORTED_MEMBER_MASK,
                                EMBEDDING_BAG), args.seed),
+        "dryrun": lambda: cs.dryrun_phase(
+            device, kernels + (VARINT_DECODE, SORTED_MEMBER_MASK,
+                               EMBEDDING_BAG), out["smi"],
+            [(f"--arch {args.dryrun_cells} --mesh single",)]
+            if args.dryrun_cells else cs.DRYRUN_CELLS),
     }
     out: dict = {"smi": cs.smi_line()}
     failed = False

@@ -12,6 +12,11 @@ Each C entry point takes raw device pointers, sizes and a CUDA stream,
 launches on that stream, allocates nothing, and returns
 ``cudaGetLastError()``; :class:`CudaKernel` raises when that is not 0 and
 counts the launches that succeeded.
+
+Every wrapper passes :meth:`CudaKernel.charged` before it takes a
+pointer: the one place where a traced step's launch is charged to an
+active dry run (``launch.dryrun``) instead of launched.  Operands with
+data never take it; a fake operand (no data) outside a dry run raises.
 """
 
 from __future__ import annotations
@@ -24,9 +29,11 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.device import dry_run, is_fake
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
@@ -156,6 +163,26 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
+    def charged(self, operands: Sequence[Optional[torch.Tensor]],
+                cost: Callable[[], object]) -> bool:
+        """The dry run's chokepoint, which every wrapper passes before it
+        takes a pointer.  False where no operand is fake: the caller
+        launches.  Where one is (a ``meta`` tensor or a ``FakeTensor``)
+        and a dry run is active, the launch is charged to it (this
+        kernel's name and ``cost()``, a ``costs.Cost``) and True comes
+        back: the caller returns the outputs it allocated, unwritten.
+        ``launches`` does not count a charge.  A fake operand outside a
+        dry run raises: a real run never skips its kernel here."""
+        if not any(is_fake(t) for t in operands):
+            return False
+        run = dry_run()
+        if run is None:
+            raise RuntimeError(
+                f"{self.symbol}: a tensor with no data reached the kernel's "
+                "launch outside a dry run (launch.dryrun)")
+        run.charge(self.symbol, cost())
+        return True
+
     def launch(self, device: torch.device, sizes: Tuple[int, ...],
                *args, stream: Optional[int] = None) -> None:
         """Launch on ``device``'s current stream (or on ``stream``, a
@@ -177,6 +204,16 @@ class CudaKernel:
             self.largest = tuple(sizes)
 
 
+def _check_device(t: torch.Tensor, name: str) -> None:
+    """The card, the CPU, or (inside a dry run only) the ``meta`` device
+    that stands for the card."""
+    if t.device.type in ("cuda", "cpu"):
+        return
+    if t.device.type == "meta" and dry_run() is not None:
+        return
+    raise ValueError(f"{name} lies on unsupported device {t.device}")
+
+
 def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
     """Validate a (1-d) kernel operand before its pointer is taken."""
     if not isinstance(t, torch.Tensor):
@@ -187,8 +224,7 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
         raise ValueError(f"{name} must be 1-d, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name} lies on unsupported device {t.device}")
+    _check_device(t, name)
 
 
 def require_no_grad(kernel: str, *operands: torch.Tensor,
@@ -219,5 +255,4 @@ def check_float_operand(t: torch.Tensor, name: str, ndim: int) -> None:
         raise ValueError(f"{name} must be {ndim}-d, got {tuple(t.shape)}")
     if t.shape[-1] > 1 and t.stride(-1) != 1:
         raise ValueError(f"{name} must be contiguous along its last dim")
-    if t.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name} lies on unsupported device {t.device}")
+    _check_device(t, name)

@@ -18,6 +18,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.costs import bag_launch_cost
 from repro_torch.kernels.cuda_lib import (
     FLOAT_CODES,
     CudaKernel,
@@ -88,6 +89,11 @@ def _launch(tables: Sequence[torch.Tensor], ids: torch.Tensor,
     D = out.shape[2]
     if B == 0 or D == 0:
         return
+    if EMBEDDING_BAG.charged(
+            (*tables, ids, weights, out), lambda: bag_launch_cost(
+                tables, B, K, 4 * _distinct(weights),
+                n * B * D * out.element_size())):
+        return
     EMBEDDING_BAG.launch(
         ids.device, (n, B, K, D),
         (ctypes.c_void_p * n)(*[t.data_ptr() for t in tables]),
@@ -98,6 +104,16 @@ def _launch(tables: Sequence[torch.Tensor], ids: torch.Tensor,
         FLOAT_CODES[tables[0].dtype], FLOAT_CODES[out.dtype], B, K, D,
         ID_RULES.index(id_rule),
     )
+
+
+def _distinct(t: torch.Tensor) -> int:
+    """The elements of ``t`` that lie apart in memory (a dim of stride
+    0, as ``expand`` makes, holds one)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return n
 
 
 def embedding_bag_fixed_backward(

@@ -45,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.costs import flash_backward_cost, flash_cost
 from repro_torch.kernels.cuda_lib import (
     FLOAT_CODES,
     CudaKernel,
@@ -189,7 +190,8 @@ def run_kernel(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor,
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    if out.numel() == 0:
+    if out.numel() == 0 or kernel.charged(
+            (q, k, v), lambda: flash_cost(B, H, Hkv, S, D, q.dtype, causal)):
         return (out, lse) if return_lse else out
     if kernel is FLASH_ATTENTION_WGMMA:
         if q.dtype != torch.bfloat16 or D not in WGMMA_HEAD_DIMS:
@@ -236,17 +238,11 @@ def run_backward(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor,
             or not lse.is_contiguous():
         raise ValueError(f"lse must be f32 contiguous {(B, H, S)}, got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    if kernel is FLASH_ATTENTION_BACKWARD_WGMMA:
+    wgmma = kernel is FLASH_ATTENTION_BACKWARD_WGMMA
+    if wgmma:
         if q.dtype != torch.bfloat16 or D not in WGMMA_HEAD_DIMS:
             raise ValueError(f"the wgmma backward takes bf16 at D in "
                              f"{WGMMA_HEAD_DIMS}, not {q.dtype} at D {D}")
-        if tma_problem(grad_out):
-            grad_out = grad_out.clone(memory_format=torch.contiguous_format)
-        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-            problem = tma_problem(t)
-            if problem:
-                raise ValueError(f"the wgmma backward cannot read {name}: "
-                                 f"{problem}")
         dtype_code = ()    # bf16 only
         # lse's padded copy, then delta
         scratch = 2 * B * H * (-(-S // BACKWARD_ROW_PAD) * BACKWARD_ROW_PAD)
@@ -261,6 +257,18 @@ def run_backward(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor,
     if dq.numel() == 0:
         return dq, dk, dv
     delta = torch.empty(scratch, dtype=torch.float32, device=q.device)
+    if kernel.charged((q, k, v, out, lse, grad_out),
+                      lambda: flash_backward_cost(B, H, Hkv, S, D, q.dtype,
+                                                  causal)):
+        return dq, dk, dv
+    if wgmma:
+        if tma_problem(grad_out):
+            grad_out = grad_out.clone(memory_format=torch.contiguous_format)
+        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+            problem = tma_problem(t)
+            if problem:
+                raise ValueError(f"the wgmma backward cannot read {name}: "
+                                 f"{problem}")
     kernel.launch(
         q.device, (B, H, Hkv, S, D),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -15,6 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.costs import member_cost
 from repro_torch.kernels.cuda_lib import CudaKernel, check_operand
 
 SORTED_MEMBER_MASK = CudaKernel(
@@ -136,6 +137,9 @@ def run_member_mask(a: torch.Tensor, a_off: np.ndarray, b: torch.Tensor,
     if a.numel() == 0:
         return out
     segments = a_off.size - 1
+    if SORTED_MEMBER_MASK.charged((a, b), lambda: member_cost(
+            a.numel(), b.numel(), segments)):
+        return out
     offs = (torch.from_numpy(np.concatenate([a_off, b_off])).to(a.device)
             if segments > INLINE_SEGMENTS else None)
     ranks = None

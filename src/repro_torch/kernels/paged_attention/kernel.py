@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels.costs import paged_cost
 from repro_torch.kernels.cuda_lib import (
     FLOAT_CODES,
     CudaKernel,
@@ -134,12 +135,17 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     ("block_table", block_table), ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("the pools must be 16-byte aligned")
     page, max_pages = k_pool.shape[1], block_table.shape[1]
     out = torch.empty_like(q)
     if B == 0 or H == 0:
         return out
+    # a dry run has no lengths: it charges every row its whole table
+    if PAGED_ATTENTION.charged(
+            (q, k_pool, v_pool, block_table, lengths), lambda: paged_cost(
+                B, H, D, B * max_pages * page, B * max_pages, q.dtype)):
+        return out
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("the pools must be 16-byte aligned")
     pages = paged_split(B, H, max_pages, page)
     part = tickets = None
     stream = None

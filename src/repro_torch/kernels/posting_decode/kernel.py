@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.costs import varint_cost
 from repro_torch.kernels.cuda_lib import CudaKernel, check_operand
 
 VARINT_DECODE = CudaKernel(
@@ -76,6 +77,8 @@ def varint_decode(buf: torch.Tensor, n_values: int) -> torch.Tensor:
         return varint_decode_plain(buf, n_values)
     out = torch.empty(n_values, dtype=torch.int64, device=dev)
     if n == 0:
+        return out
+    if VARINT_DECODE.charged((buf,), lambda: varint_cost(n, n_values)):
         return out
     tiles = -(-n // TILE_BYTES)
     # the look-back's status words and ticket, zeroed by the C entry

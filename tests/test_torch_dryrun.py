@@ -1,0 +1,327 @@
+"""The port's dry run and roofline (``repro_torch.launch.dryrun``,
+``launch.roofline``, ``kernels.costs``) on the CPU.
+
+  * ``model_flops`` equals the reference's ``repro.launch.roofline
+    .model_flops`` bit for bit, every arch x cell at 1, 256 and 512
+    chips;
+  * ``roofline_terms`` on hand-computed inputs, a group on one node
+    against one over two nodes;
+  * exact counts on tiny programs (a matmul's FLOPs and bytes, 17 layers
+    of a loop, the peak of live storages, an all-reduce over a 16-rank
+    group of a fake world of 256 with its ring wire bytes);
+  * the charge chokepoint: a flash-attention call on meta tensors inside
+    a dry run is one charge of its cost and no launch; a tensor with no
+    data that reaches a launch outside a dry run raises; a CPU call
+    inside one charges nothing;
+  * at REDUCED on a (2, 2) mesh, four cells against the reference's dry
+    run of the same cells (``tests/torch_mesh_ref.py dryrun``, 4 forced
+    host devices): the per-rank dot FLOPs within the band each test
+    states, and ``argument_size`` equal;
+  * granite-3-2b's ``train_4k`` at full width on the (16, 16) mesh: it
+    traces, its flash charges are the step's launches, and the ``model``
+    all-reduces it sees are ``MODEL_COLLECTIVES``' count.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+
+from repro.configs.registry import ARCH_IDS as REF_ARCH_IDS
+from repro.configs.registry import shape_cells as ref_shape_cells
+from repro.launch import roofline as ref_roofline
+
+from repro_torch.configs.registry import ARCH_IDS, get_bundle, shape_cells
+from repro_torch.device import dry_running
+from repro_torch.kernels import costs
+from repro_torch.kernels.flash_attention.kernel import (
+    FLASH_ATTENTION,
+    FLASH_ATTENTION_WGMMA,
+    flash_attention,
+)
+from repro_torch.launch import dryrun
+from repro_torch.launch import roofline
+from repro_torch.launch.mesh import HW
+
+from torch_threads import one_torch_thread  # noqa: F401
+
+ROOT = Path(__file__).resolve().parent.parent
+REDUCED_CELLS = (("granite-3-2b", "train_4k"),
+                 ("moonshot-v1-16b-a3b", "train_4k"),
+                 ("dlrm-mlperf", "train_batch"), ("mace", "molecule"))
+
+
+# ------------------------------------------------------------ model_flops --
+@pytest.mark.parametrize("arch,cell", [(a, c) for a in ARCH_IDS
+                                       for c in shape_cells(a)])
+def test_model_flops_matches_reference(arch, cell):
+    assert arch in REF_ARCH_IDS and cell in ref_shape_cells(arch)
+    for n in (1, 256, 512):
+        got = roofline.model_flops(arch, cell, n)
+        assert got is not None
+        assert got == ref_roofline.model_flops(arch, cell, n)
+
+
+# --------------------------------------------------------- roofline terms --
+def test_roofline_terms_on_one_node_and_across_nodes():
+    flops = {"bf16": 989e12 * 0.25, "f32": 67e12 * 0.5,
+             "tf32x3": 165e12 * 0.125}
+    node = roofline.roofline_terms(flops, 3.35e12 * 0.1, 450e9 * 0.5, 0.0)
+    assert node["compute_s"] == pytest.approx(0.875)
+    assert node["memory_s"] == pytest.approx(0.1)
+    assert node["collective_s"] == pytest.approx(0.5)
+    assert node["dominant"] == "compute"
+    assert node["bound_s"] == pytest.approx(0.875)
+    assert node["compute_fraction"] == pytest.approx(1.0)
+    # the same wire bytes over a ring that leaves the node: the NIC
+    cross = roofline.roofline_terms(flops, 3.35e12 * 0.1, 0.0, 450e9 * 0.5)
+    assert cross["collective_s"] == pytest.approx(450e9 * 0.5 / 50e9)
+    assert cross["dominant"] == "collective"
+    assert cross["compute_fraction"] == pytest.approx(0.875 / 4.5)
+    assert roofline.spans_nodes(range(8)) is False
+    assert roofline.spans_nodes(range(16)) is True
+    assert roofline.spans_nodes([0, 16, 32]) is True
+    assert roofline.wire_bytes("all-reduce", 16, 1600) == 2 * 15 / 16 * 1600
+    assert roofline.wire_bytes("all-gather", 4, 400) == 300
+    assert roofline.wire_bytes("reduce-scatter", 4, 100) == 300
+    assert roofline.wire_bytes("all-reduce", 1, 100) == 0
+
+
+def test_costs_bound_the_card():
+    c = costs.flash_cost(2, 32, 8, 4096, 64, torch.bfloat16, True)
+    assert c.flops == 4 * 2 * 32 * 64 * 4096 * 4097 / 2
+    assert c.nbytes == (2 * 2 * 32 * 4096 * 64 + 2 * 2 * 8 * 4096 * 64) * 2
+    assert c.bound_ms() == max(c.flops / 989e12, c.nbytes / 3.35e12) * 1e3
+    assert c.bound_by() == "operations" and c.dtype == "bf16"
+    assert costs.flash_cost(1, 1, 1, 8, 8, torch.float32, False).dtype \
+        == "tf32x3"
+    m = costs.member_cost(1 << 14, 1 << 24, 1)
+    assert m.nbytes == 9 * (1 << 14) + 32 * (1 << 14) + 32
+    assert m.bound_by() == "bytes"
+    assert HW["peak_tf32x3_flops"] == 495e12 / 3
+
+
+# ------------------------------------------------------ tiny programs ------
+def _counted(fn, *args, model_group=None):
+    count = dryrun.Count({}, model_group)
+    for t in args:
+        count.hold(t)
+    with dry_running(count), dryrun.Counting(count):
+        out = fn(*args)
+    return count, out
+
+
+def test_matmul_flops_bytes_and_peak():
+    a = torch.empty(64, 128, device="meta")
+    b = torch.empty(128, 32, device="meta", dtype=torch.bfloat16)
+    count, _ = _counted(lambda x, y: x @ x.T, a, b)
+    assert count.flops == {"f32": 2 * 64 * 128 * 64}
+    assert count.aten_flops == 2 * 64 * 128 * 64
+    # x.T is a view: free; the product reads x twice, writes 64 x 64
+    assert count.bytes == 2 * 64 * 128 * 4 + 64 * 64 * 4
+    count, _ = _counted(lambda x, y: y.T @ y, a, b)
+    assert count.flops == {"bf16": 2 * 32 * 128 * 32}
+
+    def program(x, y):
+        t = x * 2          # 32 KB
+        u = t + 1          # 32 KB, both live
+        del t
+        return u.sum()     # t freed before the sum
+
+    count, out = _counted(program, a, b)
+    args = 64 * 128 * 4 + 128 * 32 * 2
+    assert count.peak == args + 2 * 64 * 128 * 4
+    assert count.live == args + 4   # u freed on return, the sum held
+
+
+def test_a_loop_of_17_layers_is_counted_17_times():
+    x = torch.empty(8, 16, device="meta")
+    w = torch.empty(16, 16, device="meta")
+
+    def layers(x, w):
+        for _ in range(17):
+            x = torch.relu(x @ w)
+        return x
+
+    count, _ = _counted(layers, x, w)
+    assert count.aten_flops == 17 * 2 * 8 * 16 * 16
+    assert count.ops == 34
+
+
+@pytest.fixture
+def fake_world():
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=256)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_an_all_reduce_over_16_ranks_of_256(fake_world):
+    node = dist.new_group(list(range(8)))
+    wide = dist.new_group(list(range(16)))
+    x = torch.empty(1024, 64, device="meta")
+
+    def program(x):
+        dist.all_reduce(x, group=wide)
+        dist.all_reduce(x, group=node)
+        parts = [torch.empty_like(x) for _ in range(8)]
+        dist.all_gather(parts, x, group=node)
+
+    count, _ = _counted(program, x, model_group=wide.group_name)
+    nbytes = 1024 * 64 * 4
+    coll = count.collectives()
+    assert coll["counts"] == {"all-reduce": 2, "all-gather": 1}
+    assert coll["result_bytes"]["all-reduce"] == 2 * nbytes
+    assert count.cross_node_wire == 2 * 15 / 16 * nbytes
+    assert count.node_wire == 2 * 7 / 8 * nbytes + 7 / 8 * 8 * nbytes
+    assert coll["total_wire_bytes"] == int(count.cross_node_wire
+                                           + count.node_wire)
+    assert count.model_collectives == 1
+    assert count.bytes == 0     # collectives are not HBM traffic here
+
+
+# ------------------------------------------------------- the chokepoint --
+def _qkv(device, dtype=torch.bfloat16, S=256, D=64):
+    return [torch.empty(2, h, S, D, dtype=dtype, device=device)
+            for h in (8, 2, 2)]
+
+
+def test_a_meta_flash_call_is_one_charge_of_its_cost():
+    count = dryrun.Count({}, None)
+    before = FLASH_ATTENTION_WGMMA.launches
+    with dry_running(count):
+        out = flash_attention(*_qkv("meta"), causal=True)
+    assert out.shape == (2, 8, 256, 64) and out.device.type == "meta"
+    want = costs.flash_cost(2, 8, 2, 256, 64, torch.bfloat16, True)
+    assert count.kernels == {"flash_attention_wgmma": {
+        "launches": 1, "flops": want.flops, "bytes": want.nbytes}}
+    assert count.flops == {"bf16": want.flops}
+    assert FLASH_ATTENTION_WGMMA.launches == before
+
+
+def test_a_fake_tensor_at_a_launch_outside_a_dry_run_raises():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        q, k, v = _qkv("cuda")
+        with pytest.raises(RuntimeError, match="outside a dry run"):
+            flash_attention(q, k, v)
+        with pytest.raises(RuntimeError, match="outside a dry run"):
+            flash_attention(*(t.float() for t in (q, k, v)))
+    with pytest.raises(RuntimeError, match="outside a dry run"):
+        FLASH_ATTENTION.charged((torch.empty(4, device="meta"),),
+                                lambda: None)
+    assert FLASH_ATTENTION.charged((torch.empty(4),), lambda: None) is False
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(*_qkv("meta"))
+
+
+def test_a_cpu_call_inside_a_dry_run_charges_nothing():
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(t.shape, generator=gen)
+               for t in _qkv("meta", torch.float32, S=16, D=8))
+    count = dryrun.Count({}, None)
+    launches = (FLASH_ATTENTION.launches, FLASH_ATTENTION_WGMMA.launches)
+    with dry_running(count):
+        out = flash_attention(q, k, v)
+    assert torch.isfinite(out).all()
+    assert count.kernels == {} and count.flops == {} and count.bytes == 0
+    assert (FLASH_ATTENTION.launches,
+            FLASH_ATTENTION_WGMMA.launches) == launches
+
+
+# ------------------------------------------ REDUCED against the reference --
+@pytest.fixture(scope="module")
+def ref_dryrun(tmp_path_factory):
+    out = tmp_path_factory.mktemp("ref") / "dryrun.json"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, str(ROOT / "tests" / "torch_mesh_ref.py"),
+                    "dryrun", str(out)], env=env, check=True, timeout=300)
+    return json.loads(out.read_text())
+
+
+# the factor by which the port repeats a rank's share that the reference
+# splits on a (2, 2) mesh: the recsys MLPs are computed whole on both
+# model ranks (item 12d), and MACE runs the whole batch on every rank (the
+# reference splits it over data); the LM splits as the reference does
+REPEATED = {"granite-3-2b": 1, "moonshot-v1-16b-a3b": 1, "dlrm-mlperf": 2,
+            "mace": 2}
+
+
+@pytest.mark.parametrize("arch,cell", REDUCED_CELLS)
+def test_reduced_dot_flops_and_arguments_match_reference(arch, cell,
+                                                         ref_dryrun):
+    r = dryrun.run(get_bundle(arch, reduced=True), cell, (2, 2),
+                   ("data", "model"), flop_counter=True)
+    want = ref_dryrun[f"{arch}|{cell}"]
+    assert r["ok"]
+    assert r["memory"]["argument_size"] == want["argument_size"]
+    # Per rank, the port counts at least the reference's dot FLOPs times
+    # what it repeats, and at most a third more: it recomputes every
+    # block (and MACE layer) in the backward pass, where the reference's
+    # "dots" remat saves the products, which adds up to one forward in
+    # three passes.
+    ratio = r["flops"] / want["dot_flops"] / REPEATED[arch]
+    assert 1.0 <= ratio <= 4 / 3, ratio
+    assert r["flops"] == pytest.approx(sum(r["flops_by_dtype"].values()))
+    assert r["aten_dot_flops"] == r["flop_counter_total"]
+
+
+# ------------------------------------------------------- one full cell --
+def test_granite_train_at_full_width_on_the_single_mesh():
+    bundle = get_bundle("granite-3-2b")
+    r = dryrun.run(bundle, "train_4k", (16, 16), ("data", "model"),
+                   flop_counter=True)
+    assert r["ok"] and r["n_chips"] == 256
+    mb, L = bundle.microbatches, bundle.config.n_layers
+    # remat: the forward runs again in the backward pass
+    assert r["kernels"]["flash_attention_wgmma"]["launches"] == 2 * L * mb
+    assert r["kernels"]["flash_attention_backward_wgmma"]["launches"] \
+        == L * mb
+    assert set(r["kernels"]) == {"flash_attention_wgmma",
+                                 "flash_attention_backward_wgmma"}
+    assert r["model_collectives"] == r["model_collectives_counted"] > 0
+    assert r["aten_dot_flops"] == r["flop_counter_total"]
+    assert r["collectives"]["by_axis"]["model"]["cross_node"]
+    assert r["memory"]["fits"]
+
+
+# ------------------------------------------- the card's cross-check --
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_holds_the_dry_run_to_the_step():
+    """``chip_smoke.dryrun_failures`` on a granite REDUCED dry run and a
+    step that agrees, then with one launch, one collective and one FLOP
+    off: each disagreement fails."""
+    smoke = _chip_smoke()
+    dry = dryrun.run(get_bundle("granite-3-2b", reduced=True), "train_4k",
+                     (1, 1), ("data", "model"), flop_counter=True)
+    real = {"launches": {k: v["launches"] for k, v in dry["kernels"].items()},
+            "model_collectives": dry["model_collectives"],
+            "flop_counter_total": dry["flop_counter_total"]}
+    real["launches"]["embedding_bags"] = 0
+    assert dry["model_collectives"] > 0
+    assert smoke.dryrun_failures(dry, real) == []
+    k = next(iter(real["launches"]))
+    for bad in ({"launches": {**real["launches"], k: 1 + real["launches"][k]}},
+                {"model_collectives": real["model_collectives"] + 1},
+                {"flop_counter_total": real["flop_counter_total"] + 1}):
+        assert len(smoke.dryrun_failures(dry, {**real, **bad})) >= 1

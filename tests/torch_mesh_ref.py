@@ -7,6 +7,8 @@ whose XLA_FLAGS force enough host devices for the production meshes.
         python tests/torch_mesh_ref.py psum N SEED OUT.npz
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/torch_mesh_ref.py tpstep IN.npz OUT.npz
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        python tests/torch_mesh_ref.py dryrun OUT.json
 
 ``specs`` writes every bundle's param, opt and input specs, at REDUCED
 and full sizes (abstract shapes), on the (16, 16) and (2, 16, 16)
@@ -19,6 +21,11 @@ params and optimizer state placed by the bundle's shardings and the
 batch over ``data``, once for each batch of IN (``tokens``, ``labels``:
 (steps, B, S)); it writes the initial params (``init/<path>``), the
 losses (``losses``) and the final params (``final/<path>``).
+``dryrun`` lowers and compiles each cell of :data:`DRYRUN_CELLS` at
+REDUCED on a (2, 2) ``("data", "model")`` mesh as the reference's dry run
+does its production cells (``repro.launch.dryrun.run_cell``), and writes
+per cell the per-device dot FLOPs of ``hlo_graph.analyze`` and
+``memory_analysis().argument_size_in_bytes``.
 """
 
 from __future__ import annotations
@@ -145,10 +152,65 @@ def dump_tp_step(inp: str, out: str) -> None:
     np.savez(out, losses=np.asarray(losses), **result)
 
 
+# the cells the port's dry run is held to, (arch, cell) at REDUCED
+DRYRUN_CELLS = (("granite-3-2b", "train_4k"),
+                ("moonshot-v1-16b-a3b", "train_4k"),
+                ("dlrm-mlperf", "train_batch"), ("mace", "molecule"))
+
+
+def dump_dryrun(out: str) -> None:
+    import jax
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs.registry import get_bundle
+    from repro.distributed.sharding import (
+        sanitize_shardings,
+        shard_by_rules,
+    )
+    from repro.launch import hlo_graph
+    from repro.train.optim import adamw_init
+
+    # axes of automatic sharding (GSPMD), as in dump_tp_step
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
+                             ("data", "model"))
+    result = {}
+    for arch, shape in DRYRUN_CELLS:
+        bundle = get_bundle(arch, reduced=True)
+        cell = bundle.cells[shape]
+        with mesh:
+            abstract = [bundle.abstract_params()]
+            in_shardings = [bundle.param_shardings(mesh)]
+            if hasattr(bundle, "cell_inits"):
+                abstract = [jax.eval_shape(bundle.cell_inits[shape],
+                                           jax.random.PRNGKey(0))]
+                in_shardings = [shard_by_rules(abstract[0], mesh,
+                                               bundle.rules)]
+            abstract.append(jax.eval_shape(adamw_init, abstract[0]))
+            in_shardings.append({"mu": in_shardings[0],
+                                 "nu": in_shardings[0],
+                                 "step": NamedSharding(mesh, P())})
+            abstract.append(cell.inputs["batch"])
+            in_shardings.append(cell.input_sharding(mesh)["batch"])
+            in_shardings = [sanitize_shardings(s, a, mesh)
+                            for s, a in zip(in_shardings, abstract)]
+            compiled = jax.jit(cell.fn, in_shardings=tuple(in_shardings)
+                               ).lower(*abstract).compile()
+            graph = hlo_graph.analyze(compiled.as_text(), 4)
+            result[f"{arch}|{shape}"] = {
+                "dot_flops": graph["dot_flops"],
+                "argument_size": int(
+                    compiled.memory_analysis().argument_size_in_bytes)}
+    with open(out, "w") as f:
+        json.dump(result, f)
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "specs":
         dump_specs(sys.argv[2])
     elif sys.argv[1] == "tpstep":
         dump_tp_step(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "dryrun":
+        dump_dryrun(sys.argv[2])
     else:
         dump_psum(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
