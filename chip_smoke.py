@@ -121,9 +121,11 @@ Phases (any failure exits non-zero before the last line is printed):
      with K = 8 and ids among the tables' last rows, at DIN's D = 18,
      K = 100, and grouped: the 26 DLRM tables at ``serve_bulk``'s batch
      in one launch, bit for bit against the per-table plain versions
-     (also with out-of-range ids under both rules); timed beside its
-     bytes bound (each distinct row its ids read counted once) and
-     ``torch.nn.functional.embedding_bag``;
+     (also with out-of-range ids under both rules), and again with each
+     table cut in two by row windows (each half bit for bit against its
+     plain version, the halves summing to the whole launch); timed
+     beside its bytes bound (each distinct row its ids read counted
+     once) and ``torch.nn.functional.embedding_bag``;
  11. recsys train: dlrm-mlperf at its published widths with each table
      capped at 2^22 rows (5 of 26 cut: 23,458,556 rows, 3.0G parameters;
      the cut is printed as ``reduced``), f32 masters drawn on the card,
@@ -183,8 +185,13 @@ Phases (any failure exits non-zero before the last line is printed):
      gradient.  Then the mesh phase on a one-rank NCCL (1, 1) mesh: the
      granite step through the tensor-parallel route
      (``distributed.tensor_parallel``) bit for bit against the unsharded
-     step, with its count of ``model`` collectives, and moonshot at its
-     published widths cut to 2 layers likewise (``mesh_phase``).  Then
+     step, with its count of ``model`` collectives, moonshot at its
+     published widths cut to 2 layers likewise, and DLRM's and
+     two-tower's steps through the row-sharded route
+     (``distributed.row_parallel``: tables looked up where their rows
+     lie, MLPs on their columns; two-tower at B 32,768 with 2^23 user
+     rows, the most of ``train_batch`` that fits a card) bit for bit
+     against theirs (``mesh_phase``).  Then
      both attention kernels against their plain versions (outputs and
      log-sum-exps) at the shapes these paths gave them;
  15. gnn train: MACE at its published widths (2 layers, k 128, l_max 2,
@@ -372,6 +379,14 @@ MESH_MOE_LAYERS = 2              # moonshot-v1-16b-a3b cut to 2 layers
 MESH_MOE_BATCH = (2, 1024)       # one microbatch of 2 x 1,024 tokens
 MESH_MOE_RTOL = 1e-6             # the CPU mesh tests' relative tolerance
 MESH_PSUM_SHAPE = (2048, 8192)   # one of granite's (d, d_ff) gradients
+MESH_RECSYS = ("dlrm-mlperf", "two-tower-retrieval")   # tables where rows lie
+# two-tower's one-rank step (scripts/mesh_fit.py on an H100 80GB): its
+# train_batch of 65,536 runs out of memory whatever the user rows (the
+# (B, B) f32 logits' temporaries alone are about 74 GB), and at B 32,768
+# its 10M user rows do too (AdamW's f32 temporaries of the 10.24 GB
+# table); 2^23 rows peak at 69.3 GB, 9M at 73.6
+MESH_TWO_TOWER_BATCH = 32_768
+MESH_TWO_TOWER_USERS = 1 << 23
 
 # dry run phase: the card's granite step at LM_TRAIN_BATCH x LM_TRAIN_SEQ
 # held to its own dry run, and the cells traced on the CPU (no card:
@@ -2469,6 +2484,108 @@ def bag_group_case(tables: Sequence[torch.Tensor], B: int,
     return out
 
 
+def bag_window_case(tables: Sequence[torch.Tensor], B: int,
+                    gen: torch.Generator, device) -> dict:
+    """The grouped launch with row windows, as a mesh step looks tables
+    up where their rows lie: each table cut mid-table at ``V // 2`` into
+    two blocks, rows [0, V // 2) and [V // 2, V), each block a view
+    launched with its window, on ``B`` bags of one id a table whose ids
+    hold each cut's neighbours (V // 2 - 1 and V // 2) and the table's
+    first and last rows, clean and with :func:`bad_ids` mixed in, under
+    both id rules.  Each block's launch is held to its plain version bit
+    for bit (NaN in the same places), and the two blocks' bags summed to
+    the unwindowed launch bit for bit (one block adds each id, the other
+    0; an id outside the table is NaN on both).  Timed: the upper
+    blocks' launch (``ms``, its bound counting the rows in the windows)
+    beside the unwindowed launch of the same ids (``unwindowed_ms``), by
+    CUDA events and by the profiler's kernel time (``kernel_ms``,
+    ``unwindowed_kernel_ms``)."""
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bags
+    from repro_torch.kernels.embedding_bag.ref import embedding_bags_plain
+
+    n, D, dtype = len(tables), tables[0].shape[1], tables[0].dtype
+    cuts = [t.shape[0] // 2 for t in tables]
+    sparse = torch.stack([bag_ids(t.shape[0], B, 1, gen, device)[:, 0]
+                          for t in tables], 1)                  # (B, T)
+    for i, (t, c) in enumerate(zip(tables, cuts)):
+        sparse[:4, i] = torch.tensor([c - 1, c, 0, t.shape[0] - 1],
+                                     dtype=torch.int32, device=device)
+    bad = torch.stack([bad_ids(sparse[:, i].contiguous(), t.shape[0])
+                       for i, t in enumerate(tables)], 1)
+    w = torch.ones((1, 1, 1), device=device).expand(n, B, 1)
+    halves = {"lower": [(0, c) for c in cuts],
+              "upper": [(c, t.shape[0] - c) for t, c in zip(tables, cuts)]}
+
+    def launch(half, ids, rule, plain=False):
+        blocks = [t[f:f + m] for t, (f, m) in zip(tables, halves[half])]
+        windows = [(f, t.shape[0]) for t, (f, _) in zip(tables, halves[half])]
+        fn = embedding_bags_plain if plain else embedding_bags
+        return fn(blocks, ids, w, rule, windows=windows)
+
+    def same(a, b):
+        na, nb = torch.isnan(a), torch.isnan(b)
+        return bool(torch.equal(na, nb)) and bool(torch.equal(
+            torch.where(na, 0, a), torch.where(nb, 0, b)))
+
+    out = {"tables": n, "shape": [sum(t.shape[0] for t in tables), D, B, 1],
+           "dtype": str(dtype).split(".")[-1], "cuts": cuts}
+    worst, identical = 0.0, True
+    for tag, cols in (("clean", sparse), ("bad_ids", bad)):
+        ids = cols.t()[..., None]
+        for rule in ("clip", "fill"):
+            parts = []
+            for half in halves:
+                got = launch(half, ids, rule)
+                plain = launch(half, ids, rule, plain=True)
+                torch.cuda.synchronize()
+                check = bag_check(torch.nan_to_num(got),
+                                  torch.nan_to_num(plain))
+                worst = max(worst, check["max_err_ratio"])
+                out[f"{tag}_{rule}_{half}"] = same(got, plain)
+                identical &= out[f"{tag}_{rule}_{half}"]
+                parts.append(got)
+                del plain
+            whole = embedding_bags(tables, ids, w, rule)
+            summed = (parts[0].float() + parts[1].float()).to(dtype)
+            out[f"{tag}_{rule}_sum"] = same(summed, whole)
+            out[f"{tag}_{rule}_nan_bags"] = int(torch.isnan(whole).any(2)
+                                               .sum())
+            identical &= out[f"{tag}_{rule}_sum"]
+            del parts, whole, summed
+    ids = sparse.t()[..., None]
+    upper = [(f, t.shape[0]) for t, (f, _) in zip(tables, halves["upper"])]
+    blocks = [t[f:] for t, (f, _) in zip(tables, upper)]
+
+    # the timed calls drop their 1.7 GB results: a profiler session of 20
+    # calls that kept them would hold 34 GB beside the 45.6 GB of tables
+    def windowed() -> None:
+        embedding_bags(blocks, ids, w, "fill", windows=upper)
+
+    def unwindowed() -> None:
+        embedding_bags(tables, ids, w, "fill")
+
+    out.update({
+        "max_err_ratio": worst, "bit_identical": identical,
+        "within_tolerance": identical
+        and out["bad_ids_fill_sum"] and out["bad_ids_fill_nan_bags"] > 0
+        and out["clean_fill_nan_bags"] == 0,
+        "ms": cuda_ms(windowed),
+        "unwindowed_ms": cuda_ms(unwindowed),
+        # the kernel's own device time (torch.profiler), both launches
+        "kernel_ms": profiler_ms(windowed, "embedding_bags"),
+        "unwindowed_kernel_ms": profiler_ms(unwindowed, "embedding_bags"),
+        "plain_ms": cuda_ms(lambda: launch("upper", ids, "fill", plain=True),
+                            reps=3),
+        "library_ms": None,
+        "library_note": "no PyTorch call looks up a window of several "
+                        "tables into strided slots of one buffer",
+        **bound_of(bag_bytes(blocks, ids, "fill", 4,
+                             B * n * D * tables[0].element_size(),
+                             windows=upper), 2 * n * B * D),
+    })
+    return out
+
+
 def bad_ids(ids: torch.Tensor, V: int) -> torch.Tensor:
     """``ids`` with every BAG_BAD_EVERY-th id replaced, in turn, by V, -1,
     -V, -V-1 and 2^31-1: out of range, wrapped, wrapped to row 0, out of
@@ -2528,7 +2645,8 @@ def bag_phase(params: dict, device) -> Dict[str, dict]:
     :func:`bag_rule_case`), at a multi-hot deployment shape over t19's
     48,937,457 rows (and a 20M-row f32 table; both past 2^31 elements),
     at DIN's widths (D = 18, K = 100), and grouped: the 26 DLRM tables
-    in one launch at ``serve_bulk``'s batch (:func:`bag_group_case`)."""
+    in one launch at ``serve_bulk``'s batch (:func:`bag_group_case`),
+    whole and cut mid-table by row windows (:func:`bag_window_case`)."""
     gen = torch.Generator(device=device).manual_seed(31)
     tables = [t["table"] for t in params["tables"].values()]
     t0, t19 = tables[0], tables[19]
@@ -2555,6 +2673,8 @@ def bag_phase(params: dict, device) -> Dict[str, dict]:
             table, bag_ids(BAG_DIN_ROWS, BAG_DIN_B, BAG_DIN_K, gen, device), w)
     del table
     out["grouped_bf16"] = bag_group_case(tables, BAG_SERVE_B, gen, device)
+    out["grouped_windowed_bf16"] = bag_window_case(tables, BAG_SERVE_B, gen,
+                                                   device)
     return out
 
 
@@ -3652,7 +3772,142 @@ def mesh_moe_step(mesh, device, kernels, failures: List[str]) -> dict:
     return out
 
 
-def mesh_phase(device, kernels) -> dict:
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms inside the block (warnings, not
+    errors, for an op that has none), as they were after it."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def mesh_recsys_step(arch: str, mesh, device, bag, failures: List[str],
+                     batch_size: Optional[int] = None,
+                     users: Optional[int] = None) -> dict:
+    """One ``train_batch`` step of ``arch`` in f32 masters through
+    ``Trainer`` with the recsys bundle's optimizer, without a mesh and
+    then on ``mesh`` from the same params and batch, one trainer on the
+    card at a time (the initial params and the unsharded step's result
+    are kept on the host, and the mesh step is held to them there):
+    dlrm-mlperf at its published widths with each table capped at
+    TRAIN_ROW_CAP rows, as ``recsys_train_phase`` takes it, on a batch
+    of its ``train_batch`` rows; two-tower-retrieval at its published
+    widths with MESH_TWO_TOWER_USERS user rows on MESH_TWO_TOWER_BATCH
+    rows (``batch_size`` and ``users`` override both;
+    ``scripts/mesh_fit.py`` finds what fits).  The mesh step
+    looks the tables up where their rows lie (``row_parallel``; on a
+    one-rank mesh every table is one block of ``("data", "model")``, and
+    every collective of the route runs over the one rank) and computes
+    the MLPs' columns.  Loss and every param bit for bit, the step's peak
+    at most MESH_PEAK_RATIO of the unsharded step's, the lookups' and
+    ``model``'s collectives above 0, and DLRM's bag kernel launched once
+    in each step.  The caller runs it under
+    :func:`deterministic_algorithms`: the tables' gradients are
+    ``index_add_`` sums, whose CUDA atomics add a small table's many
+    duplicate rows in an order that changes from run to run (DLRM's
+    35-row ``t25`` differed in its last bits between the two steps
+    without it); its deterministic route sorts them."""
+    from repro_torch.configs.registry import get_training
+    from repro_torch.distributed.hooks import use_mesh
+    from repro_torch.distributed.row_parallel import ROW_COLLECTIVES
+    from repro_torch.distributed.sharding import (
+        RECSYS_RULES,
+        is_sharded,
+        place,
+        shard_by_rules,
+    )
+    from repro_torch.distributed.tensor_parallel import MODEL_COLLECTIVES
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import flatten_with_path, leaves, path_name, tree_map
+
+    tr = get_training(arch)
+    gen = torch.Generator(device=device).manual_seed(TRAIN_SEED)
+    if arch == "dlrm-mlperf":
+        rows, cuts = capped_rows(tr.config.table_rows, TRAIN_ROW_CAP)
+        cfg = dataclasses.replace(tr.config, table_rows=rows)
+        B = batch_size or tr.batch_size
+        batch = train_batch(cfg, B, TRAIN_SEED, device)
+    else:
+        cfg = dataclasses.replace(
+            tr.config, n_users=min(tr.config.n_users,
+                                   users or MESH_TWO_TOWER_USERS))
+        cuts = ([] if cfg.n_users == tr.config.n_users else
+                [f"user: {tr.config.n_users:,} -> {cfg.n_users:,}"])
+        B = batch_size or MESH_TWO_TOWER_BATCH
+        if B != tr.batch_size:
+            cuts.append(f"batch: {tr.batch_size:,} -> {B:,}")
+        batch = {"user_id": _ids(gen, device, cfg.n_users, B),
+                 "user_ctx": _ids(gen, device, cfg.n_context, B),
+                 "item_id": _ids(gen, device, cfg.n_items, B),
+                 "item_cat": _ids(gen, device, cfg.n_context, B)}
+    tr = dataclasses.replace(tr, config=cfg)
+    params = tree_map(lambda t: t.cpu(), tr.init(
+        cfg, torch.Generator(device=device).manual_seed(0), masters=True))
+    n_params = sum(t.numel() for t in leaves(params))
+    tc = TrainerConfig(opt=tr.opt, log_every=1)
+    plain_tr = Trainer(tr.loss_fn(), params, tc, device=device)
+    bag.launches = 0
+    plain = one_step(plain_tr, batch, device)
+    plain["bag_launches"] = bag.launches
+    plain_params = [t.cpu() for t in leaves(plain_tr.params)]
+    del plain_tr
+    torch.cuda.empty_cache()
+    on_card = tree_map(lambda t: t.to(device), params)
+    placed = tree_map(place, on_card, shard_by_rules(on_card, mesh,
+                                                     RECSYS_RULES))
+    mesh_tr = Trainer(tr.loss_fn(), placed, tc, device=device)
+    del placed, on_card, params
+    torch.cuda.empty_cache()
+    bag.launches = 0
+    ROW_COLLECTIVES.reset()
+    MODEL_COLLECTIVES.reset()
+    with use_mesh(mesh):
+        sharded = one_step(mesh_tr, batch, device)
+    sharded["bag_launches"] = bag.launches
+    rows_n, model_n = ROW_COLLECTIVES.count, MODEL_COLLECTIVES.count
+    differ = [path_name(p) for (p, a), b in zip(
+        flatten_with_path(mesh_tr.params), plain_params)
+        if not (is_sharded(a) and torch.equal(a.to_local().cpu(), b))]
+    same_loss = sharded["loss"] == plain["loss"]
+    ratio = sharded["step_peak_bytes"] / plain["step_peak_bytes"]
+    out = {"arch": arch, "batch": B, "params": n_params, "cuts": cuts,
+           "unsharded": plain, "sharded": sharded,
+           "loss_bit_identical": same_loss, "params_differing": differ[:10],
+           "n_params_differing": len(differ), "step_peak_ratio": ratio,
+           "row_collectives": rows_n, "model_collectives": model_n,
+           "deterministic_algorithms": True}
+    log(f"mesh {arch}: {n_params:,} params, unsharded step "
+        f"{plain['s']:.2f} s, mesh step {sharded['s']:.2f} s, loss "
+        f"{sharded['loss']:.6f} vs {plain['loss']:.6f}, {len(differ)} params "
+        f"differ, step peak ratio {ratio:.4f}, {rows_n} lookup and "
+        f"{model_n} model collectives, bag launches "
+        f"{plain['bag_launches']} / {sharded['bag_launches']}")
+    if not same_loss or differ:
+        failures.append(
+            f"mesh {arch}: the one-rank mesh step differs from the "
+            f"unsharded one: loss {sharded['loss']!r} vs {plain['loss']!r}, "
+            f"{len(differ)} params differ ({differ[:3]})")
+    if ratio > MESH_PEAK_RATIO:
+        failures.append(f"mesh {arch}: the mesh step's peak is {ratio:.4f} "
+                        f"of the unsharded step's (at most "
+                        f"{MESH_PEAK_RATIO})")
+    if rows_n == 0 or model_n == 0:
+        failures.append(f"mesh {arch}: {rows_n} lookup and {model_n} model "
+                        "collectives (the route issues both)")
+    if arch == "dlrm-mlperf" and (plain["bag_launches"], sharded[
+            "bag_launches"]) != (1, 1):
+        failures.append(f"mesh {arch}: the bag kernel launched "
+                        f"{plain['bag_launches']} / {sharded['bag_launches']} "
+                        "times in the unsharded / mesh step, once expected")
+    del mesh_tr, plain_params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(device, kernels, bag) -> dict:
     """The sharding slice on a one-rank NCCL group, set up from a
     FileStore in a temporary directory (no network): ``compressed_psum``
     against ``dequantize_int8(*quantize_int8(x))`` bit for bit, a bf16
@@ -3675,7 +3930,9 @@ def mesh_phase(device, kernels) -> dict:
     to each other within MESH_MOE_RTOL (loss and each param, over its
     largest value; bit-identity reported) with equal MoE drops, the
     ``model`` collectives above 0 and the flash kernels launched as
-    expected."""
+    expected.  Last, DLRM's and two-tower's steps through the row-sharded
+    route, each against its unsharded step (:func:`mesh_recsys_step`;
+    ``bag`` is the bag kernel, launched by DLRM's)."""
     import os
 
     import torch.distributed as dist
@@ -3807,6 +4064,10 @@ def mesh_phase(device, kernels) -> dict:
                     f"and microbatch: {cfg.n_layers} x {mb})")
             del mesh_tr, plain_params, batch
             out["moe"] = mesh_moe_step(mesh, device, kernels, failures)
+            with deterministic_algorithms():
+                out["recsys"] = {arch: mesh_recsys_step(arch, mesh, device,
+                                                        bag, failures)
+                                 for arch in MESH_RECSYS}
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -4545,7 +4806,7 @@ def main(argv: Sequence[str] = ()) -> int:
         {k: v for k, v in lm["grad_check"].items() if k != "rel_l2"}))
     failures += lm["failures"]
     log(f"lm train phase: {lm['seconds']:.1f} s")
-    mesh = mesh_phase(device, train_kernels)
+    mesh = mesh_phase(device, train_kernels, EMBEDDING_BAG)
     log("mesh: " + json.dumps(mesh))
     failures += mesh["failures"]
     log(f"mesh phase: {mesh['seconds']:.1f} s")
@@ -4599,6 +4860,8 @@ def main(argv: Sequence[str] = ()) -> int:
     repeat_row = {FLASH_ATTENTION_BACKWARD_WGMMA.symbol: "lm_train_bf16",
                   FLASH_ATTENTION_BACKWARD.symbol: "d64_f32"}
     # the search path's own launch: a decoded chunk, a join round
+    # DLRM's mesh step, through the row-sharded route
+    mesh_bags = mesh["recsys"]["dlrm-mlperf"]["sharded"]["bag_launches"]
     search_case = {VARINT_DECODE.symbol: "search",
                    SORTED_MEMBER_MASK.symbol: "round"}
     line = {"kernels": [
@@ -4662,9 +4925,11 @@ def main(argv: Sequence[str] = ()) -> int:
             "route": "cuda",
             "source": EMBEDDING_BAG.source,
             "replaces": EMBEDDING_BAG.replaces,
-            "launches": recsys["launches"] + train["launches"],
+            "launches": (recsys["launches"] + train["launches"]
+                         + mesh_bags),
             "launches_by_path": {"serve": recsys["launches"],
-                                 "train": train["launches"]},
+                                 "train": train["launches"],
+                                 "mesh": mesh_bags},
             **{key: bags["serve_bf16"][key]
                for key in ("max_abs_err", "max_err_ratio", "ms", "plain_ms",
                            "bound_ms", "bound_by", "library_ms", "shape",
@@ -4676,6 +4941,12 @@ def main(argv: Sequence[str] = ()) -> int:
                         for key in ("tables", "shape", "ms", "per_table_ms",
                                     "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "bit_identical")},
+            "windowed": {key: bags["grouped_windowed_bf16"][key]
+                         for key in ("tables", "shape", "ms",
+                                     "unwindowed_ms", "kernel_ms",
+                                     "unwindowed_kernel_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "bit_identical")},
             "backward": train["backward"],
         }
     ]}

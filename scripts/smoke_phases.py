@@ -13,8 +13,9 @@ launch among them), ``rtrain`` (DLRM-MLPerf trained with tables capped at
 (Qwen3-235B-A22B widths at 8 layers), ``mparity`` (both MoE configs at
 REDUCED, card against CPU), ``lm`` (granite-3-2b trained at its published
 widths), ``mesh`` (granite-3-2b's step and moonshot-v1-16b-a3b's at 2
-layers on a one-rank NCCL mesh through the tensor-parallel route, each
-against its unsharded step with the count of ``model`` collectives,
+layers on a one-rank NCCL mesh through the tensor-parallel route, then
+dlrm-mlperf's and two-tower-retrieval's through the row-sharded route,
+each against its unsharded step with the counts of collectives,
 ``compressed_psum`` and a bf16 checkpoint on the card), ``guard`` (the attention wrappers' grad guard and the flash
 ``Function``), ``attn`` (both attention kernels at the shapes the
 ``moe``, ``qwen3`` and ``lm`` phases gave them), ``bwd`` (the flash
@@ -131,7 +132,7 @@ def main(argv=None) -> int:
         "qwen3": lambda: cs.moe_qwen3_phase(device, kernels),
         "mparity": lambda: cs.moe_parity_phase(device, kernels),
         "lm": lambda: cs.lm_train_phase(device, kernels),
-        "mesh": lambda: cs.mesh_phase(device, kernels),
+        "mesh": lambda: cs.mesh_phase(device, kernels, EMBEDDING_BAG),
         "guard": lambda: {"failures": cs.attention_grad_guard(device)},
         "attn": lambda: {"failures": [], "cases": cs.path_attention_phase(
             {PATH_NAMES[k]: out[k] for k in PATH_NAMES if k in out},

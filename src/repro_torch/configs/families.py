@@ -36,6 +36,7 @@ from torch.overrides import TorchFunctionMode
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import NamedSharding, P
 from repro_torch.models import mace as M
+from repro_torch.models import recsys as RS
 from repro_torch.models import transformer as TF
 from repro_torch.models.gnn_common import NeighborSampler
 from repro_torch.train.optim import OptConfig, adamw_init
@@ -229,8 +230,10 @@ class RecsysTraining:
     opt: OptConfig = RECSYS_OPT
 
     def loss_fn(self) -> Callable:
-        """``loss(params, batch)`` at this config."""
-        return lambda p, b: self.loss(self.config, p, b)
+        """``loss(params, batch)`` at this config (``RS.RecsysLoss``: on a
+        mesh, the step computes on the MLPs' columns over ``model`` and
+        on DLRM's and two-tower's tables where their rows lie)."""
+        return RS.RecsysLoss(self.loss, self.config)
 
     def train_step(self):
         """The cell's ``step(params, opt_state, batch)``; it donates

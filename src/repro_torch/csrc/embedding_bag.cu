@@ -57,6 +57,15 @@
 // [0, V)), and fill, the rule of jnp.take that the reference's DLRM lookups
 // follow (an id in [-V, 0) wraps; any other out-of-range id reads a NaN row,
 // which the sum propagates to every column of its bag).
+//
+// A row window: each table may be one rank's block of a table whose rows
+// are split over a mesh, rows [first, first + rows) of a whole table of V
+// rows.  Ids resolve against V under the rule; an id that lands in the
+// whole table but outside the block adds nothing to its bag (the rank that
+// holds its row adds it, and the ranks' partial bags are summed outside the
+// kernel), and an id outside the whole table gives NaN under fill on every
+// rank.  With first 0 and V = rows every result is the unwindowed one, bit
+// for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -76,10 +85,16 @@ __host__ __device__ constexpr int rows_a_step(int vb) {
   return vb >= 16 ? 4 : 8;
 }
 
+// what an id resolves to besides a row of the block
+constexpr int kNanRow = -1;  // outside the whole table under fill: NaN
+constexpr int kNoRow = -2;   // in the whole table, outside the block: nothing
+
 // everything a launch reads, passed by value as the kernel's parameter
 struct Bags {
   const void* table[kMaxTables];  // (rows[t], D) contiguous, one dtype
-  int rows[kMaxTables];
+  int rows[kMaxTables];           // the block's rows
+  int first[kMaxTables];          // the block's first row in its whole table
+  int whole[kMaxTables];          // the whole table's rows: ids resolve on it
   int n_tables;
   const int* ids;                 // ids[t * ids_table + b * ids_bag + k]
   long long ids_table, ids_bag;
@@ -111,11 +126,19 @@ struct Raw<2> {
   using type = unsigned short;
 };
 
-// the row an id reads under the rule, or -1 for a NaN row (fill only)
-__device__ __forceinline__ int resolve_id(int id, int V, bool fill) {
+// the row of the block [first, first + n) of a V-row table that an id
+// reads under the rule, kNanRow for a NaN row (fill only) or kNoRow for a
+// row of the table outside the block
+__device__ __forceinline__ int resolve_id(int id, int V, int first, int n,
+                                          bool fill) {
   if (id < 0) id += V;  // no overflow: V > 0
-  if (fill) return id >= 0 && id < V ? id : -1;
-  return min(max(id, 0), V - 1);
+  if (fill) {
+    if (id < 0 || id >= V) return kNanRow;
+  } else {
+    id = min(max(id, 0), V - 1);
+  }
+  id -= first;  // no overflow: 0 <= id, first < V
+  return id >= 0 && id < n ? id : kNoRow;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -176,14 +199,15 @@ __device__ __forceinline__ void store_sums(O* p, const float* acc) {
 // i % K of its bag i / K; an item past the group's last bag reads nothing
 __device__ __forceinline__ void fetch(const Bags& p, const int* ids,
                                       const float* weights, long long first,
-                                      int P, int item, int live, int V,
+                                      int P, int item, int live, int t,
                                       int& id, float& w) {
   id = 0;
   w = 0.f;
   if (item < live) {
     const int j = item / p.K, k = item - j * p.K;
     const long long bag = first + static_cast<long long>(j) * P;
-    id = resolve_id(__ldg(ids + bag * p.ids_bag + k), V, p.fill);
+    id = resolve_id(__ldg(ids + bag * p.ids_bag + k), p.whole[t], p.first[t],
+                    p.rows[t], p.fill);
     w = __ldg(weights + bag * p.w_bag + k);
   }
 }
@@ -209,7 +233,7 @@ embedding_bags_kernel(const __grid_constant__ Bags p) {
   const long long first =
       (tile * kWarps + threadIdx.x / 32) * P * p.nb + s;
   const T* table = static_cast<const T*>(p.table[t]);
-  const int V = p.rows[t], K = p.K, D = p.D;
+  const int K = p.K, D = p.D;
   const int* ids = p.ids + t * p.ids_table;
   const float* weights = p.weights + t * p.w_table;
   O* out = static_cast<O*>(p.out) + t * p.out_table;
@@ -236,14 +260,14 @@ embedding_bags_kernel(const __grid_constant__ Bags p) {
     // round's id and weight are loaded before this round's rows
     int id_next;
     float w_next;
-    fetch(p, ids, weights, first, P, sub < R ? sub : items, live, V, id_next,
+    fetch(p, ids, weights, first, P, sub < R ? sub : items, live, t, id_next,
           w_next);
     for (int i0 = 0; i0 < items; i0 += R) {
       const int my_id = id_next;
       const float my_w = w_next;
       if (i0 + R < items)
         fetch(p, ids, weights, first, P, sub < R ? i0 + R + sub : items, live,
-              V, id_next, w_next);
+              t, id_next, w_next);
       const int n = min(R, items - i0);
       int j = i0 / K, k = i0 - j * K;
       for (int u0 = 0; u0 < n; u0 += kRows) {
@@ -267,12 +291,14 @@ embedding_bags_kernel(const __grid_constant__ Bags p) {
 #pragma unroll
               for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
             }
-            float row[kVec];
-            widen<T, VB>(raw[u], row);
+            if (id[u] != kNoRow) {  // a row outside the block adds nothing
+              float row[kVec];
+              widen<T, VB>(raw[u], row);
 #pragma unroll
-            for (int e = 0; e < kVec; ++e) {
-              if (id[u] < 0) row[e] = __int_as_float(0x7fc00000);
-              acc[e] = __fadd_rn(acc[e], __fmul_rn(row[e], w[u]));
+              for (int e = 0; e < kVec; ++e) {
+                if (id[u] == kNanRow) row[e] = __int_as_float(0x7fc00000);
+                acc[e] = __fadd_rn(acc[e], __fmul_rn(row[e], w[u]));
+              }
             }
             if (k == K - 1)
               store_sums<T, O, kVec>(
@@ -341,12 +367,15 @@ int by_out(Bags& p, int out_dtype, cudaStream_t stream) {
 
 // tables: a host array of n_tables device pointers, each a (rows[t], D)
 // contiguous table in table_dtype (0 float32, 1 bfloat16); rows: a host
-// array of their row counts.  ids: int32, any value (rule: 0 clip, 1 fill),
+// array of their row counts; first and whole: host arrays of each table's
+// window, its first row in a whole table of whole[t] rows (0 and rows[t]
+// for a table that is whole).  ids: int32, any value (rule: 0 clip, 1 fill),
 // ids[t * ids_table_stride + b * ids_bag_stride + k] for k < K; weights:
 // float32 with its own strides (0 shares); out: out_dtype, bag (t, b) at
 // t * out_table_stride + b * out_bag_stride, D contiguous elements.
 // Strides count elements.
 extern "C" int embedding_bags(const void* tables, const void* rows,
+                              const void* first, const void* whole,
                               int n_tables, const void* ids,
                               long long ids_table_stride,
                               long long ids_bag_stride, const void* weights,
@@ -365,7 +394,11 @@ extern "C" int embedding_bags(const void* tables, const void* rows,
   for (int t = 0; t < n_tables; ++t) {
     p.table[t] = static_cast<const void* const*>(tables)[t];
     p.rows[t] = static_cast<const int*>(rows)[t];
-    if (p.rows[t] <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    p.first[t] = static_cast<const int*>(first)[t];
+    p.whole[t] = static_cast<const int*>(whole)[t];
+    if (p.rows[t] <= 0 || p.first[t] < 0 ||
+        p.first[t] > p.whole[t] - p.rows[t])
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   p.n_tables = n_tables;
   p.ids = static_cast<const int*>(ids);

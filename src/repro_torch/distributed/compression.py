@@ -17,11 +17,8 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.tensor_parallel import (
-    ModelGroup,
-    all_reduce,
-    model_shards,
-)
+from repro_torch.distributed.leaf_kinds import reduce_over_shards
+from repro_torch.distributed.tensor_parallel import ModelGroup
 from repro_torch.tree import leaves, unflatten
 
 
@@ -49,19 +46,17 @@ def compress_tree(grads: Any, dims: Any = None,
                   mg: Optional[ModelGroup] = None) -> Any:
     """Quantize and dequantize every leaf (wire-format simulation), each
     with its own scale.  A leaf that ``dims`` keeps as this rank's
-    ``model`` shard of ``mg`` (``tensor_parallel.model_shards``) takes
-    the scale of its whole leaf, the largest over ``model`` (one
-    collective for all of them), so its values are the whole leaf's."""
+    ``model`` shard of ``mg``, or declares computed on as it lies
+    (``leaf_kinds.Local``), takes the scale of its whole leaf, the
+    largest over the axes that cut it
+    (``leaf_kinds.reduce_over_shards``: one collective an axis), so
+    its values are the whole leaf's."""
     flat = leaves(grads)
-    where = model_shards(dims, mg)
-    scales = {}
-    if where:
-        own = torch.stack([_scale(flat[i].float()) for i in where])
-        common = all_reduce(own, mg, op=dist.ReduceOp.MAX)
-        scales = dict(zip(where, common.unbind(0)))
+    scales = reduce_over_shards([_scale(g.float()) for g in flat], dims, mg,
+                                op=dist.ReduceOp.MAX)
     out = []
-    for i, g in enumerate(flat):
-        q, s = quantize_int8(g, scales.get(i))
+    for g, s in zip(flat, scales):
+        q, s = quantize_int8(g, s)
         out.append(dequantize_int8(q, s, g.dtype))
     return unflatten(grads, out)
 

@@ -130,15 +130,15 @@ def rows_like(y: torch.Tensor, like: Any) -> torch.Tensor:
     return local_shard(y, like.device_mesh, like.placements)
 
 
-def _batch_groups() -> List[Any]:
+def _batch_groups(skip: Tuple[str, ...] = ()) -> List[Any]:
     """The process groups of the active mesh's batch axes of more than
-    one rank."""
+    one rank, but those named in ``skip``."""
     mesh = active_mesh()
     if mesh is None:
         return []
     sizes = axis_sizes(mesh)
     return [mesh.get_group(n) for n in BATCH_AXES
-            if n in sizes and sizes[n] > 1]
+            if n in sizes and sizes[n] > 1 and n not in skip]
 
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
@@ -150,9 +150,11 @@ def batch_sum(x: torch.Tensor) -> torch.Tensor:
     return batch_sum_(x.detach().clone())
 
 
-def batch_sum_(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed in place over the active mesh's batch axes."""
-    for g in _batch_groups():
+def batch_sum_(x: torch.Tensor, skip: Tuple[str, ...] = ()) -> torch.Tensor:
+    """``x`` summed in place over the active mesh's batch axes, but those
+    named in ``skip`` (the axes that shard a leaf computed on as it
+    lies: their ranks hold other blocks of it)."""
+    for g in _batch_groups(skip):
         dist.all_reduce(x, group=g)
     return x
 

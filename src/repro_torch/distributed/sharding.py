@@ -143,24 +143,25 @@ def shard_by_rules(params: Any, mesh: Any, rules: Rules,
     tensors or anything with ``shape``) from path rules: the first rule
     whose regex matches the leaf's path wins; its spec is right-aligned
     to the leaf's rank (leading stacked-layer dims replicated)."""
-    out = []
-    for path, leaf in flatten_with_path(params):
-        name = path_name(path)
-        shape = tuple(leaf.shape)
-        chosen: Optional[PartitionSpec] = None
-        for pattern, spec in rules:
-            if re.search(pattern, name):
-                spec = tuple(spec)
-                if len(spec) < len(shape):  # right-align (leading stack dims)
-                    spec = (None,) * (len(shape) - len(spec)) + spec
-                chosen = resolve_spec(mesh, spec[: len(shape)], shape)
-                break
-        if chosen is None:
-            chosen = resolve_spec(
-                mesh, tuple(default)[: len(shape)] + (None,) * len(shape),
-                shape)
-        out.append(NamedSharding(mesh, chosen))
-    return unflatten(params, out)
+    return unflatten(params, [
+        NamedSharding(mesh, rule_spec(rules, path_name(path),
+                                      tuple(leaf.shape), mesh, default))
+        for path, leaf in flatten_with_path(params)])
+
+
+def rule_spec(rules: Rules, name: str, shape: Tuple[int, ...], mesh: Any,
+              default: Tuple = ()) -> PartitionSpec:
+    """The resolved spec of a leaf named ``name`` (a path, as
+    ``tree.path_name`` writes it) of ``shape`` under ``rules``, as
+    :func:`shard_by_rules` gives it."""
+    for pattern, spec in rules:
+        if re.search(pattern, name):
+            spec = tuple(spec)
+            if len(spec) < len(shape):  # right-align (leading stack dims)
+                spec = (None,) * (len(shape) - len(spec)) + spec
+            return resolve_spec(mesh, spec[: len(shape)], shape)
+    return resolve_spec(
+        mesh, tuple(default)[: len(shape)] + (None,) * len(shape), shape)
 
 
 # ------------------------------------------------------- family rule sets ---
@@ -184,10 +185,11 @@ LM_RULES: Rules = [
 
 # RecSys: embedding tables row-sharded over every axis (MLPerf-DLRM style
 # table-wise+row-wise parallelism); MLPs tensor-sharded on their wide dim.
+RECSYS_MLP_W = r"(bot|top|head|attn|user_tower|item_tower)/fc\d+/w"
 RECSYS_RULES: Rules = [
     (r"tables/t\d+/table", (BATCH + ("model",), None)),
     (r"(item|cate|user|ctx|icat)/table", (BATCH + ("model",), None)),
-    (r"(bot|top|head|attn|user_tower|item_tower)/fc\d+/w", (None, "model")),
+    (RECSYS_MLP_W, (None, "model")),
     (r"pos/table", (None, None)),
     (r"blocks/.*", (None, None)),
 ]

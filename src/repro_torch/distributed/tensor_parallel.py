@@ -4,7 +4,9 @@ need, written as autograd Functions, and their count.  The splits
 themselves are the model's: ``models.transformer`` plans which of an
 LM's dimensions a rank computes on its ``model`` shard (``LMPlan``) and
 declares it to the train step (``LMLoss.model_dims``), which computes
-inside :func:`use_model_group`.
+inside :func:`use_model_group`; DLRM and two-tower split their MLPs'
+columns (``models.recsys``), whose outputs :func:`gather_from_model`
+gathers.
 
 Every replicated value keeps its whole gradient on every rank: where
 replicated values enter a rank's share of the compute,
@@ -23,12 +25,11 @@ import contextlib
 import contextvars
 import dataclasses
 import math
-from typing import Any, Iterator, List, Optional
+from typing import Any, Iterator, Optional
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.tree import leaves
 
 MODEL = "model"
 
@@ -134,13 +135,31 @@ def reduce_from_model(x: torch.Tensor, mg: Optional[ModelGroup]
     return x if mg is None else _ReduceFromModel.apply(x, mg)
 
 
-def model_shards(dims: Any, mg: Optional[ModelGroup]) -> List[int]:
-    """The indices, in leaf order, of the leaves that ``dims`` (a tree of
-    dimensions or None, as ``LMLoss.model_dims`` gives) keeps as this
-    rank's ``model`` shards; none where ``dims`` or ``mg`` is None."""
-    if dims is None or mg is None:
-        return []
-    return [i for i, d in enumerate(leaves(dims)) if d is not None]
+class _GatherFromModel(torch.autograd.Function):
+    """Every ``model`` rank's columns (last dim) side by side, in rank
+    order; the gradient is this rank's columns of the whole one (each
+    rank computes on the gathered value alike)."""
+
+    @staticmethod
+    def forward(ctx, x, mg):
+        ctx.mg, ctx.n = mg, x.shape[-1]
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(mg.size)]
+        MODEL_COLLECTIVES.count += 1
+        dist.all_gather(parts, x.contiguous(), group=mg.group)
+        return torch.cat(parts, -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        r, n = ctx.mg.rank, ctx.n
+        return grad[..., r * n:(r + 1) * n], None
+
+
+def gather_from_model(x: torch.Tensor, mg: Optional[ModelGroup]
+                      ) -> torch.Tensor:
+    """The whole of ``x``, this rank's block of columns of a value split
+    over ``mg``; ``x`` itself where ``mg`` is None."""
+    return x if mg is None else _GatherFromModel.apply(x, mg)
 
 
 # ------------------------------------------- vocab-parallel cross-entropy --

@@ -120,18 +120,23 @@ def paged_cost(R: int, G: int, D: int, tokens: int, pages: int,
 
 
 def bag_bytes(tables: Sequence[torch.Tensor], ids: torch.Tensor,
-              id_rule: str, weight_bytes: int, out_bytes: int) -> int:
+              id_rule: str, weight_bytes: int, out_bytes: int,
+              windows=None) -> int:
     """The bytes a bag launch must move on this data: each distinct row
     that table ``t``'s ids (``ids[t]``) read under ``id_rule`` once (an id
-    that reads a NaN row reads none), every id once, and the weights and
-    the output as the caller counts them (shared weights once)."""
-    from repro_torch.kernels.embedding_bag.ref import resolve_ids
+    that reads a NaN row, or a row outside the table's window, reads
+    none), every id once, and the weights and the output as the caller
+    counts them (shared weights once)."""
+    from repro_torch.kernels.embedding_bag.ref import resolve_window
 
     rows = 0
     for t, table in enumerate(tables):
-        r, ok = resolve_ids(ids[t], table.shape[0], id_rule)
-        if ok is not None:
-            r = r[ok]
+        r, ok, add = resolve_window(ids[t], table.shape[0],
+                                    None if windows is None else windows[t],
+                                    id_rule)
+        keep = ok if add is None else add if ok is None else add & ok
+        if keep is not None:
+            r = r[keep]
         rows += torch.unique(r).numel() * table.shape[1] * table.element_size()
     return rows + ids.numel() * 4 + weight_bytes + out_bytes
 

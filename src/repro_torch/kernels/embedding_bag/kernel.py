@@ -5,8 +5,9 @@ summed in f32 and cast to the table's dtype, as in the Pallas
 ``embedding_bag_kernel`` that the CUDA kernel (``csrc/embedding_bag.cu``)
 ports; the source says how and what bounds it.  One C entry serves any
 number of tables of one width and dtype in one launch
-(:func:`embedding_bags`, DLRM's lookups into the interaction's input);
-:func:`embedding_bag_fixed` is its group of one.  Under autograd each is
+(:func:`embedding_bags`, DLRM's lookups into the interaction's input),
+each table whole or one rank's block of rows of a table split over a
+mesh (its window); :func:`embedding_bag_fixed` is its group of one.  Under autograd each is
 one ``torch.autograd.Function`` whose backward is plain PyTorch on both
 devices (:func:`embedding_bag_fixed_backward`, once a table).
 """
@@ -29,12 +30,13 @@ from repro_torch.kernels.embedding_bag.ref import (
     embedding_bag_fixed_plain,
     embedding_bags_plain,
     resolve_ids,
+    resolve_window,
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 EMBEDDING_BAG = CudaKernel(
     "embedding_bags",
-    [_P, _P, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L] + [_I] * 6,
+    [_P, _P, _P, _P, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L] + [_I] * 6,
     source="src/repro_torch/csrc/embedding_bag.cu",
     replaces="src/repro/kernels/embedding_bag/kernel.py:40",
 )
@@ -81,10 +83,12 @@ def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
 
 
 def _launch(tables: Sequence[torch.Tensor], ids: torch.Tensor,
-            weights: torch.Tensor, out: torch.Tensor, id_rule: str) -> None:
+            weights: torch.Tensor, out: torch.Tensor, id_rule: str,
+            windows: Optional[Sequence[Tuple[int, int]]] = None) -> None:
     """One launch over ``tables``: ``ids`` and ``weights`` (T, B, K) and
     ``out`` (T, B, D), views whose last dim is contiguous, each table's
-    bags written into ``out[t]``."""
+    bags written into ``out[t]``; ``windows`` one ``(first, V)`` a table
+    (None: each table whole)."""
     n, B, K = ids.shape
     D = out.shape[2]
     if B == 0 or D == 0:
@@ -94,10 +98,14 @@ def _launch(tables: Sequence[torch.Tensor], ids: torch.Tensor,
                 tables, B, K, 4 * _distinct(weights),
                 n * B * D * out.element_size())):
         return
+    if windows is None:
+        windows = [(0, t.shape[0]) for t in tables]
     EMBEDDING_BAG.launch(
         ids.device, (n, B, K, D),
         (ctypes.c_void_p * n)(*[t.data_ptr() for t in tables]),
-        (ctypes.c_int * n)(*[t.shape[0] for t in tables]), n,
+        (ctypes.c_int * n)(*[t.shape[0] for t in tables]),
+        (ctypes.c_int * n)(*[w[0] for w in windows]),
+        (ctypes.c_int * n)(*[w[1] for w in windows]), n,
         ids.data_ptr(), ids.stride(0), ids.stride(1),
         weights.data_ptr(), weights.stride(0), weights.stride(1),
         out.data_ptr(), out.stride(0), out.stride(1),
@@ -121,6 +129,7 @@ def embedding_bag_fixed_backward(
     table_shape: Tuple[int, int], table_dtype: torch.dtype,
     table: Optional[torch.Tensor] = None,
     id_rule: str = "clip",
+    window: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The bag's gradients, in plain PyTorch on either device:
     ``grad_table = zeros(V, D, f32).index_add_(0, rows, w * grad_out)``
@@ -134,15 +143,22 @@ def embedding_bag_fixed_backward(
     row, and an id out of range after the wrap adds nothing (its
     scatter is dropped, not clamped).  Its weight's gradient reads the
     row the forward read: the clamped one under ``clip``, NaN under
-    ``fill``."""
-    V, D = table_shape
+    ``fill``.  With ``window`` ``(first, V)`` the table is the block of
+    rows ``[first, first + n)`` of a whole table of ``V`` rows
+    (:func:`~.ref.resolve_window`): an id adds to the block's gradient
+    only where its row lies in the block (no weight gradient is
+    given)."""
+    n, D = table_shape
     g = grad_out.float()
-    rows_idx, ok = resolve_ids(ids, V, id_rule)
+    if window is not None and table is not None:
+        raise ValueError("a windowed bag gives no weight gradient")
+    rows_idx, ok, add = resolve_window(ids, n, window, id_rule)
     contrib = weights[..., None] * g[:, None, :]
-    if id_rule == "clip":
-        _, ok_scatter = resolve_ids(ids, V, "fill")
-    else:
-        ok_scatter = ok
+    # an id out of range after the wrap adds nothing under either rule
+    ok_scatter = resolve_ids(ids, n if window is None else window[1],
+                             "fill")[1] if id_rule == "clip" else ok
+    if add is not None:
+        ok_scatter = ok_scatter & add
     contrib = torch.where(ok_scatter[..., None], contrib, 0.0)
     contrib = contrib.reshape(-1, D)
     grad_table = torch.zeros(table_shape, dtype=torch.float32,
@@ -193,7 +209,9 @@ class _EmbeddingBagFixed(torch.autograd.Function):
 def embedding_bags(tables: Sequence[torch.Tensor], ids: torch.Tensor,
                    weights: torch.Tensor, id_rule: str = "clip", *,
                    dtype: Optional[torch.dtype] = None,
-                   head: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   head: Optional[torch.Tensor] = None,
+                   windows: Optional[Sequence[Tuple[int, int]]] = None
+                   ) -> torch.Tensor:
     """The bags of ``T`` tables in one launch: a (B, T, D) result whose
     slot ``t`` is ``sum_k weights[t, b, k] * tables[t][ids[t, b, k]]``,
     summed in f32, rounded to the tables' dtype and converted to
@@ -208,7 +226,12 @@ def embedding_bags(tables: Sequence[torch.Tensor], ids: torch.Tensor,
     ``weights`` (T, B, K) f32 may be any views whose K dim is contiguous
     (a stride of 0 shares, as ``ones.expand``; the caller's (B, T) ids
     transposed need no copy).  Ids outside a table follow ``id_rule`` as
-    in :func:`embedding_bag_fixed`.  CUDA operands launch the kernel,
+    in :func:`embedding_bag_fixed`.  ``windows`` (one ``(first, V)`` a
+    table) makes ``tables[t]`` the rows ``[first, first + V_t)`` of a
+    whole table of ``V`` rows: its ids resolve against ``V`` under
+    ``id_rule`` and an id of a row outside the block adds nothing to its
+    bag (so the blocks' bags sum to the whole table's); None, or ``(0,
+    V_t)``, is the table whole.  CUDA operands launch the kernel,
     CPU ones take :func:`~.ref.embedding_bags_plain`.  Differentiable in
     the tables and head (weights that need a gradient take
     :func:`embedding_bag_fixed`): the backward is
@@ -252,6 +275,15 @@ def embedding_bags(tables: Sequence[torch.Tensor], ids: torch.Tensor,
     if head is not None and (not isinstance(head, torch.Tensor)
                              or head.shape != (ids.shape[1], D)):
         raise ValueError(f"head must be ({ids.shape[1]}, {D})")
+    if windows is not None:
+        windows = tuple((int(f), int(v)) for f, v in windows)
+        if len(windows) != len(tables):
+            raise ValueError(f"{len(windows)} windows for {len(tables)} "
+                             "tables")
+        for i, ((f, v), t) in enumerate(zip(windows, tables)):
+            if not 0 <= f <= v - t.shape[0] or v >= 2 ** 31:
+                raise ValueError(f"tables[{i}] of {t.shape[0]} rows does not "
+                                 f"lie at row {f} of a {v}-row table")
     operands = [*tables, ids, weights] + ([] if head is None else [head])
     devices = {t.device for t in operands}
     if len(devices) != 1:
@@ -259,7 +291,8 @@ def embedding_bags(tables: Sequence[torch.Tensor], ids: torch.Tensor,
     if device.type != "cpu" and ids.shape[2] > 1 and (
             ids.stride(2) != 1 or weights.stride(2) != 1):
         raise ValueError("ids and weights must be contiguous along K")
-    return _EmbeddingBags.apply(head, ids, weights, id_rule, dtype, *tables)
+    return _EmbeddingBags.apply(head, ids, weights, id_rule, dtype, windows,
+                                *tables)
 
 
 class _EmbeddingBags(torch.autograd.Function):
@@ -268,7 +301,7 @@ class _EmbeddingBags(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, head, ids, weights, id_rule, dtype, *tables):
+    def forward(ctx, head, ids, weights, id_rule, dtype, windows, *tables):
         n, B, _ = ids.shape
         lead = 0 if head is None else 1
         out = torch.empty((B, n + lead, tables[0].shape[1]), dtype=dtype,
@@ -277,10 +310,12 @@ class _EmbeddingBags(torch.autograd.Function):
             out[:, 0] = head
         slots = out[:, lead:]
         if ids.device.type == "cpu":
-            embedding_bags_plain(tables, ids, weights, id_rule, out=slots)
+            embedding_bags_plain(tables, ids, weights, id_rule, out=slots,
+                                 windows=windows)
         else:
-            _launch(tables, ids, weights, slots.transpose(0, 1), id_rule)
-        ctx.lead, ctx.id_rule = lead, id_rule
+            _launch(tables, ids, weights, slots.transpose(0, 1), id_rule,
+                    windows)
+        ctx.lead, ctx.id_rule, ctx.windows = lead, id_rule, windows
         ctx.head_dtype = None if head is None else head.dtype
         ctx.tables = [(tuple(t.shape), t.dtype) for t in tables]
         ctx.save_for_backward(ids, weights)
@@ -292,10 +327,11 @@ class _EmbeddingBags(torch.autograd.Function):
         grad_tables = [
             embedding_bag_fixed_backward(
                 grad_out[:, ctx.lead + t].to(dtype), ids[t], weights[t],
-                shape, dtype, id_rule=ctx.id_rule)[0]
-            if ctx.needs_input_grad[5 + t] else None
+                shape, dtype, id_rule=ctx.id_rule,
+                window=None if ctx.windows is None else ctx.windows[t])[0]
+            if ctx.needs_input_grad[6 + t] else None
             for t, (shape, dtype) in enumerate(ctx.tables)]
         grad_head = None
         if ctx.lead and ctx.needs_input_grad[0]:
             grad_head = grad_out[:, 0].to(ctx.head_dtype)
-        return (grad_head, None, None, None, None, *grad_tables)
+        return (grad_head, None, None, None, None, None, *grad_tables)

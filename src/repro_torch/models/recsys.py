@@ -28,14 +28,23 @@ Top-k keeps the lower index first among equal scores, as
 
 On a mesh (a step of ``train.trainer`` over DTensor params) each loss
 takes this rank's rows of its batch and returns its share of the global
-mean (``distributed.hooks``); two-tower's in-batch negatives are the
-whole batch's, so its towers run on the gathered batch.
+mean (``distributed.hooks``), computing as :class:`RecsysLoss` declares
+to the step (:class:`RecsysPlan`): DLRM's and two-tower's MLPs on this
+rank's columns over ``model`` where ``model`` divides a layer's width
+(:func:`_column_dense`; DIN's computed whole, :func:`splits_columns`);
+DLRM's and two-tower's tables looked up where their rows lie
+(``distributed.row_parallel``: DLRM's in one grouped bag launch for each
+set of axes that shard tables); DIN's and SASRec's tables gathered
+whole.  Two-tower's towers run on this rank's rows, and its in-batch
+negatives are the whole batch's items, gathered.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+import functools
+import re
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -52,12 +61,32 @@ from repro_torch.nn.layers import (
 )
 from repro_torch.distributed.hooks import (
     active_mesh,
+    batch_axes,
+    batch_gather,
     batch_mean,
-    gathered,
+    local,
     local_batch,
-    rows_like,
+)
+from repro_torch.distributed.leaf_kinds import LOCAL
+from repro_torch.distributed.row_parallel import (
+    RowShard,
+    block_rows,
+    lookup_rows,
+    row_shard,
+)
+from repro_torch.distributed.sharding import (
+    RECSYS_MLP_W,
+    RECSYS_RULES,
+    rule_spec,
+)
+from repro_torch.distributed.tensor_parallel import (
+    ModelGroup,
+    copy_to_model,
+    gather_from_model,
+    model_group,
 )
 from repro_torch.sparse.embedding import embedding_lookup
+from repro_torch.tree import flatten_with_path, path_name, unflatten
 
 Params = Dict[str, Any]
 
@@ -85,6 +114,133 @@ def bce_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     x = (torch.maximum(lf, torch.zeros_like(lf)) - lf * labels
          + torch.log1p(torch.exp(-abs_lf)))
     return batch_mean(torch.sum(x), x.numel())
+
+
+# ============================================================ on a mesh ====
+@dataclasses.dataclass(frozen=True)
+class RecsysPlan:
+    """How this rank computes a recsys loss on a mesh: its MLPs' columns
+    over ``columns``, the ``model`` group (:func:`_mlp`; None where the
+    arch computes its MLPs whole), and each table of ``tables`` (by
+    path) where its rows lie, as ``RECSYS_RULES`` lays it out on the
+    mesh."""
+    columns: Optional[ModelGroup]
+    tables: Dict[str, RowShard]
+
+
+def row_tables(cfg: Any) -> Dict[str, Tuple[int, int]]:
+    """The (rows, dim) by path of the tables that ``cfg``'s arch looks up
+    where their rows lie on a mesh: DLRM's and two-tower's.  DIN's and
+    SASRec's are gathered whole (a step of DIN looks up more rows than
+    its tables hold; SASRec's item table is also its softmax's output
+    layer)."""
+    if isinstance(cfg, DLRMConfig):
+        return {f"tables/t{i}/table": (rows, cfg.embed_dim)
+                for i, rows in enumerate(cfg.table_rows)}
+    if isinstance(cfg, TwoTowerConfig):
+        d = cfg.embed_dim
+        return {"user/table": (cfg.n_users, d),
+                "ctx/table": (cfg.n_context, d),
+                "item/table": (cfg.n_items, d),
+                "icat/table": (cfg.n_context, d)}
+    return {}
+
+
+def splits_columns(cfg: Any) -> bool:
+    """Whether ``cfg``'s arch computes its MLPs on a rank's columns over
+    ``model`` (DLRM's and two-tower's, whose layers run once a batch
+    row).  DIN's run once a history position, on (B, 100, .) inputs:
+    gathering their outputs over ``model`` moves more bytes than
+    gathering the weights, so they are computed whole (``launch.dryrun``
+    of ``train_batch`` on (16, 16), counted on the H100's figures: 4.1
+    ms of collectives whole against 9.8 split, for 0.03 ms of compute
+    saved).  SASRec has no MLP that the rules split."""
+    return isinstance(cfg, (DLRMConfig, TwoTowerConfig))
+
+
+def recsys_plan(cfg: Any) -> Optional[RecsysPlan]:
+    """The active model group's plan for ``cfg`` on the active mesh; None
+    outside one (every table whole, every MLP whole).  A loss asks once a
+    forward and passes it down (the backward may run on another thread,
+    where neither context is set)."""
+    mg = model_group()
+    if mg is None:
+        return None
+    mesh = active_mesh()
+    return RecsysPlan(mg if splits_columns(cfg) else None, {
+        k: row_shard(mesh, rule_spec(RECSYS_RULES, k, shape, mesh)[0],
+                     shape[0])
+        for k, shape in row_tables(cfg).items()})
+
+
+def recsys_model_dims(cfg: Any, params: Params, mg: ModelGroup) -> Any:
+    """A tree like ``params``: ``leaf_kinds.LOCAL`` for each table of
+    :func:`row_tables`, 1 for each MLP weight whose columns ``mg``
+    divides where the arch splits them (:func:`splits_columns`;
+    ``RECSYS_RULES`` lays them out by columns over ``model``), None for a
+    leaf gathered whole."""
+    rows, split = row_tables(cfg), splits_columns(cfg)
+    out = []
+    for path, leaf in flatten_with_path(params):
+        name = path_name(path)
+        if name in rows:
+            out.append(LOCAL)
+        elif (split and re.search(RECSYS_MLP_W, name)
+              and leaf.shape[-1] % mg.size == 0):
+            out.append(1)
+        else:
+            out.append(None)
+    return unflatten(params, out)
+
+
+class RecsysLoss:
+    """``loss(cfg, params, batch)`` of a recsys arch as a train step's
+    ``loss(params, batch)``.  It declares its split over a mesh
+    (:meth:`model_dims`), so a step on a mesh computes on the MLPs'
+    columns and on the tables where their rows lie (:func:`recsys_plan`)."""
+
+    def __init__(self, loss: Any, cfg: Any):
+        self.loss, self.cfg = loss, cfg
+
+    def __call__(self, params: Params, batch: Dict) -> torch.Tensor:
+        return self.loss(self.cfg, params, batch)
+
+    def model_dims(self, params: Params, mg: ModelGroup) -> Any:
+        """Each leaf's kind (:func:`recsys_model_dims`)."""
+        return recsys_model_dims(self.cfg, params, mg)
+
+
+def _column_dense(p: Params, x: torch.Tensor, dtype: torch.dtype,
+                  mg: ModelGroup) -> torch.Tensor:
+    """``nn.layers.dense`` of a layer whose ``w`` ``RECSYS_RULES`` splits
+    by columns over ``mg``: where ``mg.size`` divides its width (its
+    bias's, which is replicated), this rank holds its block of ``w``'s
+    columns, computes them and gathers the whole output over ``model``
+    (``tensor_parallel.gather_from_model``); its input and bias enter
+    through ``copy_to_model``, so their gradients are the whole ones on
+    every rank (a rank's columns reach only part of them).  A layer whose
+    width ``mg.size`` does not divide is computed whole."""
+    width = p["b"].shape[0]
+    if width % mg.size:
+        return dense(p, x, dtype=dtype)
+    k = width // mg.size
+    if p["w"].shape[1] != k:
+        raise ValueError(f"w has {p['w'].shape[1]} columns, its block of "
+                         f"{width} over {mg.size} is {k}")
+    b = copy_to_model(p["b"], mg)[mg.rank * k:(mg.rank + 1) * k]
+    y = copy_to_model(x, mg).to(dtype) @ p["w"].to(dtype) + b.to(dtype)
+    return gather_from_model(y, mg)
+
+
+def _mlp(p: Params, x: torch.Tensor, plan: Optional[RecsysPlan],
+         dtype: torch.dtype, final_act: bool = False) -> torch.Tensor:
+    """``nn.layers.mlp_apply``; under a ``plan`` that splits the MLPs,
+    each layer on this rank's columns (:func:`_column_dense`), the same
+    values."""
+    if plan is None or plan.columns is None:
+        return mlp_apply(p, x, dtype=dtype, final_act=final_act)
+    return mlp_apply(p, x, dtype=dtype, final_act=final_act,
+                     layer=functools.partial(_column_dense, mg=plan.columns))
 
 
 def param_dtype(cfg: Any, masters: bool) -> torch.dtype:
@@ -130,40 +286,104 @@ def dlrm_init(cfg: DLRMConfig, gen: torch.Generator,
     }
 
 
-def dlrm_forward(cfg: DLRMConfig, p: Params, batch: Dict) -> torch.Tensor:
+def _ones(n: int, B: int, device) -> torch.Tensor:
+    """(n, B, 1) weights of 1: single-hot bags, one element shared."""
+    return torch.ones((1, 1, 1), dtype=torch.float32,
+                      device=device).expand(n, B, 1)
+
+
+def _dlrm_bags(cfg: DLRMConfig, plan: RecsysPlan, tables, sparse, head,
+               dtype) -> torch.Tensor:
+    """The interaction's input (B, 27, D) in ``dtype`` on a mesh: ``head``
+    in slot 0 and each table's rows in its slot, the tables grouped by
+    the axes that shard their rows, one bag launch a group (in the order
+    of each group's first table): a replicated group looks up this
+    rank's rows, a sharded one the ids gathered over its batch axes in
+    its blocks' windows, summed over its axes
+    (``row_parallel.lookup_rows``).  One group (every table on one set
+    of axes, as on a one-rank mesh) writes its rows into their slots as
+    the mesh-less forward does, a sharded one with zeros in slot 0
+    through the sum and ``head`` written in after it; several groups'
+    rows are joined into their slots, a copy of the input."""
+    B, D = sparse.shape[0], head.shape[1]
+    groups: Dict[Tuple[str, ...], list] = {}
+    for i in range(cfg.n_sparse):
+        groups.setdefault(plan.tables[f"tables/t{i}/table"].axes,
+                          []).append(i)
+
+    def bags(idx, ids, head, windows=None):
+        return embedding_bags([tables[i] for i in idx], ids.t()[..., None],
+                              _ones(len(idx), ids.shape[0], ids.device),
+                              id_rule="fill", dtype=dtype, head=head,
+                              windows=windows)
+
+    def looked_up(axes, idx, head):
+        ids = sparse[:, idx].to(torch.int32)                     # (B, n)
+        if not axes:
+            return bags(idx, ids, head)
+        shards = [plan.tables[f"tables/t{i}/table"] for i in idx]
+        windows = [s.window for s in shards]
+        return lookup_rows(ids, shards[0], lambda g: bags(
+            idx, g, None if head is None else torch.zeros(
+                (g.shape[0], D), dtype=dtype, device=g.device), windows))
+
+    if len(groups) == 1:
+        (axes, idx), = groups.items()
+        z = looked_up(axes, idx, head)
+        if axes:
+            z[:, 0] = head
+        return z
+    parts, slots = [head.to(dtype)[:, None]], [0]
+    for axes, idx in groups.items():
+        parts.append(looked_up(axes, idx, None))
+        slots += [1 + i for i in idx]
+    z = torch.cat(parts, 1)
+    if slots != sorted(slots):
+        z = z[:, torch.argsort(torch.tensor(slots, device=z.device))]
+    return z
+
+
+def dlrm_forward(cfg: DLRMConfig, p: Params, batch: Dict,
+                 plan: Optional[RecsysPlan] = None) -> torch.Tensor:
     """(B,) scores from ``dense`` (B, 13) and ``sparse`` (B, 26) ids: one
     embedding-bag launch for all 26 tables that writes each lookup into
     its slot of the interaction's input beside the bottom MLP's output,
     then the dot interaction of the 27 vectors in f32 and the top MLP.
     The bags read ids under the ``fill`` rule of the reference's
     ``embedding_lookup`` (``jnp.take``): an id in ``[-rows, 0)`` wraps,
-    any other id outside its table gives a NaN row and so a NaN score."""
+    any other id outside its table gives a NaN row and so a NaN score.
+    With ``plan`` (a step on a mesh) the tables are this rank's blocks,
+    looked up where their rows lie, one launch for each set of axes that
+    shard tables (:func:`_dlrm_bags`), and the MLPs compute on this
+    rank's columns."""
     dense_x = batch["dense"]
     sparse = batch["sparse"]
     B = dense_x.shape[0]
-    d = mlp_apply(p["bot"], dense_x.to(cfg.dtype), dtype=cfg.dtype,
-                  final_act=True)                                # (B, D)
+    d = _mlp(p["bot"], dense_x.to(cfg.dtype), plan, cfg.dtype,
+             final_act=True)                                     # (B, D)
     tables = [p["tables"][f"t{i}"]["table"] for i in range(cfg.n_sparse)]
-    ids = sparse.to(torch.int32).t()[..., None]            # (26, B, 1) view
-    ones = torch.ones((1, 1, 1), dtype=torch.float32,
-                      device=dense_x.device).expand(cfg.n_sparse, B, 1)
     # each lookup is rounded to its table's dtype; where that is cfg.dtype
     # the bags go straight into the f32 input of the interaction (a bf16
     # value widens exactly), else into cfg.dtype and are widened after
     zdt = torch.float32 if tables[0].dtype == cfg.dtype else cfg.dtype
-    z = embedding_bags(tables, ids, ones, id_rule="fill", dtype=zdt,
-                       head=d)                                   # (B, 27, D)
+    if plan is None:
+        ids = sparse.to(torch.int32).t()[..., None]        # (26, B, 1) view
+        z = embedding_bags(tables, ids, _ones(cfg.n_sparse, B, ids.device),
+                           id_rule="fill", dtype=zdt, head=d)    # (B, 27, D)
+    else:
+        z = _dlrm_bags(cfg, plan, tables, sparse, d, zdt)
     zf = z.float()
     inter = zf @ zf.transpose(1, 2)                              # (B, 27, 27)
     iu = torch.triu_indices(z.shape[1], z.shape[1], 1, device=z.device)
     flat = inter[:, iu[0], iu[1]].to(cfg.dtype)                  # (B, 351)
     x = torch.cat([d, flat], dim=-1)
-    return mlp_apply(p["top"], x, dtype=cfg.dtype)[:, 0]
+    return _mlp(p["top"], x, plan, cfg.dtype)[:, 0]
 
 
 def dlrm_loss(cfg: DLRMConfig, p: Params, batch: Dict) -> torch.Tensor:
     batch = local_batch(batch)
-    return bce_logits(dlrm_forward(cfg, p, batch), batch["label"])
+    return bce_logits(dlrm_forward(cfg, p, batch, recsys_plan(cfg)),
+                      batch["label"])
 
 
 def dlrm_candidate_scores(cfg: DLRMConfig, p: Params,
@@ -222,23 +442,27 @@ def _din_embed(cfg: DINConfig, p: Params, items, cates) -> torch.Tensor:
     ], dim=-1)  # (..., 2 * embed_dim)
 
 
-def din_forward(cfg: DINConfig, p: Params, batch: Dict) -> torch.Tensor:
+def din_forward(cfg: DINConfig, p: Params, batch: Dict,
+                plan: Optional[RecsysPlan] = None) -> torch.Tensor:
+    """(B,) scores; ``plan`` (a step on a mesh) splits no MLP of DIN's
+    (:func:`splits_columns`)."""
     seq = _din_embed(cfg, p, batch["hist_items"], batch["hist_cates"])  # (B,S,d)
     mask = batch["hist_mask"]                                           # (B,S)
     tgt = _din_embed(cfg, p, batch["target_item"], batch["target_cate"])  # (B,d)
     t = tgt[:, None, :].expand_as(seq)
     att_in = torch.cat([seq, t, seq * t, seq - t], dim=-1)
-    w = mlp_apply(p["attn"], att_in, dtype=cfg.dtype)[..., 0]           # (B,S)
+    w = _mlp(p["attn"], att_in, plan, cfg.dtype)[..., 0]              # (B,S)
     w = w.float().masked_fill(mask <= 0, -1e30)
     w = torch.softmax(w, dim=-1).to(cfg.dtype)
     user = torch.einsum("bs,bsd->bd", w, seq)                           # (B,d)
     x = torch.cat([user, tgt, user * tgt], dim=-1)
-    return mlp_apply(p["head"], x, dtype=cfg.dtype)[:, 0]
+    return _mlp(p["head"], x, plan, cfg.dtype)[:, 0]
 
 
 def din_loss(cfg: DINConfig, p: Params, batch: Dict) -> torch.Tensor:
     batch = local_batch(batch)
-    return bce_logits(din_forward(cfg, p, batch), batch["label"])
+    return bce_logits(din_forward(cfg, p, batch, recsys_plan(cfg)),
+                      batch["label"])
 
 
 def din_candidate_scores(cfg: DINConfig, p: Params,
@@ -388,46 +612,66 @@ def twotower_init(cfg: TwoTowerConfig, gen: torch.Generator,
     }
 
 
-def _tower(cfg: TwoTowerConfig, p: Params, tower: str, e: torch.Tensor
-           ) -> torch.Tensor:
-    out = mlp_apply(p[tower], e, dtype=cfg.dtype)
+def _tower(cfg: TwoTowerConfig, p: Params, tower: str, e: torch.Tensor,
+           plan: Optional[RecsysPlan] = None) -> torch.Tensor:
+    out = _mlp(p[tower], e, plan, cfg.dtype)
     return out / torch.linalg.norm(out.float(), dim=-1,
                                    keepdim=True).to(cfg.dtype)
 
 
-def user_embed(cfg: TwoTowerConfig, p: Params, batch: Dict) -> torch.Tensor:
-    e = torch.cat([
-        embedding_lookup(p["user"]["table"], batch["user_id"], cfg.dtype),
-        embedding_lookup(p["ctx"]["table"], batch["user_ctx"], cfg.dtype),
-    ], dim=-1)
-    return _tower(cfg, p, "user_tower", e)
+def _lookup(cfg: TwoTowerConfig, p: Params, name: str, ids: torch.Tensor,
+            plan: Optional[RecsysPlan]) -> torch.Tensor:
+    """``embedding_lookup`` of table ``name``, where its rows lie on a
+    mesh (``row_parallel.lookup_rows`` of ``block_rows``) under ``plan``."""
+    table = p[name]["table"]
+    shard = None if plan is None else plan.tables.get(f"{name}/table")
+    if shard is None:
+        return embedding_lookup(table, ids, cfg.dtype)
+    return lookup_rows(ids, shard, lambda g: block_rows(
+        table, g, shard.window, cfg.dtype))
 
 
-def item_embed(cfg: TwoTowerConfig, p: Params, item_id,
-               item_cat) -> torch.Tensor:
-    e = torch.cat([
-        embedding_lookup(p["item"]["table"], item_id, cfg.dtype),
-        embedding_lookup(p["icat"]["table"], item_cat, cfg.dtype),
-    ], dim=-1)
-    return _tower(cfg, p, "item_tower", e)
+def user_embed(cfg: TwoTowerConfig, p: Params, batch: Dict,
+               plan: Optional[RecsysPlan] = None) -> torch.Tensor:
+    e = torch.cat([_lookup(cfg, p, "user", batch["user_id"], plan),
+                   _lookup(cfg, p, "ctx", batch["user_ctx"], plan)], dim=-1)
+    return _tower(cfg, p, "user_tower", e, plan)
+
+
+def item_embed(cfg: TwoTowerConfig, p: Params, item_id, item_cat,
+               plan: Optional[RecsysPlan] = None) -> torch.Tensor:
+    e = torch.cat([_lookup(cfg, p, "item", item_id, plan),
+                   _lookup(cfg, p, "icat", item_cat, plan)], dim=-1)
+    return _tower(cfg, p, "item_tower", e, plan)
 
 
 def twotower_loss(cfg: TwoTowerConfig, p: Params, batch: Dict) -> torch.Tensor:
     """In-batch sampled softmax (the RecSys'19 retrieval objective).  On
-    a mesh every row's negatives are the whole batch's items, so the
-    towers run on the gathered batch and this rank takes its rows'
-    share of the loss."""
-    g = {k: gathered(v) for k, v in batch.items()}
-    u = user_embed(cfg, p, g)                                       # (B, d)
-    i = item_embed(cfg, p, g["item_id"], g["item_cat"])             # (B, d)
-    logits = torch.einsum("bd,cd->bc", u, i).float() / cfg.temperature
-    labels = torch.arange(u.shape[0], device=u.device)
+    a mesh each rank looks up and runs both towers on its own rows
+    (under :func:`recsys_plan`) and scores them against the whole
+    batch's items, gathered over the batch axes differentiably
+    (``hooks.batch_gather``; none where the batch is replicated): its
+    (b, B) logits, labels offset by its first global row, and its share
+    of the mean through ``batch_mean``, the rows the reference's GSPMD
+    step computes a rank."""
+    plan = recsys_plan(cfg)
+    axes = None
+    if local(batch["user_id"]).shape[0] != batch["user_id"].shape[0]:
+        axes = batch_axes()
+    batch = local_batch(batch)
+    u = user_embed(cfg, p, batch, plan)                             # (b, d)
+    i = item_embed(cfg, p, batch["item_id"], batch["item_cat"], plan)
     if active_mesh() is None:
+        logits = torch.einsum("bd,cd->bc", u, i).float() / cfg.temperature
+        labels = torch.arange(u.shape[0], device=u.device)
         return softmax_xent(logits[:, None, :], labels[:, None])
-    rows = rows_like(logits, batch["user_id"])
-    mine = softmax_xent(rows[:, None, :],
-                        rows_like(labels, batch["user_id"])[:, None])
-    return batch_mean(mine * rows.shape[0], rows.shape[0])
+    items = batch_gather(i, axes)                                   # (B, d)
+    logits = torch.einsum("bd,cd->bc", u, items).float() / cfg.temperature
+    b = u.shape[0]
+    labels = torch.arange(b, device=u.device) + (
+        0 if axes is None else axes.rank * b)
+    mine = softmax_xent(logits[:, None, :], labels[:, None])
+    return batch_mean(mine * b, b)
 
 
 def twotower_score(cfg: TwoTowerConfig, p: Params, batch: Dict) -> torch.Tensor:

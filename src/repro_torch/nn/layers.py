@@ -78,12 +78,14 @@ def dense(p: Params, x: torch.Tensor,
 def mlp_apply(p: Params, x: torch.Tensor,
               act: Callable[[torch.Tensor], torch.Tensor] = torch.relu,
               dtype: torch.dtype = torch.bfloat16,
-              final_act: bool = False) -> torch.Tensor:
-    """``dense`` layers in order, ``act`` between them and, with
-    ``final_act``, after the last one."""
+              final_act: bool = False,
+              layer: Callable[..., torch.Tensor] = dense) -> torch.Tensor:
+    """``layer`` (``dense``, or a split of it that gives the same values)
+    in order, ``act`` between them and, with ``final_act``, after the
+    last one."""
     n = len(p)
     for i in range(n):
-        x = dense(p[f"fc{i}"], x, dtype=dtype)
+        x = layer(p[f"fc{i}"], x, dtype=dtype)
         if i < n - 1 or final_act:
             x = act(x)
     return x

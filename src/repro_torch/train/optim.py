@@ -19,11 +19,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.tensor_parallel import (
-    ModelGroup,
-    all_reduce,
-    model_shards,
-)
+from repro_torch.distributed.leaf_kinds import reduce_over_shards
+from repro_torch.distributed.tensor_parallel import ModelGroup
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -79,15 +76,14 @@ def global_norm(tree: Any, dims: Any = None,
                 mg: Optional[ModelGroup] = None) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 sum of squares, summed leaf by
     leaf in the reference's leaf order.  The sums of the leaves that
-    ``dims`` keeps as this rank's ``model`` shards of ``mg``
-    (``tensor_parallel.model_shards``) are first summed over ``model``
-    (one collective for all of them), so each is its whole leaf's."""
-    sums = [torch.sum(torch.square(leaf.float())) for leaf in leaves(tree)]
-    where = model_shards(dims, mg)
-    if where:
-        whole = all_reduce(torch.stack([sums[i] for i in where]), mg)
-        for i, s in zip(where, whole.unbind(0)):
-            sums[i] = s
+    ``dims`` keeps as this rank's ``model`` shards of ``mg``, and of
+    those it declares computed on as they lie (``leaf_kinds.Local``),
+    are first summed over the axes that cut them
+    (``leaf_kinds.reduce_over_shards``: one collective an axis), so
+    each is its whole leaf's and none is counted twice."""
+    sums = reduce_over_shards(
+        [torch.sum(torch.square(leaf.float())) for leaf in leaves(tree)],
+        dims, mg)
     return torch.sqrt(torch.as_tensor(sum(sums), dtype=torch.float32))
 
 

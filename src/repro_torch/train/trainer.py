@@ -12,9 +12,10 @@ the port of ``repro.train.trainer``.
     restarted run continues from the exact batch,
   * a step on a mesh, taken where the params are DTensors
     (:mod:`repro_torch.distributed.sharding`), data-parallel over the
-    batch axes and, for a loss that declares its split (the LM's),
-    tensor- and expert-parallel over ``model``
-    (:mod:`repro_torch.distributed.tensor_parallel`): see
+    batch axes and, for a loss that declares its split (the LM's and the
+    recsys family's), tensor- and expert-parallel over ``model``
+    (:mod:`repro_torch.distributed.tensor_parallel`) and on tables where
+    their rows lie (:mod:`repro_torch.distributed.row_parallel`): see
     :func:`build_train_step`.
 """
 
@@ -46,6 +47,7 @@ from repro_torch.distributed.hooks import (
     rows_like,
     use_mesh,
 )
+from repro_torch.distributed.leaf_kinds import Local, local_of
 from repro_torch.distributed.sharding import (
     P,
     NamedSharding,
@@ -113,12 +115,16 @@ def build_train_step(
       * it gathers the params it computes with over the batch axes (on a
         mesh of one rank, their local tensors: nothing is copied).  Where
         ``loss_fn`` has ``model_dims(params, model_group)`` (as
-        ``models.transformer.LMLoss``), the leaves it names stay this
-        rank's ``model`` shards and the loss runs inside
-        ``tensor_parallel.use_model_group``, computing on them (Megatron's
-        column and row splits, experts and vocabulary rows a rank); every
-        other leaf, and every leaf of a loss without it (the recsys, GNN
-        and two-tower families), is gathered whole;
+        ``models.transformer.LMLoss`` and ``models.recsys.RecsysLoss``),
+        the loss runs inside ``tensor_parallel.use_model_group`` and each
+        leaf is of one of three kinds: a dimension (an int), the leaf
+        stays this rank's ``model`` shard along it, computed on
+        (Megatron's column and row splits, experts and vocabulary rows
+        a rank, the recsys MLPs' columns); ``leaf_kinds.LOCAL``, the
+        leaf is computed on as it lies, this rank's block over every
+        axis (a recsys table looked up where its rows lie); None, the
+        leaf is gathered whole.  Every leaf of a loss without it (the
+        GNN family) is gathered whole;
       * each microbatch (rows in the global batch's order, as in the
         reference) is placed by ``shard_batch`` over the batch axes, and
         the loss, which takes its rows with ``hooks.local`` and ends in
@@ -126,11 +132,13 @@ def build_train_step(
         its gradient is this rank's part of the global gradient, whatever
         each rank's count of valid terms;
       * the shares and gradients are summed over the batch axes (an
-        all-reduce), compressed where asked (each leaf as a whole, as the
-        reference's ``compress_tree``: a ``model`` shard takes its whole
-        leaf's scale), and each rank's AdamW updates its own shards with
+        all-reduce; a ``LOCAL`` leaf's only over those that do not shard
+        it, whose ranks hold the same block), compressed where asked
+        (each leaf as a whole, as the reference's ``compress_tree``: a
+        shard takes its whole leaf's scale, the largest over the axes
+        that cut it), and each rank's AdamW updates its own shards with
         the global gradient norm (a shard's sum of squares summed over
-        ``model``).
+        the axes that cut it).
 
     Plain params are the mesh-less case of the same step: every gather,
     cut and sum above is then the identity."""
@@ -163,10 +171,14 @@ def build_train_step(
     def step(params, opt_state, batch):
         mesh = mesh_of(params)
         mg = model_group_of(mesh) if split is not None else None
-        # each leaf's dimension kept as this rank's model shard, or None
-        # where it is gathered whole (every leaf, without a model group)
+        # each leaf's dimension kept as this rank's model shard, a Local
+        # (computed on as it lies, its axes filled in from the leaf), or
+        # None where it is gathered whole (every leaf, without a model
+        # group)
         dims = (tree_map(lambda p: None, params) if mg is None
-                else split(params, mg))
+                else tree_map(lambda p, d: local_of(p)
+                              if isinstance(d, Local) else d,
+                              params, split(params, mg)))
 
         def placed(b):
             if mesh is None:
@@ -179,7 +191,8 @@ def build_train_step(
                 loss, grads = grads_of(full, batch, placed)
             del full
             loss = batch_sum(loss)
-            grads = tree_map(batch_sum_, grads)
+            grads = tree_map(lambda g, d: batch_sum_(
+                g, d.axes if isinstance(d, Local) else ()), grads, dims)
             if cfg.compress_grads:
                 grads = compress_tree(grads, dims, mg)
             gn = global_norm(grads, dims, mg)
@@ -195,10 +208,13 @@ def build_train_step(
 
 
 def _compute_leaf(p: Any, dim) -> Any:
-    """What a step computes with: ``p`` gathered whole (``dim`` None), or
-    over the batch axes only, its ``model`` shard along ``dim`` kept."""
+    """What a step computes with: ``p`` gathered whole (``dim`` None),
+    this rank's block (a ``Local``), or ``p`` gathered over the batch
+    axes only, its ``model`` shard along ``dim`` kept."""
     if dim is None:
         return full_tensor(p)
+    if isinstance(dim, Local):
+        return local(p)
     if is_sharded(p):
         names = p.device_mesh.mesh_dim_names
         pl = p.placements[names.index(MODEL)]
@@ -209,8 +225,11 @@ def _compute_leaf(p: Any, dim) -> Any:
 
 
 def _grad_block(g: torch.Tensor, p: Any, dim) -> torch.Tensor:
-    """This rank's block of the gradient ``g`` of ``p`` (``g`` whole, or
-    ``p``'s ``model`` shard along ``dim``)."""
+    """This rank's block of the gradient ``g`` of ``p`` (``g`` whole,
+    ``p``'s block itself for a ``Local``, or ``p``'s ``model`` shard along
+    ``dim``)."""
+    if isinstance(dim, Local):
+        return g
     return rows_like(g, p) if dim is None else block_except(g, p, MODEL)
 
 

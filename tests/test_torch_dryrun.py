@@ -13,13 +13,15 @@
     a dry run is one charge of its cost and no launch; a tensor with no
     data that reaches a launch outside a dry run raises; a CPU call
     inside one charges nothing;
-  * at REDUCED on a (2, 2) mesh, four cells against the reference's dry
+  * at REDUCED on a (2, 2) mesh, five cells against the reference's dry
     run of the same cells (``tests/torch_mesh_ref.py dryrun``, 4 forced
     host devices): the per-rank dot FLOPs within the band each test
     states, and ``argument_size`` equal;
   * granite-3-2b's ``train_4k`` at full width on the (16, 16) mesh: it
     traces, its flash charges are the step's launches, and the ``model``
-    all-reduces it sees are ``MODEL_COLLECTIVES``' count.
+    all-reduces it sees are ``MODEL_COLLECTIVES``' count;
+  * two-tower's ``train_batch`` at full width on the (16, 16) mesh: no
+    table gathered, under 1 GB of wire bytes and 10 GB of peak.
 """
 
 import json
@@ -54,7 +56,8 @@ from torch_threads import one_torch_thread  # noqa: F401
 ROOT = Path(__file__).resolve().parent.parent
 REDUCED_CELLS = (("granite-3-2b", "train_4k"),
                  ("moonshot-v1-16b-a3b", "train_4k"),
-                 ("dlrm-mlperf", "train_batch"), ("mace", "molecule"))
+                 ("dlrm-mlperf", "train_batch"), ("mace", "molecule"),
+                 ("two-tower-retrieval", "train_batch"))
 
 
 # ------------------------------------------------------------ model_flops --
@@ -251,11 +254,11 @@ def ref_dryrun(tmp_path_factory):
 
 
 # the factor by which the port repeats a rank's share that the reference
-# splits on a (2, 2) mesh: the recsys MLPs are computed whole on both
-# model ranks (item 12d), and MACE runs the whole batch on every rank (the
-# reference splits it over data); the LM splits as the reference does
-REPEATED = {"granite-3-2b": 1, "moonshot-v1-16b-a3b": 1, "dlrm-mlperf": 2,
-            "mace": 2}
+# splits on a (2, 2) mesh: MACE runs the whole batch on every rank (the
+# reference splits it over data); the LM and the recsys family split as
+# the reference does
+REPEATED = {"granite-3-2b": 1, "moonshot-v1-16b-a3b": 1, "dlrm-mlperf": 1,
+            "mace": 2, "two-tower-retrieval": 1}
 
 
 @pytest.mark.parametrize("arch,cell", REDUCED_CELLS)
@@ -294,6 +297,34 @@ def test_granite_train_at_full_width_on_the_single_mesh():
     assert r["aten_dot_flops"] == r["flop_counter_total"]
     assert r["collectives"]["by_axis"]["model"]["cross_node"]
     assert r["memory"]["fits"]
+
+
+def test_two_tower_train_at_full_width_gathers_no_table(monkeypatch):
+    """two-tower's ``train_batch`` at published widths on the (16, 16)
+    mesh looks its tables up where their rows lie: no all-gather as large
+    as its smallest table (a 100,000-row one, 102.4 MB in f32), under
+    1 GB of wire bytes and under 10 GB of peak a rank (gathered whole,
+    the tables took 35.16 GB of wire bytes and a 50.0 GB peak)."""
+    from repro_torch.models.recsys import row_tables
+
+    gathers = []
+    count = dryrun.Count._collective
+
+    def spy(self, func, kind, args, kwargs, outs):
+        if kind == "all-gather":
+            gathers.append(sum(dryrun._nbytes(t) for t in outs))
+        return count(self, func, kind, args, kwargs, outs)
+
+    monkeypatch.setattr(dryrun.Count, "_collective", spy)
+    bundle = get_bundle("two-tower-retrieval")
+    r = dryrun.run(bundle, "train_batch", (16, 16), ("data", "model"))
+    cfg = bundle.config
+    smallest = min(rows for rows, _ in row_tables(cfg).values()) \
+        * cfg.embed_dim * 4
+    assert r["ok"] and gathers
+    assert max(gathers) < smallest
+    assert r["collectives"]["total_wire_bytes"] < 1e9
+    assert r["memory"]["peak_size"] < 10e9
 
 
 # ------------------------------------------- the card's cross-check --

@@ -278,8 +278,10 @@ def test_data_parallel_masked_gnn_step_matches_one_process(mesh_run):
 
 @pytest.mark.parametrize("arch", RECSYS_DP)
 def test_data_parallel_recsys_step_matches_one_process(mesh_run, arch):
-    """DLRM's rows split over the ranks; two-tower's towers on the
-    gathered batch (its negatives are the whole batch's)."""
+    """DLRM's rows split over the ranks; both archs' tables looked up
+    where their rows lie and their MLPs on their columns (the bundle's
+    ``RecsysLoss``); two-tower's towers on a rank's own rows against
+    the whole batch's items."""
     d, inputs, out = mesh_run
     tr = recsys_f32(arch)
     params = tree_map(torch.clone, inputs[arch]["params"])

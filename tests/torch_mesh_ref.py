@@ -9,6 +9,8 @@ whose XLA_FLAGS force enough host devices for the production meshes.
         python tests/torch_mesh_ref.py tpstep IN.npz OUT.npz
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/torch_mesh_ref.py dryrun OUT.json
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        python tests/torch_mesh_ref.py rowstep IN.npz OUT.npz
 
 ``specs`` writes every bundle's param, opt and input specs, at REDUCED
 and full sizes (abstract shapes), on the (16, 16) and (2, 16, 16)
@@ -21,7 +23,13 @@ params and optimizer state placed by the bundle's shardings and the
 batch over ``data``, once for each batch of IN (``tokens``, ``labels``:
 (steps, B, S)); it writes the initial params (``init/<path>``), the
 losses (``losses``) and the final params (``final/<path>``).
-``dryrun`` lowers and compiles each cell of :data:`DRYRUN_CELLS` at
+``rowstep`` takes each arch of :data:`ROW_ARCHS` REDUCED in f32 from the
+params of IN (``<arch>/init/<path>``) through the reference's jitted
+train step (the recsys bundle's optimizer) on the same (2, 2) mesh,
+params and optimizer state placed by the bundle's shardings and the
+batch over ``data``, once for each batch (``<arch>/batch/<i>/<name>``);
+it writes the losses (``<arch>/losses``) and the final params
+(``<arch>/final/<path>``).  ``dryrun`` lowers and compiles each cell of :data:`DRYRUN_CELLS` at
 REDUCED on a (2, 2) ``("data", "model")`` mesh as the reference's dry run
 does its production cells (``repro.launch.dryrun.run_cell``), and writes
 per cell the per-device dot FLOPs of ``hlo_graph.analyze`` and
@@ -152,10 +160,81 @@ def dump_tp_step(inp: str, out: str) -> None:
     np.savez(out, losses=np.asarray(losses), **result)
 
 
+def _nested(flat: dict) -> dict:
+    """``{"a/b/c": x}`` as ``{"a": {"b": {"c": x}}}``."""
+    out: dict = {}
+    for k, v in flat.items():
+        node = out
+        *path, leaf = k.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+# the recsys archs whose (2, 2) steps the port's route on their shards
+# is held to
+ROW_ARCHS = ("dlrm-mlperf", "two-tower-retrieval", "din")
+
+
+def dump_row_step(inp: str, out: str) -> None:
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs.registry import get_bundle
+    from repro.models import recsys as rs
+    from repro.train.optim import OptConfig, adamw_init
+    from repro.train.trainer import TrainerConfig, build_train_step
+
+    data = dict(np.load(inp))
+    losses_of = {"dlrm-mlperf": rs.dlrm_loss,
+                 "two-tower-retrieval": rs.twotower_loss, "din": rs.din_loss}
+    # recsys_bundle's optimizer (repro/configs/families.py)
+    opt = OptConfig(lr=1e-3, weight_decay=1e-5, schedule="const",
+                    warmup_steps=100, total_steps=100_000)
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
+                             ("data", "model"))
+    result = {}
+    for arch in ROW_ARCHS:
+        bundle = get_bundle(arch, reduced=True)
+        cfg = dataclasses.replace(bundle.config, dtype=jnp.float32)
+        head = f"{arch}/init/"
+        params = _nested({k[len(head):]: v for k, v in data.items()
+                          if k.startswith(head)})
+        steps = sorted({int(k.split("/")[2]) for k in data
+                        if k.startswith(f"{arch}/batch/")})
+        names = sorted({k.split("/")[3] for k in data
+                        if k.startswith(f"{arch}/batch/")})
+        ps, os_ = bundle.param_shardings(mesh), bundle.opt_shardings(mesh)
+        bs = {k: NamedSharding(mesh, P("data")) for k in names}
+        loss = losses_of[arch]
+        step = jax.jit(build_train_step(
+            lambda p, b, loss=loss, cfg=cfg: loss(cfg, p, b),
+            TrainerConfig(opt=opt)),
+            in_shardings=(ps, os_, bs), out_shardings=(ps, os_, None))
+        losses = []
+        with mesh:
+            p = jax.device_put(params, ps)
+            o = jax.device_put(adamw_init(params), os_)
+            for i in steps:
+                b = {k: jnp.asarray(data[f"{arch}/batch/{i}/{k}"])
+                     for k in names}
+                p, o, metrics = step(p, o, b)
+                losses.append(float(metrics["loss"]))
+        result[f"{arch}/losses"] = np.asarray(losses)
+        result.update({f"{arch}/final/{k}": v for k, v in _flat(p).items()})
+    np.savez(out, **result)
+
+
 # the cells the port's dry run is held to, (arch, cell) at REDUCED
 DRYRUN_CELLS = (("granite-3-2b", "train_4k"),
                 ("moonshot-v1-16b-a3b", "train_4k"),
-                ("dlrm-mlperf", "train_batch"), ("mace", "molecule"))
+                ("dlrm-mlperf", "train_batch"), ("mace", "molecule"),
+                ("two-tower-retrieval", "train_batch"))
 
 
 def dump_dryrun(out: str) -> None:
@@ -212,5 +291,7 @@ if __name__ == "__main__":
         dump_tp_step(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "dryrun":
         dump_dryrun(sys.argv[2])
+    elif sys.argv[1] == "rowstep":
+        dump_row_step(sys.argv[2], sys.argv[3])
     else:
         dump_psum(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

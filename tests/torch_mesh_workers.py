@@ -23,6 +23,16 @@ set up from a file store in DIR (no network):
            every rank's MoE drops, and each rank's ``compress_tree`` and
            ``global_norm`` of its shard of ``reduction_tree()``; rank 0
            writes ``DIR/tp_out.pt``.
+``rows``   on the same mesh, from ``DIR/rows_inputs.pt``: for each
+           recsys case (an arch, its f32 params and batches),
+           ``Trainer`` steps computing on the tables where their rows
+           lie and on the MLPs' columns (``row_parallel``), with the
+           counts of lookup and ``model`` collectives, the shapes each
+           rank computed with, every rank's blocks of the final params,
+           and DLRM's scores of a batch of out-of-range ids on the
+           mesh; and the lookup of one table nested over ``("data",
+           "model")`` with its block's gradient; rank 0 writes
+           ``DIR/rows_out.pt``.
 """
 
 from __future__ import annotations
@@ -232,6 +242,108 @@ def tp(rank: int, world: int, d: str, data: int) -> None:
         torch.save(out, os.path.join(d, "tp_out.pt"))
 
 
+def local_params(params, dims):
+    """What a step computes with (the trainer's own rule)."""
+    from repro_torch.train.trainer import _compute_leaf
+
+    return tree_map(_compute_leaf, params, dims)
+
+
+def declared(placed, loss, mg):
+    """The loss's declaration of each leaf, a ``LOCAL`` filled in from the
+    leaf as the train step fills it."""
+    from repro_torch.distributed.leaf_kinds import Local, local_of
+
+    return tree_map(lambda p, k: local_of(p) if isinstance(k, Local) else k,
+                    placed, loss.model_dims(placed, mg))
+
+
+def rows(rank: int, world: int, d: str, data: int) -> None:
+    """Each recsys case of ``DIR/rows_inputs.pt`` through ``Trainer`` on
+    the mesh, the out-of-range scores and the nested lookup."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed.hooks import local
+    from repro_torch.distributed.leaf_kinds import local_of
+    from repro_torch.distributed.row_parallel import (
+        ROW_COLLECTIVES,
+        block_rows,
+        lookup_rows,
+        row_shard,
+    )
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.distributed.tensor_parallel import use_model_group
+    from repro_torch.models import recsys as RS
+
+    inputs = torch.load(os.path.join(d, "rows_inputs.pt"))
+    mesh = make_mesh((data, world // data), ("data", "model"), device="cpu")
+    mg = model_group_of(mesh)
+    coord = tuple(mesh.get_coordinate())
+    out = {}
+    for name, case in inputs["cases"].items():
+        tr = recsys_f32(case["arch"])
+        placed = tree_map(place, case["params"],
+                          shard_by_rules(case["params"], mesh, RECSYS_RULES))
+        loss = tr.loss_fn()
+        dims = declared(placed, loss, mg)
+        shapes = {path_name(p): tuple(t.shape) for (p, t), (_, k) in zip(
+            flatten_with_path(local_params(placed, dims)),
+            flatten_with_path(dims)) if k is not None}
+        trainer = Trainer(loss, placed, TrainerConfig(
+            opt=tr.opt, log_every=1), device="cpu")
+        ROW_COLLECTIVES.reset()
+        MODEL_COLLECTIVES.reset()
+        with use_mesh(mesh):
+            trainer.fit(lambda c: case["batches"][c], len(case["batches"]))
+        out[name] = {
+            "losses": [h["loss"] for h in trainer.history],
+            "params": gathered(trainer.params),
+            "shapes": shapes,
+            "axes": {path_name(p): local_of(t).axes
+                     for p, t in flatten_with_path(trainer.params)},
+            "locals": every_rank((coord, {
+                path_name(p): t.to_local().clone()
+                for p, t in flatten_with_path(trainer.params)})),
+            "row_collectives": ROW_COLLECTIVES.count,
+            "model_collectives": MODEL_COLLECTIVES.count,
+        }
+
+    # DLRM's scores of a batch with out-of-range ids, under fill
+    bad = inputs["bad"]
+    tr = recsys_f32("dlrm-mlperf")
+    placed = tree_map(place, bad["params"],
+                      shard_by_rules(bad["params"], mesh, RECSYS_RULES))
+    loss = tr.loss_fn()
+    dims = declared(placed, loss, mg)
+    n = bad["batch"]["dense"].shape[0] // data
+    mine = {k: v[coord[0] * n:(coord[0] + 1) * n]
+            for k, v in bad["batch"].items()}
+    with use_mesh(mesh), use_model_group(mg), torch.no_grad():
+        scores = RS.dlrm_forward(tr.config, local_params(placed, dims), mine,
+                                 RS.recsys_plan(tr.config))
+    out["bad_scores"] = torch.cat([s for c, s in every_rank((coord, scores))
+                                   if c[1] == 0])
+
+    # one table nested over ("data", "model"): each rank's ids read every
+    # block's rows, and out-of-range ones
+    lk = inputs["lookup"]
+    table = place(lk["table"], NamedSharding(mesh, P(("data", "model"),
+                                                     None)))
+    assert all(isinstance(pl, Shard) for pl in table.placements)
+    shard = row_shard(mesh, ("data", "model"), lk["table"].shape[0])
+    n = lk["ids"].shape[0] // data
+    ids = lk["ids"][coord[0] * n:(coord[0] + 1) * n]
+    block = local(table).clone().requires_grad_(True)
+    rows_ = lookup_rows(ids, shard, lambda g: block_rows(
+        block, g, shard.window, torch.float32))
+    w = lk["weights"][coord[0] * n:(coord[0] + 1) * n]
+    torch.where(torch.isnan(rows_), 0.0, rows_ * w).sum().backward()
+    out["lookup"] = every_rank((coord, shard.first, rows_.detach(),
+                                block.grad))
+    if rank == 0:
+        torch.save(out, os.path.join(d, "rows_out.pt"))
+
+
 def main() -> None:
     case, rank, world, d = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
                             sys.argv[4])
@@ -243,7 +355,7 @@ def main() -> None:
             np.save(os.path.join(d, f"psum_out_{rank}.npy"),
                     compressed_psum(x).numpy())
         else:
-            run = train if case == "train" else tp
+            run = {"train": train, "tp": tp, "rows": rows}[case]
             run(rank, world, d,
                 int(sys.argv[5]) if len(sys.argv) > 5 else world)
         dist.barrier()
