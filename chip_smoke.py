@@ -98,7 +98,13 @@ Phases (any failure exits non-zero before the last line is printed):
      largest shape (also timed cold, over pool copies that exceed the
      L2), at deployment (128 rows x 256 pages) and at the split's edges
      (lengths 1, page and split edges, splits wholly past the length,
-     empty rows);
+     empty rows), each also with the log-sum-exp it writes on request
+     (within 1e-5 of the plain version's, a row of length 0 at the
+     sentinel exactly, the output bit for bit as without it, timed
+     beside it); and the deployment cache cut into 2 and 4 blocks of its
+     sequence at D 64 and D 128, each block through the kernel with its
+     log-sum-exp and the blocks merged (``merge_attention_blocks``),
+     against the whole cache's launch;
   8. recsys serve: dlrm-mlperf at its published config (26 bf16 tables of
      177,944,225 rows in all, 45.6 GB; seeded random weights): 200
      ``serve_p99`` calls of 512 rows, 10 ``serve_bulk`` calls of 262,144
@@ -191,7 +197,14 @@ Phases (any failure exits non-zero before the last line is printed):
      (``distributed.row_parallel``: tables looked up where their rows
      lie, MLPs on their columns; two-tower at B 32,768 with 2^23 user
      rows, the most of ``train_batch`` that fits a card) bit for bit
-     against theirs (``mesh_phase``).  Then
+     against theirs (``mesh_phase``); and the LM serve cells on the
+     mesh (``LMBundle.serve_step``: the weights' ``model`` shards, the
+     decode cache's sequence over ``model``, the ranks' attention merged
+     by the paged kernel's log-sum-exp): granite-3-2b at its published
+     widths, a prefill of 16 x 4,096 and 8 decode steps of those rows,
+     logits and cache bit for bit against the same steps without a mesh,
+     and moonshot cut to 4 layers (8 x 1,024) within 1e-5, with their
+     ``model`` collectives and launches.  Then
      both attention kernels against their plain versions (outputs and
      log-sum-exps) at the shapes these paths gave them;
  15. gnn train: MACE at its published widths (2 layers, k 128, l_max 2,
@@ -214,10 +227,13 @@ Phases (any failure exits non-zero before the last line is printed):
  16. dryrun: granite-3-2b's step on a one-rank NCCL mesh at 8 x 4,096 in
      4 microbatches held to its own dry run (``launch.dryrun``) at that
      shape: each hand kernel's charges equal its launches, the ``model``
-     all-reduces equal ``MODEL_COLLECTIVES``, the aten dot FLOPs equal
+     collectives equal ``MODEL_COLLECTIVES``, the aten dot FLOPs equal
      ``FlopCounterMode``'s total; the dry run's peak over
      ``torch.cuda.max_memory_allocated()`` and its roofline bound over
-     the step's p50 are printed with the card's name and power limit.
+     the step's p50 are printed with the card's name and power limit;
+     granite's ``decode_32k`` step at 16 x 4,096 on that mesh likewise
+     (the paged kernel once a layer, the flash kernels never, the
+     ``model`` collectives, dot FLOPs, the peak's ratio).
      Then the dry run of every arch x cell on the (16, 16) mesh but the
      two MoE archs' ``train_4k`` (left to the CLI run ``PERF.md``
      records), and of granite-3-2b's ``train_4k`` on the (2, 16, 16) one,
@@ -226,9 +242,9 @@ Phases (any failure exits non-zero before the last line is printed):
      its peak GB a rank against 80);
  17. print the kernels line (eight kernels: both flash forward routes,
      both flash backward routes, their launches and the paged kernel's
-     by path; the search kernels' launches summed over the search and
-     replica phases, the bag's over recsys serving and training), then
-     the result line.
+     by path, and the paged kernel's log-sum-exp route; the search
+     kernels' launches summed over the search and replica phases, the
+     bag's over recsys serving and training), then the result line.
 
 Exits with code 2 when no CUDA device is present.  Imports nothing of
 JAX or of the ``repro`` package.
@@ -301,6 +317,14 @@ PARITY_TOL = 1e-4
 # would stay within any limit that large
 F32_TOL = 2e-5
 BF16_REL = 2.0 ** -8
+# the paged kernel's log-sum-exp against its plain version's, absolute:
+# both are f32 logs of a row's summed exponentials (values of order 10),
+# which agree to a few f32 steps; a row that dropped or doubled a token
+# moves by far more.  A row of length 0 must carry LSE_EMPTY exactly
+PAGED_LSE_TOL = 1e-5
+# the deployment cache cut into this many blocks of its sequence, each
+# attended with its log-sum-exp and merged (``merge_attention_blocks``)
+MERGE_BLOCKS = (2, 4)
 GRADS = ("dq", "dk", "dv")
 
 # recsys phases: dlrm-mlperf at its published config
@@ -379,6 +403,18 @@ MESH_MOE_LAYERS = 2              # moonshot-v1-16b-a3b cut to 2 layers
 MESH_MOE_BATCH = (2, 1024)       # one microbatch of 2 x 1,024 tokens
 MESH_MOE_RTOL = 1e-6             # the CPU mesh tests' relative tolerance
 MESH_PSUM_SHAPE = (2048, 8192)   # one of granite's (d, d_ff) gradients
+# the serve steps on the mesh: granite's prefill of rows x tokens, then
+# MESH_SERVE_STEPS decode steps of those rows on a cache of S_max = the
+# prompt's length, each row cut back to a length of its own first
+# (MESH_SERVE_LENS) so that every step writes; Moonshot at its published
+# widths cut to MESH_SERVE_MOE_LAYERS layers (5.2 GB of bf16 weights,
+# the caches and the one-hot dispatch of two runs beside them) on a
+# smaller prompt, held within MESH_SERVE_MOE_RTOL of its largest logit
+MESH_SERVE_BATCH = (16, 4096)
+MESH_SERVE_STEPS = 8
+MESH_SERVE_MOE_LAYERS = 4
+MESH_SERVE_MOE_BATCH = (8, 1024)
+MESH_SERVE_MOE_RTOL = 1e-5
 MESH_RECSYS = ("dlrm-mlperf", "two-tower-retrieval")   # tables where rows lie
 # two-tower's one-rank step (scripts/mesh_fit.py on an H100 80GB): its
 # train_batch of 65,536 runs out of memory whatever the user rows (the
@@ -402,6 +438,9 @@ DRYRUN_CELLS = (
      "--arch granite-3-2b --shape train_4k --mesh multi"),
 )
 DRYRUN_TIMED = 3             # timed granite steps for the roofline share
+# granite's decode step (rows, S_max) on the one-rank mesh held to its dry
+# run at that shape
+DRYRUN_DECODE = (16, 4096)
 DRYRUN_CELLS_TIMEOUT = 600   # s, for the cells' processes
 # kernel route against plain route, one microbatch in bf16.  The two
 # forwards differ only in the order of f32 sums before each attention
@@ -1940,10 +1979,17 @@ def paged_case(R: int, G: int, D: int, page: int, max_pages: int,
     table = ids.to(torch.int32).reshape(R, max_pages)
     lens = torch.tensor(lengths, dtype=torch.int32, device=device)
     got = paged_attention(q, kp, vp, table, lens)
-    plain = paged_attention_plain(q, kp, vp, table, lens)
+    got_lse = paged_attention(q, kp, vp, table, lens, return_lse=True)
+    plain = paged_attention_plain(q, kp, vp, table, lens, return_lse=True)
     torch.cuda.synchronize()
-    check = attention_check(got, plain)
-    del got, plain
+    check = attention_check(got, plain[0])
+    lse = paged_lse_check(got_lse[1], plain[1], lens)
+    lse["output_bit_identical"] = bool(torch.equal(got_lse[0], got))
+    lse["within_tolerance"] = lse["within_tolerance"] and \
+        lse["output_bit_identical"]
+    check["within_tolerance"] = check["within_tolerance"] and \
+        lse["within_tolerance"]
+    del got, got_lse, plain
     # the yardstick reads K/V gathered through the table and a length
     # mask, both made outside its timing
     T = max_pages * page
@@ -1954,7 +2000,8 @@ def paged_case(R: int, G: int, D: int, page: int, max_pages: int,
     esize = q.element_size()
     used = np.minimum(lengths, T)
     tokens = int(used.sum())
-    cost = paged_cost(R, G, D, tokens, int(np.ceil(used / page).sum()), dtype)
+    n_used = int(np.ceil(used / page).sum())
+    cost = paged_cost(R, G, D, tokens, n_used, dtype)
     flops, nbytes = cost.flops, cost.nbytes
     case = {
         "shape": [R, G, D, page, max_pages], "tokens": tokens,
@@ -1970,6 +2017,18 @@ def paged_case(R: int, G: int, D: int, page: int, max_pages: int,
         "bound_ms": cost.bound_ms(), "bound_by": cost.bound_by(),
         "flops": flops, "bytes": nbytes,
     }
+    # the route that writes the log-sum-exp too (a decode cache split over
+    # ranks), timed beside the same yardstick
+    lse_cost = paged_cost(R, G, D, tokens, n_used, dtype, lse=True)
+    lse.update({
+        "ms": cuda_ms(lambda: paged_attention(q, kp, vp, table, lens,
+                                              return_lse=True)),
+        "plain_ms": cuda_ms(lambda: paged_attention_plain(
+            q, kp, vp, table, lens, return_lse=True)),
+        "library_ms": case["library_ms"],
+        "bound_ms": lse_cost.bound_ms(), "bound_by": lse_cost.bound_by(),
+        "bytes": lse_cost.nbytes})
+    case["lse"] = lse
     case["profiler_launches"] = {}
     case["profiler_kernel_ms"] = profiler_ms(
         lambda: paged_attention(q, kp, vp, table, lens), "paged_attention",
@@ -1991,6 +2050,81 @@ def paged_case(R: int, G: int, D: int, page: int, max_pages: int,
             counts=case["profiler_launches_cold"])
         del pools
     return case
+
+
+def paged_lse_check(got: torch.Tensor, plain: torch.Tensor,
+                    lens: torch.Tensor) -> dict:
+    """The paged kernel's log-sum-exp against its plain version's: rows
+    that hold a token within PAGED_LSE_TOL, rows of length 0 at
+    ``LSE_EMPTY`` exactly on both sides."""
+    from repro_torch.kernels.paged_attention.ref import LSE_EMPTY
+
+    empty = (lens <= 0)[:, None].expand_as(got)
+    err = (got - plain).abs().masked_fill(empty, 0.0)
+    sentinel = bool((got[empty] == LSE_EMPTY).all()
+                    and (plain[empty] == LSE_EMPTY).all())
+    worst = float(err.max()) if err.numel() else 0.0
+    return {"max_abs_err": worst, "tolerance": PAGED_LSE_TOL,
+            "empty_rows": int((lens <= 0).sum()),
+            "sentinel_exact": sentinel,
+            "within_tolerance": worst <= PAGED_LSE_TOL and sentinel}
+
+
+def paged_merge_case(R: int, G: int, D: int, page: int, max_pages: int,
+                     lengths: np.ndarray, blocks: int, dtype,
+                     gen: torch.Generator, device) -> dict:
+    """A cache's sequence cut into ``blocks`` blocks: each block's table
+    slice goes through the kernel with its log-sum-exp (lengths clamped
+    to the block), ``tensor_parallel.merge_attention_blocks`` merges
+    them, and the result is held to the kernel's launch over the whole
+    table.  f32 within F32_TOL; bf16 within one bf16 rounding of each
+    side plus F32_TOL, a side being the whole output or the merged
+    blocks' outputs (their weighted mean size: each was rounded once)."""
+    from repro_torch.distributed.tensor_parallel import (
+        merge_attention_blocks,
+    )
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+
+    n_pages = R * max_pages
+    q = torch.randn(R, G, D, generator=gen, device=device).to(dtype)
+    kp = torch.randn(n_pages, page, D, generator=gen, device=device).to(dtype)
+    vp = torch.randn(n_pages, page, D, generator=gen, device=device).to(dtype)
+    table = torch.randperm(n_pages, generator=gen, device=device).to(
+        torch.int32).reshape(R, max_pages)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    per = max_pages // blocks
+    s_loc = per * page
+    parts = [(table[:, r * per:(r + 1) * per].contiguous(),
+              (lens - r * s_loc).clamp(0, s_loc)) for r in range(blocks)]
+
+    def merged():
+        outs = [paged_attention(q, kp, vp, t, n, return_lse=True)
+                for t, n in parts]
+        o = torch.stack([o for o, _ in outs])
+        lse = torch.stack([l for _, l in outs])
+        return merge_attention_blocks(o, lse), o, lse
+
+    whole = paged_attention(q, kp, vp, table, lens)
+    got, o, lse = merged()
+    torch.cuda.synchronize()
+    err = (got - whole.float()).abs()
+    if dtype == torch.bfloat16:
+        sides = (merge_attention_blocks(o.float().abs(), lse)
+                 + whole.float().abs())
+        limit = BF16_REL * sides + F32_TOL
+        tolerance = "2^-8*(merged |o_r| + |whole|)+2e-5"
+    else:
+        limit = torch.full_like(err, F32_TOL)
+        tolerance = str(F32_TOL)
+    ratio = float((err / limit).max())
+    del o, lse, got
+    return {"shape": [R, G, D, page, max_pages], "blocks": blocks,
+            "dtype": str(dtype).split(".")[-1],
+            "max_abs_err": float(err.max()), "max_err_ratio": ratio,
+            "tolerance": tolerance, "within_tolerance": ratio <= 1.0,
+            "ms": cuda_ms(lambda: merged()[0]),
+            "whole_ms": cuda_ms(lambda: paged_attention(q, kp, vp, table,
+                                                        lens))}
 
 
 def attention_phase(largest: dict, device) -> Dict[str, dict]:
@@ -2073,6 +2207,20 @@ def attention_phase(largest: dict, device) -> Dict[str, dict]:
         out["paged_attention"][f"edges_{tag}"] = paged_case(
             128, G, cfg.d_head, SERVE_PAGE, deploy_pages, edge_lens, dtype,
             gen, device, shuffled=True)
+    # the deployment cache cut into blocks of its sequence and merged: at
+    # granite's D 64 (4 heads a row) and Qwen3's D 128 (16), full rows and
+    # rows at the blocks' edges (one holding none on later blocks)
+    T = deploy_pages * SERVE_PAGE
+    merge_lens = np.resize([T, T, 1, T // 4 - 1, T // 4, T // 4 + 1,
+                            T // 2 - 1, T // 2, T // 2 + 1, 3 * T // 4,
+                            T - 1, 0], 128)
+    for D, Gm in ((cfg.d_head, G), (128, 16)):
+        for blocks in MERGE_BLOCKS:
+            for dtype in (torch.bfloat16, torch.float32):
+                tag = "bf16" if dtype == torch.bfloat16 else "f32"
+                out["paged_attention"][f"merge{blocks}_d{D}_{tag}"] = \
+                    paged_merge_case(128, Gm, D, SERVE_PAGE, deploy_pages,
+                                     merge_lens, blocks, dtype, gen, device)
     return out
 
 
@@ -3773,6 +3921,166 @@ def mesh_moe_step(mesh, device, kernels, failures: List[str]) -> dict:
 
 
 @contextlib.contextmanager
+def lse_route_calls():
+    """Counts the paged-kernel calls that ``models.attention`` makes with
+    ``return_lse`` (the route of a decode cache split over ``model``)
+    inside the block: yields a one-entry list."""
+    import repro_torch.models.attention as attention_mod
+
+    calls = [0]
+    inner = attention_mod.paged_attention
+
+    def spy(*args, **kwargs):
+        calls[0] += bool(kwargs.get("return_lse"))
+        return inner(*args, **kwargs)
+
+    attention_mod.paged_attention = spy
+    try:
+        yield calls
+    finally:
+        attention_mod.paged_attention = inner
+
+
+def serve_steps(bundle, params, tokens: torch.Tensor, lens: torch.Tensor,
+                steps: torch.Tensor, device) -> dict:
+    """``bundle``'s prefill step on ``tokens`` (B, S), then one decode
+    step a row of ``steps`` on a cache of the prompt's K/V (S_max = S)
+    whose rows are cut back to ``lens``; ``params`` plain (no mesh) or
+    placed on a mesh.  Host times are synchronised."""
+    prefill = bundle.serve_step("prefill_32k")
+    decode = bundle.serve_step("decode_32k")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    logits, kv = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    out = {"prefill_s": time.perf_counter() - t, "prefill": logits,
+           "prefill_dropped": float(kv.get("moe_dropped", 0.0))}
+    cache = {"k": kv["k"], "v": kv["v"], "len": lens.clone()}
+    del kv
+    logits, dropped, times = [], [], []
+    for tok in steps:
+        t = time.perf_counter()
+        got, c = decode(params, {"token": tok, "cache": cache})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        cache["len"] = c["len"]
+        logits.append(got)
+        dropped.append(float(c.get("moe_dropped", 0.0)))
+    out.update({"decode": torch.stack(logits), "dropped": dropped,
+                "decode_s": times, "cache": cache,
+                "peak_bytes": torch.cuda.max_memory_allocated(device)})
+    return out
+
+
+def mesh_serve_step(arch: str, mesh, device, kernels, failures: List[str],
+                    batch: tuple = MESH_SERVE_BATCH,
+                    layers: Optional[int] = None,
+                    rtol: Optional[float] = None) -> dict:
+    """``arch``'s serve cells at its published widths (``layers`` cut, or
+    its own depth) in bf16 serving weights: the bundle's prefill step on
+    ``batch`` rows x tokens, then MESH_SERVE_STEPS decode steps of those
+    rows on the prompt's K/V (S_max = its length, each row cut back to a
+    length of its own), without a mesh and then on ``mesh`` through
+    ``LMBundle.serve_step`` (the weights' ``model`` shards, the cache's
+    sequence over ``model``), from the same params and inputs.  The
+    logits of every step and the whole cache are held bit for bit
+    (``rtol`` None) or within ``rtol`` of the largest value (identity
+    reported); MoE drops equal; the mesh run's ``model`` collectives
+    above 0; the wgmma flash kernel once a layer (the prefill) and the
+    paged kernel once a layer and step, every call of it through the
+    log-sum-exp route."""
+    from repro_torch.configs.families import lm_bundle
+    from repro_torch.configs.registry import get_bundle
+    from repro_torch.distributed.sharding import place
+    from repro_torch.distributed.tensor_parallel import MODEL_COLLECTIVES
+    from repro_torch.tree import tree_map
+
+    full = get_bundle(arch)
+    cfg = full.config if layers is None else dataclasses.replace(
+        full.config, n_layers=layers)
+    bundle = lm_bundle(full.name, cfg, opt=full.opt)
+    params = bundle.init(torch.Generator(device=device).manual_seed(0),
+                         masters=False)
+    B, S = batch
+    gen = torch.Generator(device=device).manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device=device, dtype=torch.int32)
+    steps = torch.randint(0, cfg.vocab, (MESH_SERVE_STEPS, B), generator=gen,
+                          device=device, dtype=torch.int32)
+    # rows cut back to lengths of their own, one of them full (it stays
+    # unwritten), the first reaching S_max at the last step
+    lens = (S - MESH_SERVE_STEPS - 61 * torch.arange(B, device=device)).clamp(
+        min=1).to(torch.int32)
+    lens[-1] = S
+    plain = serve_steps(bundle, params, tokens, lens, steps, device)
+    placed = tree_map(place, params, bundle.param_shardings(mesh))
+    for k in kernels:
+        k.launches = 0
+    MODEL_COLLECTIVES.reset()
+    with lse_route_calls() as lse_calls:
+        sharded = serve_steps(bundle, placed, tokens, lens, steps, device)
+    launches = {k.symbol: k.launches for k in kernels}
+    collectives = MODEL_COLLECTIVES.count
+    del placed, params
+    errs, same = {}, {}
+    for key, a, b in (("prefill", sharded["prefill"], plain["prefill"]),
+                      ("decode", sharded["decode"], plain["decode"]),
+                      ("cache_k", sharded["cache"]["k"], plain["cache"]["k"]),
+                      ("cache_v", sharded["cache"]["v"],
+                       plain["cache"]["v"])):
+        same[key] = bool(torch.equal(a, b))
+        errs[key] = float((a.double() - b.double()).abs().max()) / max(
+            float(b.double().abs().max()), 1e-30)
+    n_steps = MESH_SERVE_STEPS
+    expect = {"flash_attention_wgmma": cfg.n_layers,
+              "paged_attention": cfg.n_layers * n_steps,
+              "lse_route": cfg.n_layers * n_steps}
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, S],
+           "decode_steps": n_steps, "bit_identical": same,
+           "max_rel_err": errs, "launches": launches,
+           "lse_route_calls": lse_calls[0], "expected": expect,
+           "model_collectives": collectives,
+           "dropped": {"unsharded": [plain["prefill_dropped"]]
+                       + plain["dropped"],
+                       "mesh": [sharded["prefill_dropped"]]
+                       + sharded["dropped"]}}
+    for name, run in (("unsharded", plain), ("mesh", sharded)):
+        out[name] = {"prefill_ms": run["prefill_s"] * 1e3,
+                     "decode_ms": [t * 1e3 for t in run["decode_s"]],
+                     "decode_p50_ms": float(np.median(run["decode_s"]))
+                     * 1e3, "peak_bytes": run["peak_bytes"]}
+    label = f"mesh serve {cfg.name}"
+    log(f"{label}: {cfg.n_layers} layers, prefill {B}x{S} "
+        f"{out['unsharded']['prefill_ms']:.1f} ms unsharded / "
+        f"{out['mesh']['prefill_ms']:.1f} ms on the mesh, decode p50 "
+        f"{out['unsharded']['decode_p50_ms']:.2f} / "
+        f"{out['mesh']['decode_p50_ms']:.2f} ms, bit for bit {same}, "
+        f"relative {errs}, {collectives} model collectives, launches "
+        f"{launches}, lse route {lse_calls[0]}")
+    if rtol is None and not all(same.values()):
+        failures.append(f"{label}: the one-rank mesh run differs from the "
+                        f"unsharded one bit for bit: {same}, {errs}")
+    if rtol is not None and max(errs.values()) > rtol:
+        failures.append(f"{label}: the mesh run differs from the unsharded "
+                        f"one by {errs} of the largest value (at most "
+                        f"{rtol})")
+    if out["dropped"]["unsharded"] != out["dropped"]["mesh"]:
+        failures.append(f"{label}: MoE drops {out['dropped']}")
+    if collectives == 0:
+        failures.append(f"{label}: the mesh run issued no model collective")
+    got = {"flash_attention_wgmma": launches.get("flash_attention_wgmma"),
+           "paged_attention": launches.get("paged_attention"),
+           "lse_route": lse_calls[0]}
+    if got != expect:
+        failures.append(f"{label}: launches {launches} and {lse_calls[0]} "
+                        f"log-sum-exp calls, {expect} expected")
+    del plain, sharded
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
 def deterministic_algorithms():
     """PyTorch's deterministic algorithms inside the block (warnings, not
     errors, for an op that has none), as they were after it."""
@@ -3930,9 +4238,15 @@ def mesh_phase(device, kernels, bag) -> dict:
     to each other within MESH_MOE_RTOL (loss and each param, over its
     largest value; bit-identity reported) with equal MoE drops, the
     ``model`` collectives above 0 and the flash kernels launched as
-    expected.  Last, DLRM's and two-tower's steps through the row-sharded
-    route, each against its unsharded step (:func:`mesh_recsys_step`;
-    ``bag`` is the bag kernel, launched by DLRM's)."""
+    expected.  Then the LM serve cells on the mesh
+    (:func:`mesh_serve_step`): granite-3-2b at its published widths, a
+    prefill of MESH_SERVE_BATCH and MESH_SERVE_STEPS decode steps, bit
+    for bit against the same steps without a mesh, and moonshot cut to
+    MESH_SERVE_MOE_LAYERS layers on MESH_SERVE_MOE_BATCH within
+    MESH_SERVE_MOE_RTOL.  Last, DLRM's and two-tower's steps through the
+    row-sharded route, each against its unsharded step
+    (:func:`mesh_recsys_step`; ``bag`` is the bag kernel, launched by
+    DLRM's)."""
     import os
 
     import torch.distributed as dist
@@ -4064,6 +4378,12 @@ def mesh_phase(device, kernels, bag) -> dict:
                     f"and microbatch: {cfg.n_layers} x {mb})")
             del mesh_tr, plain_params, batch
             out["moe"] = mesh_moe_step(mesh, device, kernels, failures)
+            out["serve"] = mesh_serve_step("granite-3-2b", mesh, device,
+                                           kernels, failures)
+            out["serve_moe"] = mesh_serve_step(
+                "moonshot-v1-16b-a3b", mesh, device, kernels, failures,
+                batch=MESH_SERVE_MOE_BATCH, layers=MESH_SERVE_MOE_LAYERS,
+                rtol=MESH_SERVE_MOE_RTOL)
             with deterministic_algorithms():
                 out["recsys"] = {arch: mesh_recsys_step(arch, mesh, device,
                                                         bag, failures)
@@ -4113,7 +4433,7 @@ def dryrun_failures(dry: dict, real: dict) -> List[str]:
     real step on the card (``launches`` by kernel, ``model_collectives``,
     ``flop_counter_total``) disagree: each hand kernel's charges against
     its launches (a kernel on either side only counts too), the ``model``
-    all-reduces the dry run saw and ``MODEL_COLLECTIVES`` counted, and the
+    collectives the dry run saw and ``MODEL_COLLECTIVES`` counted, and the
     dry run's aten dot FLOPs against ``FlopCounterMode``'s total."""
     failures = []
     charged = {k: int(v["launches"]) for k, v in dry["kernels"].items()}
@@ -4132,6 +4452,62 @@ def dryrun_failures(dry: dict, real: dict) -> List[str]:
     return failures
 
 
+def decode_count(mesh, device, kernels) -> dict:
+    """granite-3-2b's ``decode_32k`` serve step at DRYRUN_DECODE (slots x
+    S_max; bf16 serving weights, a zero cache at random lengths) on
+    ``mesh``, as its dry run traces it: the kernels' launches and the
+    ``model`` collectives of one step, the peak allocated in it
+    (``max_memory_allocated``, with what was held before), and
+    ``FlopCounterMode``'s total over a second step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import get_bundle
+    from repro_torch.distributed.sharding import place
+    from repro_torch.distributed.tensor_parallel import MODEL_COLLECTIVES
+    from repro_torch.tree import tree_map
+
+    bundle = get_bundle("granite-3-2b")
+    cfg = bundle.config
+    B, S = DRYRUN_DECODE
+    gen = torch.Generator(device=device).manual_seed(13)
+    params = tree_map(place, bundle.init(gen, masters=False),
+                      bundle.param_shardings(mesh))
+    shard = bundle.input_sharding("decode_32k", mesh)["batch"]
+    kv = (cfg.n_layers, B, cfg.n_kv_heads, S, cfg.d_head)
+    batch = {
+        "token": place(torch.randint(0, cfg.vocab, (B,), generator=gen,
+                                     device=device, dtype=torch.int32),
+                       shard["token"]),
+        "cache": {
+            "k": place(torch.zeros(kv, dtype=cfg.dtype, device=device),
+                       shard["cache"]["k"]),
+            "v": place(torch.zeros(kv, dtype=cfg.dtype, device=device),
+                       shard["cache"]["v"]),
+            "len": place(torch.randint(1, S, (B,), generator=gen,
+                                       device=device, dtype=torch.int32),
+                         shard["cache"]["len"])}}
+    step = bundle.serve_step("decode_32k")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    for k in kernels:
+        k.launches = 0
+    MODEL_COLLECTIVES.reset()
+    step(params, batch)
+    torch.cuda.synchronize()
+    out = {"launches": {k.symbol: k.launches for k in kernels},
+           "model_collectives": MODEL_COLLECTIVES.count,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+           "held_bytes": held}
+    fc = FlopCounterMode(display=False)
+    with fc:
+        step(params, batch)
+    out["flop_counter_total"] = float(fc.get_total_flops())
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def dryrun_phase(device, kernels, smi: str,
                  runs: Sequence[Sequence[str]] = DRYRUN_CELLS) -> dict:
     """(b) granite-3-2b at its published widths, f32 masters,
@@ -4143,7 +4519,12 @@ def dryrun_phase(device, kernels, smi: str,
     reported over ``torch.cuda.max_memory_allocated()`` of the counted
     step, and its roofline ``bound_s`` over the p50 of DRYRUN_TIMED steps
     (the step's share of its roofline), beside the card's name and power
-    limit.  (a) The cells of ``runs``.  Both dry runs
+    limit.  Then granite's ``decode_32k`` serve step at DRYRUN_DECODE on
+    the same mesh (:func:`decode_count`) is held to its dry run at that
+    shape (``--lm-serve``) the same way: the paged kernel once a layer,
+    the flash kernels never, the ``model`` collectives, the aten dot
+    FLOPs, and the dry run's peak over the step's
+    ``max_memory_allocated``.  (a) The cells of ``runs``.  Both dry runs
     (:func:`start_dryrun_cells`) start once the timed steps are done, so
     that no timed work of the run shares the host with them; every cell
     must be ``ok``, and its line (ms of each roofline term, the dominant
@@ -4167,6 +4548,7 @@ def dryrun_phase(device, kernels, smi: str,
     cfg, mb = bundle.config, bundle.microbatches
     with tempfile.TemporaryDirectory() as tmp:
         dry_json = os.path.join(tmp, "granite.json")
+        decode_json = os.path.join(tmp, "granite_decode.json")
         dist.init_process_group(
             "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
             rank=0, world_size=1, device_id=torch.device(
@@ -4191,7 +4573,10 @@ def dryrun_phase(device, kernels, smi: str,
                 procs = start_dryrun_cells([(
                     f"--arch granite-3-2b --shape train_4k --mesh host "
                     f"--lm-train {LM_TRAIN_BATCH},{LM_TRAIN_SEQ},{mb} "
-                    f"--flop-counter --out {dry_json}",)] + list(runs))
+                    f"--flop-counter --out {dry_json}",
+                    f"--arch granite-3-2b --shape decode_32k --mesh host "
+                    f"--lm-serve {DRYRUN_DECODE[0]},{DRYRUN_DECODE[1]} "
+                    f"--flop-counter --out {decode_json}")] + list(runs))
                 cells_t0 = time.perf_counter()
                 for k in kernels:
                     k.launches = 0
@@ -4203,6 +4588,9 @@ def dryrun_phase(device, kernels, smi: str,
                 with fc:
                     one_step(trainer, batch, device)
             del trainer, batch
+            torch.cuda.empty_cache()
+            with use_mesh(mesh):
+                decode = decode_count(mesh, device, kernels)
         finally:
             dist.destroy_process_group()
         torch.cuda.empty_cache()
@@ -4220,13 +4608,15 @@ def dryrun_phase(device, kernels, smi: str,
             texts.append(proc.log_file.read())
             proc.log_file.close()
         out["cells_s"] = time.perf_counter() - cells_t0
-        dry = None
+        dry = dry_decode = None
         if procs[0].returncode != 0:
-            failures.append(f"dryrun: the granite dry run exited "
+            failures.append(f"dryrun: the granite dry runs exited "
                             f"{procs[0].returncode}: {texts[0][-2000:]}")
         else:
             with open(dry_json) as f:
                 dry = json.load(f)
+            with open(decode_json) as f:
+                dry_decode = json.load(f)
     p50 = float(np.median(times))
     real = {"launches": launches, "model_collectives": collectives,
             "flop_counter_total": float(fc.get_total_flops()),
@@ -4254,6 +4644,34 @@ def dryrun_phase(device, kernels, smi: str,
             f"{out['peak_ratio']:.4f}); roofline {terms['bound_s'] * 1e3:.1f}"
             f" ms ({terms['dominant']}) over the step's p50 "
             f"{p50 * 1e3:.1f} ms: share {out['roofline_share']:.4f} ({smi})")
+
+    out["decode"] = {"real": decode}
+    if dry_decode is not None:
+        L = cfg.n_layers
+        expect = {"paged_attention": L}
+        launched = {k: n for k, n in decode["launches"].items() if n}
+        failures += [f.replace("dryrun:", "dryrun decode:")
+                     for f in dryrun_failures(dry_decode, decode)]
+        if launched != expect:
+            failures.append(f"dryrun decode: the step launched {launched}, "
+                            f"{expect} expected")
+        ratio = dry_decode["memory"]["peak_size"] / decode[
+            "max_memory_allocated"]
+        out["decode"].update({
+            "shape": list(DRYRUN_DECODE), "peak_ratio": ratio,
+            "dry": {k: dry_decode[k] for k in (
+                "kernels", "model_collectives", "model_collectives_counted",
+                "aten_dot_flops", "collectives", "memory", "roofline")}})
+        log(f"dryrun granite decode {DRYRUN_DECODE[0]}x{DRYRUN_DECODE[1]} "
+            f"on (1, 1): charges {dry_decode['kernels']} vs launches "
+            f"{launched}; model collectives "
+            f"{dry_decode['model_collectives']} vs "
+            f"{decode['model_collectives']}; aten dot FLOPs "
+            f"{dry_decode['aten_dot_flops']:.6g} vs FlopCounterMode "
+            f"{decode['flop_counter_total']:.6g}; peak "
+            f"{dry_decode['memory']['peak_size']:,} B vs "
+            f"max_memory_allocated {decode['max_memory_allocated']:,} B "
+            f"(ratio {ratio:.4f}) ({smi})")
 
     # (a) the cells
     out["cells"] = []
@@ -4848,7 +5266,9 @@ def main(argv: Sequence[str] = ()) -> int:
     launch_paths = {"serve": serve, "parity": parity, "moe_serve": moe,
                     "moe_serve_qwen3": qwen3, "moe_parity": mparity,
                     "lm_train": lm, "lm_reduced": lm["reduced_checks"],
-                    "mesh": mesh, "mesh_moe": mesh["moe"]}
+                    "mesh": mesh, "mesh_moe": mesh["moe"],
+                    "mesh_serve": mesh["serve"],
+                    "mesh_serve_moe": mesh["serve_moe"]}
     by_path = {k.symbol: {path: rep["launches"].get(k.symbol, 0)
                           for path, rep in launch_paths.items()}
                for k in train_kernels}
@@ -4859,6 +5279,16 @@ def main(argv: Sequence[str] = ()) -> int:
     # the cases run twice for bit identity and profiled by kernel
     repeat_row = {FLASH_ATTENTION_BACKWARD_WGMMA.symbol: "lm_train_bf16",
                   FLASH_ATTENTION_BACKWARD.symbol: "d64_f32"}
+    # the paged kernel's log-sum-exp route: its launches (every paged
+    # launch of the mesh's serve steps) and the serve case's numbers
+    lse_serve = attn[PAGED_ATTENTION.symbol][
+        f"serve_{row_dtype[PAGED_ATTENTION.symbol]}"]["lse"]
+    lse_row = {"launches": mesh["serve"]["lse_route_calls"]
+               + mesh["serve_moe"]["lse_route_calls"],
+               **{key: lse_serve[key] for key in (
+                   "max_abs_err", "sentinel_exact", "output_bit_identical",
+                   "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms")}}
     # the search path's own launch: a decoded chunk, a join round
     # DLRM's mesh step, through the row-sharded route
     mesh_bags = mesh["recsys"]["dlrm-mlperf"]["sharded"]["bag_launches"]
@@ -4898,6 +5328,7 @@ def main(argv: Sequence[str] = ()) -> int:
             "within_tolerance": all(c["within_tolerance"]
                                     for c in attn[k.symbol].values()),
             "deploy": attn[k.symbol][f"deploy_{row_dtype[k.symbol]}"],
+            **({"lse": lse_row} if k is PAGED_ATTENTION else {}),
         }
         for k in serve_kernels
     ] + [

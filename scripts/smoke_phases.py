@@ -6,7 +6,11 @@ the whole smoke run.
     python3 scripts/smoke_phases.py recsys,rtrain,moe,qwen3,mparity,lm,mesh,guard,attn,gnn \
         [--seed 0] [--out build/smoke_phases.json]
 
-Phases: ``recsys`` (DLRM-MLPerf served at its published config, the four
+Phases: ``kattn`` (the attention kernels against their plain versions
+at the serve configuration's and deployment shapes, the smoke run's
+attention phase: the paged kernel with its log-sum-exp and the merge of
+a cache's sequence blocks among them), ``recsys`` (DLRM-MLPerf served at
+its published config, the four
 recsys archs card against CPU, and the bag kernel's cases, the grouped
 launch among them), ``rtrain`` (DLRM-MLPerf trained with tables capped at
 2^22 rows), ``moe`` (Moonlight-16B-A3B served at its full config), ``qwen3``
@@ -15,8 +19,11 @@ REDUCED, card against CPU), ``lm`` (granite-3-2b trained at its published
 widths), ``mesh`` (granite-3-2b's step and moonshot-v1-16b-a3b's at 2
 layers on a one-rank NCCL mesh through the tensor-parallel route, then
 dlrm-mlperf's and two-tower-retrieval's through the row-sharded route,
-each against its unsharded step with the counts of collectives,
-``compressed_psum`` and a bf16 checkpoint on the card), ``guard`` (the attention wrappers' grad guard and the flash
+each against its unsharded step with the counts of collectives, the
+LM serve cells on the mesh (granite-3-2b's prefill and decode steps,
+moonshot-v1-16b-a3b's at 4 layers) against the same steps unsharded,
+``compressed_psum`` and a bf16 checkpoint on the card), ``guard`` (the
+attention wrappers' grad guard and the flash
 ``Function``), ``attn`` (both attention kernels at the shapes the
 ``moe``, ``qwen3`` and ``lm`` phases gave them), ``bwd`` (the flash
 backward kernel on both routes against the plain backward at the cases
@@ -42,8 +49,8 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("recsys", "rtrain", "moe", "qwen3", "mparity", "lm", "mesh", "guard", "attn", "bwd",
-          "gnn", "dryrun")
+PHASES = ("kattn", "recsys", "rtrain", "moe", "qwen3", "mparity", "lm",
+          "mesh", "guard", "attn", "bwd", "gnn", "dryrun")
 PATH_NAMES = {"moe": "moe_serve", "qwen3": "moe_serve_qwen3", "lm": "lm_train"}
 SUMMARY_KEYS = ("tokens_per_s", "prefill", "decode_step", "dropped",
                 "peak_mem_bytes", "serve_peak_mem_bytes", "launches", "step",
@@ -69,6 +76,20 @@ def backward_phase(cs, device) -> dict:
     failures += [f"{name}: two calls gave different bits"
                  for name, case in cases.items()
                  if case.get("bit_identical_rerun") is False]
+    return {"cases": cases, "failures": failures}
+
+
+def kernel_attention_phase(cs, device) -> dict:
+    """``chip_smoke.attention_phase`` at the serve configuration's
+    shapes (no serve phase ran), each case's failure as the smoke run
+    words it."""
+    cases = cs.attention_phase({"flash_attention_wgmma": None,
+                                "paged_attention": None}, device)
+    failures = [f"{name} disagrees with its plain version at {where} "
+                f"shape {case['shape']}: error {case['max_err_ratio']:.3g} "
+                f"times its limit"
+                for name, by in cases.items() for where, case in by.items()
+                if not case["within_tolerance"]]
     return {"cases": cases, "failures": failures}
 
 
@@ -126,6 +147,7 @@ def main(argv=None) -> int:
     cs.log(f"build: {time.perf_counter() - t0:.1f} s")
     cs.log(cs.smi_line())
     calls = {
+        "kattn": lambda: kernel_attention_phase(cs, device),
         "recsys": lambda: recsys_phase(cs, device, EMBEDDING_BAG),
         "rtrain": lambda: cs.recsys_train_phase(device, EMBEDDING_BAG),
         "moe": lambda: cs.moe_serve_phase(device, kernels),

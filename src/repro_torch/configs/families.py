@@ -2,9 +2,10 @@
 
   * LM (:class:`LMBundle`, the reference's ``lm_bundle``): the config,
     its init, the ``train_4k`` loss and train step with the config's
-    microbatches and optimizer, and the (batch, sequence) shapes of the
-    four cells (``models.transformer.prefill`` and ``decode_step`` serve
-    the other three).
+    microbatches and optimizer, the serve step of the other three cells
+    (``models.transformer.prefill`` and ``decode_step``, on a mesh on
+    the weights' ``model`` shards), and the (batch, sequence) shapes of
+    the four cells.
   * RecSys (:class:`RecsysServing`, :class:`RecsysTraining`, gathered
     in :class:`RecsysBundle`; the reference's ``recsys_bundle``): each
     arch's config with its score and retrieval functions, the batch
@@ -34,13 +35,24 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.hooks import local, use_mesh
 from repro_torch.distributed.sharding import NamedSharding, P
+from repro_torch.distributed.tensor_parallel import (
+    MODEL,
+    model_group_of,
+    use_model_group,
+)
 from repro_torch.models import mace as M
 from repro_torch.models import recsys as RS
 from repro_torch.models import transformer as TF
+from repro_torch.models.attention import slot_block_table, slot_page
 from repro_torch.models.gnn_common import NeighborSampler
 from repro_torch.train.optim import OptConfig, adamw_init
-from repro_torch.train.trainer import TrainerConfig, build_train_step
+from repro_torch.train.trainer import (
+    TrainerConfig,
+    _compute_leaf,
+    build_train_step,
+)
 from repro_torch.tree import tree_map
 
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
@@ -205,6 +217,66 @@ class LMBundle(_Sharded):
         """The ``train_4k`` cell's ``step(params, opt_state, batch)``; it
         donates ``params`` and ``opt_state`` (updates them in place)."""
         return _train_fn(self.loss_fn(), self.opt, self.microbatches)
+
+    def serve_step(self, cell: str) -> Callable:
+        """A serve cell's ``step(params, batch) -> (logits, cache)``, the
+        reference bundle's ``prefill_step`` (``prefill_32k``) and
+        ``decode_step`` (``decode_32k``, ``long_500k``): ``prefill`` of
+        ``batch["tokens"]`` or ``decode_step`` of ``batch["token"]`` on
+        ``batch["cache"]`` (``k``, ``v``, ``len``; ``page`` and ``table``
+        made for its sequence when absent), under ``torch.no_grad``.
+
+        ``params`` are the serving layout (:meth:`init` with
+        ``masters=False``), plain or placed by :meth:`param_shardings`
+        (DTensors); ``batch`` is laid out as :meth:`abstract_inputs`
+        gives it, plain, placed by :meth:`input_sharding` or as this
+        rank's blocks of that.  On a mesh the step gathers each leaf over
+        the batch axes at once, keeping its ``model`` shard where the
+        LM's plan splits it (the train step's rule:
+        ``models.transformer.lm_model_dims``), and computes inside
+        ``use_mesh`` and ``use_model_group`` on this rank's rows: the
+        weights' ``model`` shards, and a decode cache's block of the
+        sequence (the cell's layout).  It returns this rank's rows'
+        whole logits and the cache dict of ``prefill`` or
+        ``decode_step`` (a decode cache's local blocks, updated in
+        place)."""
+        cfg = self.config
+        if cell not in ("prefill_32k", "decode_32k", "long_500k"):
+            raise ValueError(f"{cell} is not a serve cell")
+
+        def step(params: Any, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+            mesh = shd.mesh_of(params)
+            mg = model_group_of(mesh)
+            dims = (tree_map(lambda p: None, params) if mg is None
+                    else TF.lm_model_dims(cfg, params, mg))
+            if cell != "prefill_32k" and mg is not None:
+                _check_sequence_split(batch["cache"]["k"])
+            with torch.no_grad(), use_mesh(mesh):
+                full = tree_map(_compute_leaf, params, dims)
+                with use_model_group(mg):
+                    if cell == "prefill_32k":
+                        return TF.prefill(cfg, full, local(batch["tokens"]))
+                    cache = {k: local(v) for k, v in batch["cache"].items()}
+                    if "table" not in cache:
+                        B, n_kv, S = cache["k"].shape[1:4]
+                        cache["page"] = slot_page(S, TF.DEFAULT_PAGE)
+                        cache["table"] = slot_block_table(
+                            B, n_kv, S, cache["page"], cache["k"].device)
+                    return TF.decode_step(cfg, full, local(batch["token"]),
+                                          cache)
+
+        return step
+
+
+def _check_sequence_split(k: Any) -> None:
+    """A decode cache placed on a mesh with a ``model`` axis must hold
+    its sequence (dim 3) split over it, as the cell's layout does."""
+    if not shd.is_sharded(k):
+        return
+    names = k.device_mesh.mesh_dim_names
+    if MODEL in names and k.placements[names.index(MODEL)] != shd.Shard(3):
+        raise ValueError(f"the decode cache is placed {k.placements}: its "
+                         f"sequence (dim 3) must be split over {MODEL!r}")
 
 
 def lm_bundle(name: str, cfg: TF.TransformerConfig,

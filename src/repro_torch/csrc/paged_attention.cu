@@ -3,7 +3,10 @@
 // first lengths[b] rows of the pages block_table[b, :] of a shared
 // (n_pages, page, D) pool with no head axis (every head of row b reads the
 // same K/V).  m, l and the accumulator are f32; the output is written in
-// the input dtype (f32 or bf16).
+// the input dtype (f32 or bf16).  On request it also writes each row and
+// head's log-sum-exp, lse[b, h] = ln sum_t exp(q[b, h] . k_t / sqrt(D)) over
+// the row's valid tokens in f32 (kLseEmpty for a row of length 0), so that
+// callers holding a row's tokens in several blocks can merge their outputs.
 //
 // Replaces src/repro/kernels/paged_attention/kernel.py::paged_attention_kernel
 // (Pallas, TPU): the decode attention of the LM serving path.  On the TPU the
@@ -47,6 +50,11 @@
 // launch and merges the partials in split order (their loads unrolled, so
 // several are in flight), so the result does not depend on which block
 // finishes last, and a layer stays one launch.
+//
+// Log-sum-exp.  The block that writes a (row, head)'s output holds its
+// merged running max m (log2 units) and sum l, so the log-sum-exp is one
+// more store, ln 2 * (m + log2 l), by the thread of d = 0; a null lse skips
+// it, and the output is the same either way.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -60,6 +68,10 @@ constexpr int kStages = 8;            // the ring's depth in passes (even)
 constexpr int kMaxSplitPages = 256;   // table slice in shared memory
 constexpr float kNegInf = -1e30f;     // the reference's initial running max
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// the log-sum-exp of a row of length 0: finite, so that a merge weighs it
+// exp(kLseEmpty - max) = 0 beside any real row (the plain version's too)
+constexpr float kLseEmpty = -1e30f;
 
 template <typename T>
 struct Vec;  // one 16-byte piece of a row of T, widened to f32
@@ -138,7 +150,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                        const T* __restrict__ v_pool,
                        const int* __restrict__ table,
                        const int* __restrict__ lengths, T* __restrict__ o,
-                       float* __restrict__ part, int* __restrict__ tickets,
+                       float* __restrict__ lse, float* __restrict__ part,
+                       int* __restrict__ tickets,
                        int H, int page, int max_pages, int split_pages,
                        float scale) {
   using S = Shape<T, D, HG>;
@@ -170,11 +183,15 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int active = (len + split_tokens - 1) / split_tokens;
   const float scale2 = scale * kLog2e;  // scores in log2 units
   T* orow = o + (static_cast<long long>(row) * H + h0) * D;
+  float* lrow =
+      lse == nullptr ? nullptr : lse + static_cast<long long>(row) * H + h0;
 
   if (active == 0) {  // an empty row reads nothing and yields zeros
-    if (split == 0)
+    if (split == 0) {
       for (int i = tid; i < HG * D; i += kThreads)
         if (h0 + i / D < H) store(orow + i, 0.f);
+      if (lrow != nullptr && tid < HG && h0 + tid < H) lrow[tid] = kLseEmpty;
+    }
     return;
   }
   if (split >= active) return;
@@ -319,6 +336,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       merge(mx, den, &num, 1, sm_m[w][h], sm_l[w][h], &sm.acc[w][h][d]);
     if (active == 1) {
       store(orow + i, num / fmaxf(den, 1e-30f));
+      if (lrow != nullptr && d == 0) lrow[h] = kLn2 * (mx + log2f(den));
     } else {
       if (d == 0) {
         my_part[h * (D + 2)] = mx;
@@ -356,13 +374,14 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       merge(mx, den, &num, 1, __ldcg(ps), __ldcg(ps + 1), &ps_acc);
     }
     store(orow + i, num / fmaxf(den, 1e-30f));
+    if (lrow != nullptr && d == 0) lrow[h] = kLn2 * (mx + log2f(den));
   }
 }
 
 template <typename T, int D, int HG>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* table, const void* lengths, void* o, void* part,
-           void* tickets, int B, int H, int page, int max_pages,
+           const void* table, const void* lengths, void* o, void* lse,
+           void* part, void* tickets, int B, int H, int page, int max_pages,
            int split_pages, float scale, cudaStream_t stream) {
   const int n_splits = (max_pages + split_pages - 1) / split_pages;
   const dim3 grid(static_cast<unsigned>(B),
@@ -372,59 +391,60 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<T*>(o),
-      static_cast<float*>(part), static_cast<int*>(tickets), H, page,
-      max_pages, split_pages, scale);
+      static_cast<float*>(lse), static_cast<float*>(part),
+      static_cast<int*>(tickets), H, page, max_pages, split_pages, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
 int by_heads(int H, const void* q, const void* k_pool, const void* v_pool,
-             const void* table, const void* lengths, void* o, void* part,
-             void* tickets, int B, int page, int max_pages, int split_pages,
-             float scale, cudaStream_t stream) {
+             const void* table, const void* lengths, void* o, void* lse,
+             void* part, void* tickets, int B, int page, int max_pages,
+             int split_pages, float scale, cudaStream_t stream) {
   if (H <= 1)
-    return launch<T, D, 1>(q, k_pool, v_pool, table, lengths, o, part,
+    return launch<T, D, 1>(q, k_pool, v_pool, table, lengths, o, lse, part,
                            tickets, B, H, page, max_pages, split_pages, scale,
                            stream);
   if (H <= 2)
-    return launch<T, D, 2>(q, k_pool, v_pool, table, lengths, o, part,
+    return launch<T, D, 2>(q, k_pool, v_pool, table, lengths, o, lse, part,
                            tickets, B, H, page, max_pages, split_pages, scale,
                            stream);
   if (H <= 4)
-    return launch<T, D, 4>(q, k_pool, v_pool, table, lengths, o, part,
+    return launch<T, D, 4>(q, k_pool, v_pool, table, lengths, o, lse, part,
                            tickets, B, H, page, max_pages, split_pages, scale,
                            stream);
-  return launch<T, D, 8>(q, k_pool, v_pool, table, lengths, o, part, tickets,
-                         B, H, page, max_pages, split_pages, scale, stream);
+  return launch<T, D, 8>(q, k_pool, v_pool, table, lengths, o, lse, part,
+                         tickets, B, H, page, max_pages, split_pages, scale,
+                         stream);
 }
 
 template <typename T>
 int dispatch(int D, int H, const void* q, const void* k_pool,
              const void* v_pool, const void* table, const void* lengths,
-             void* o, void* part, void* tickets, int B, int page,
-             int max_pages, int split_pages, float scale,
+             void* o, void* lse, void* part, void* tickets, int B,
+             int page, int max_pages, int split_pages, float scale,
              cudaStream_t stream) {
   switch (D) {
     case 8:
-      return by_heads<T, 8>(H, q, k_pool, v_pool, table, lengths, o, part,
+      return by_heads<T, 8>(H, q, k_pool, v_pool, table, lengths, o, lse, part,
                             tickets, B, page, max_pages, split_pages, scale,
                             stream);
     case 16:
-      return by_heads<T, 16>(H, q, k_pool, v_pool, table, lengths, o, part,
-                             tickets, B, page, max_pages, split_pages, scale,
-                             stream);
+      return by_heads<T, 16>(H, q, k_pool, v_pool, table, lengths, o, lse,
+                             part, tickets, B, page, max_pages, split_pages,
+                             scale, stream);
     case 32:
-      return by_heads<T, 32>(H, q, k_pool, v_pool, table, lengths, o, part,
-                             tickets, B, page, max_pages, split_pages, scale,
-                             stream);
+      return by_heads<T, 32>(H, q, k_pool, v_pool, table, lengths, o, lse,
+                             part, tickets, B, page, max_pages, split_pages,
+                             scale, stream);
     case 64:
-      return by_heads<T, 64>(H, q, k_pool, v_pool, table, lengths, o, part,
-                             tickets, B, page, max_pages, split_pages, scale,
-                             stream);
+      return by_heads<T, 64>(H, q, k_pool, v_pool, table, lengths, o, lse,
+                             part, tickets, B, page, max_pages, split_pages,
+                             scale, stream);
     case 128:
-      return by_heads<T, 128>(H, q, k_pool, v_pool, table, lengths, o, part,
-                              tickets, B, page, max_pages, split_pages, scale,
-                              stream);
+      return by_heads<T, 128>(H, q, k_pool, v_pool, table, lengths, o, lse,
+                              part, tickets, B, page, max_pages, split_pages,
+                              scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -434,17 +454,18 @@ int dispatch(int D, int H, const void* q, const void* k_pool,
 
 // dtype: 0 float32, 1 bfloat16.  q, o: (B, H, D); k_pool, v_pool:
 // (n_pages, page, D); table: (B, max_pages) int32 page ids; lengths: (B,)
-// int32.  All contiguous; the pools 16-byte aligned.  A split covers
-// split_pages (1 .. 256) table entries.  With more than one split, part
-// holds B * ceil(H / HG) * n_splits * HG * (D + 2) floats (HG: 1, 2, 4 or 8
-// heads a block, the least of them >= min(H, 8)) and tickets B * ceil(H /
-// HG) ints, zero before the first launch and left zero by every launch.
+// int32; lse: (B, H) float32, or null for none.  All contiguous; the pools
+// 16-byte aligned.  A split covers split_pages (1 .. 256) table entries.
+// With more than one split, part holds B * ceil(H / HG) * n_splits * HG *
+// (D + 2) floats (HG: 1, 2, 4 or 8 heads a block, the least of them >=
+// min(H, 8)) and tickets B * ceil(H / HG) ints, zero before the first
+// launch and left zero by every launch.
 extern "C" int paged_attention(const void* q, const void* k_pool,
                                const void* v_pool, const void* table,
-                               const void* lengths, void* o, void* part,
-                               void* tickets, int dtype, int B, int H, int D,
-                               int page, int max_pages, int split_pages,
-                               float scale, void* stream) {
+                               const void* lengths, void* o, void* lse,
+                               void* part, void* tickets, int dtype, int B,
+                               int H, int D, int page, int max_pages,
+                               int split_pages, float scale, void* stream) {
   if (B <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   if (page <= 0 || max_pages <= 0 || split_pages <= 0 ||
       split_pages > kMaxSplitPages)
@@ -453,12 +474,12 @@ extern "C" int paged_attention(const void* q, const void* k_pool,
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(D, H, q, k_pool, v_pool, table, lengths, o, part,
-                           tickets, B, page, max_pages, split_pages, scale,
-                           st);
+    return dispatch<float>(D, H, q, k_pool, v_pool, table, lengths, o, lse,
+                           part, tickets, B, page, max_pages, split_pages,
+                           scale, st);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(D, H, q, k_pool, v_pool, table, lengths, o,
-                                   part, tickets, B, page, max_pages,
+                                   lse, part, tickets, B, page, max_pages,
                                    split_pages, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

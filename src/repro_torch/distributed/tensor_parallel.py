@@ -16,7 +16,11 @@ before them, and a rank's partial sums leave through
 their collective even on a ``model`` axis of one rank, so the route and
 its count (:data:`MODEL_COLLECTIVES`) are the same on one card as on
 many.  :func:`vocab_parallel_xent` is the cross-entropy over logits whose
-vocabulary is split over ``model``.
+vocabulary is split over ``model``.  :func:`merge_attention_partials`
+merges the decode attention of a cache whose sequence is split over
+``model`` (each rank's output over its block and the log-sum-exp that
+weighs it); serving computes under ``torch.no_grad``, so it is no
+autograd Function.
 """
 
 from __future__ import annotations
@@ -206,3 +210,63 @@ def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
     nll = logz - gold
     mask = (labels != ignore_id).float()
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# ------------------------------------------- sequence-parallel attention --
+def _weighted(o: torch.Tensor, lse: torch.Tensor, top: torch.Tensor
+              ) -> torch.Tensor:
+    """``o * w`` and ``w = exp(lse - top)`` side by side, (..., D + 1) in
+    f32."""
+    w = torch.exp(lse - top)
+    return torch.cat([o.float() * w[..., None], w[..., None]], -1)
+
+
+def _divided(sums: torch.Tensor) -> torch.Tensor:
+    D = sums.shape[-1] - 1
+    return sums[..., :D] / sums[..., D:]
+
+
+def merge_attention_partials(o: torch.Tensor, lse: torch.Tensor,
+                             mg: ModelGroup, heads: bool = False
+                             ) -> torch.Tensor:
+    """The attention of rows whose tokens are split over ``mg`` in blocks,
+    one a rank, from this rank's output over its block, ``o`` (B, H, D),
+    and the f32 log-sum-exp of its scores there, ``lse`` (B, H) (a block
+    that holds none of a row's tokens: a zero output and a log-sum-exp
+    far below any real one, as ``kernels.paged_attention`` writes them).
+    In f32::
+
+        M = max over ranks of lse,  w = exp(lse - M),
+        out = (sum over ranks of o * w) / (sum over ranks of w)
+
+    The maximum is one all-reduce over ``mg``; the sums travel packed
+    together, (B, H, D + 1).  With ``heads`` they are reduce-scattered
+    over the head dimension, each rank receiving its block of ``H /
+    mg.size`` heads (the rows of ``wo`` that it holds): half the wire
+    bytes of an all-reduce, and the result is (B, H / size, D);
+    otherwise all-reduced, (B, H, D) on every rank.  Two collectives a
+    call, counted."""
+    B, H, D = o.shape
+    top = all_reduce(lse.clone(memory_format=torch.contiguous_format), mg,
+                     op=dist.ReduceOp.MAX)
+    sums = _weighted(o, lse, top)
+    if not heads:
+        return _divided(all_reduce(sums, mg))
+    if H % mg.size:
+        raise ValueError(f"{H} heads do not split over {mg.size} ranks")
+    whole = sums.transpose(0, 1).contiguous()     # (H, B, D + 1)
+    part = torch.empty((H // mg.size, B, D + 1), dtype=whole.dtype,
+                       device=whole.device)
+    MODEL_COLLECTIVES.count += 1
+    dist.reduce_scatter_tensor(part, whole, group=mg.group)
+    return _divided(part.transpose(0, 1))
+
+
+def merge_attention_blocks(o: torch.Tensor, lse: torch.Tensor
+                           ) -> torch.Tensor:
+    """:func:`merge_attention_partials`' arithmetic over ``n`` blocks held
+    in one process, stacked on a leading axis: ``o`` (n, B, H, D),
+    ``lse`` (n, B, H); (B, H, D) in f32.  The card's check and the tests
+    hold the paged kernel's blocks of a cache to its whole launch by
+    it."""
+    return _divided(_weighted(o, lse, lse.amax(0)).sum(0))

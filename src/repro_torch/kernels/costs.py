@@ -106,15 +106,16 @@ def flash_backward_cost(B: int, H: int, Hkv: int, S: int, D: int,
 
 
 def paged_cost(R: int, G: int, D: int, tokens: int, pages: int,
-               dtype: torch.dtype) -> Cost:
+               dtype: torch.dtype, lse: bool = False) -> Cost:
     """``paged_attention``: each of a row's ``tokens`` (summed over the
     rows, each row's length capped at its table) read as K and V once, q
     read and the output written once, each used page's table entry and
-    each length read once; q k and p v, 2 D operations a token and query
-    head.  bf16 on the tensor cores; f32 on the 32-bit units."""
+    each length read once, and with ``lse`` its f32 log-sum-exp written
+    once; q k and p v, 2 D operations a token and query head.  bf16 on
+    the tensor cores; f32 on the 32-bit units."""
     esize = dtype.itemsize
     nbytes = (2 * tokens * D * esize + 2 * R * G * D * esize
-              + 4 * pages + 4 * R)
+              + 4 * pages + 4 * R + (4 * R * G if lse else 0))
     return Cost(4 * D * G * tokens, nbytes, _float_rate(dtype,
                                                         "peak_f32_flops"))
 

@@ -9,6 +9,13 @@ accumulator are f32 and the output has the input dtype, as in the Pallas
 it.  Page ids must lie in ``[0, n_pages)``; they are not checked on the
 device.
 
+On request (``return_lse``) the kernel also writes each row and head's
+natural-log log-sum-exp of its scaled scores over its valid tokens, in
+f32, :data:`~repro_torch.kernels.paged_attention.ref.LSE_EMPTY` for a row
+of length 0: callers that hold a row's tokens in several blocks (a
+decode cache whose sequence is split over ranks) merge their outputs by
+it.  The output is the same with it and without it.
+
 The kernel splits each row's tokens over several blocks;
 :func:`paged_split` sets the pages a split covers from static shapes
 only (it never reads ``lengths``, which would wait for the device).
@@ -19,7 +26,7 @@ from __future__ import annotations
 import ctypes
 import math
 from functools import lru_cache
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -35,7 +42,7 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_plain
 
 PAGED_ATTENTION = CudaKernel(
     "paged_attention",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float],
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float],
     source="src/repro_torch/csrc/paged_attention.cu",
     replaces="src/repro/kernels/paged_attention/kernel.py:75",
 )
@@ -93,8 +100,11 @@ HEAD_DIMS = (8, 16, 32, 64, 128)
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_table: torch.Tensor,
-                    lengths: torch.Tensor) -> torch.Tensor:
-    """(B, H, D) decode attention output in ``q.dtype``.
+                    lengths: torch.Tensor, return_lse: bool = False
+                    ) -> Union[torch.Tensor, Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+    """(B, H, D) decode attention output in ``q.dtype``; with
+    ``return_lse`` also its (B, H) f32 log-sum-exp.
 
     ``q`` (B, H, D) and the pools (n_pages, page, D) share one dtype (f32
     or bf16) and are contiguous; ``block_table`` (B, max_pages) and
@@ -126,7 +136,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {devices}")
     if q.device.type == "cpu":
-        return paged_attention_plain(q, k_pool, v_pool, block_table, lengths)
+        return paged_attention_plain(q, k_pool, v_pool, block_table, lengths,
+                                     return_lse=return_lse)
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     require_no_grad("paged_attention", q, k_pool, v_pool,
@@ -137,13 +148,17 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     page, max_pages = k_pool.shape[1], block_table.shape[1]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    result = (out, lse) if return_lse else out
     if B == 0 or H == 0:
-        return out
+        return result
     # a dry run has no lengths: it charges every row its whole table
     if PAGED_ATTENTION.charged(
             (q, k_pool, v_pool, block_table, lengths), lambda: paged_cost(
-                B, H, D, B * max_pages * page, B * max_pages, q.dtype)):
-        return out
+                B, H, D, B * max_pages * page, B * max_pages, q.dtype,
+                lse=return_lse)):
+        return result
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("the pools must be 16-byte aligned")
     pages = paged_split(B, H, max_pages, page)
@@ -160,8 +175,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     PAGED_ATTENTION.launch(
         q.device, (B, H, max_pages, page, D),
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), part,
-        tickets, FLOAT_CODES[q.dtype], B, H, D, page, max_pages, pages,
+        block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), part, tickets,
+        FLOAT_CODES[q.dtype], B, H, D, page, max_pages, pages,
         1.0 / math.sqrt(D), stream=stream,
     )
-    return out
+    return result

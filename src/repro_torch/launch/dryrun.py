@@ -23,13 +23,18 @@ The steps.  A train cell (LM ``train_4k``, recsys ``train_batch``, every
 GNN cell) is the bundle's train step on DTensor params and optimizer
 state placed by the bundle's shardings, given the global batch as the
 port's trainer takes it: data-parallel over the batch axes and, for the
-LM, tensor- and expert-parallel over ``model``.  A serve cell runs as
-the port serves: the serving layout's weights whole on every rank (the
-port's serving has no split over ``model``; a rank is a replica), its
-own rows of the batch (dim 0 over the batch axes where they divide it;
-a decode cell's cache with its sequence whole) through ``prefill``,
-``decode_step`` or the recsys score and retrieval calls.  A retrieval
-rank ranks its own candidates; no merge across ranks is counted.
+LM, tensor- and expert-parallel over ``model``.  An LM serve cell
+(``prefill_32k``, ``decode_32k``, ``long_500k``) is the bundle's serve
+step (``LMBundle.serve_step``, which real runs call too) on the serving
+layout's weights (``cfg.dtype``) placed by the rules and the batch
+placed by the cell's ``input_sharding``: it gathers each weight over
+the batch axes and computes on its ``model`` shard, and a decode cell's
+cache is cut over the batch axes and over ``model`` on its sequence, as
+the reference's GSPMD cells are.  A recsys serve cell runs as the port
+serves it, as replicas: the serving layout's weights whole on every
+rank, its own rows of the batch (dim 0 over the batch axes where they
+divide it) through the score and retrieval calls.  A retrieval rank
+ranks its own candidates; no merge across ranks is counted.
 
 What is counted, for rank 0:
 
@@ -45,11 +50,14 @@ What is counted, for rank 0:
     group's size and ranks, its result bytes and ring wire bytes
     (``roofline.wire_bytes``); ``cross_node_bytes`` are the wire bytes
     of groups whose ranks sit on more than one node;
-    ``model_collectives`` are the ``c10d`` all-reduces over the mesh's
-    ``model`` group (``tensor_parallel.all_reduce``'s), beside
-    ``MODEL_COLLECTIVES``' count over the same trace;
+    ``model_collectives`` are the ``c10d`` collectives over the mesh's
+    ``model`` group (``tensor_parallel``'s all-reduces, gathers and
+    reduce-scatters), beside ``MODEL_COLLECTIVES``' count over the same
+    trace;
   * ``memory``: ``argument_size`` (the rank's blocks of the params,
-    optimizer state and batch, as the reference's in_shardings cut them),
+    optimizer state and batch, as the reference's in_shardings cut them;
+    its params are f32 masters in every cell, where the port serves from
+    ``cfg.dtype``),
     ``batch_held`` (the batch as the port's step takes it), the peak of
     the bytes of live storages during the step (tracked through
     ``weakref.finalize`` on each storage, so the count holds none alive),
@@ -248,8 +256,7 @@ class Count:
                                            "ranks": n, "cross_node": cross})
         a["count"] += 1
         a["wire_bytes"] += wire
-        if (kind == "all-reduce" and func.namespace == "c10d"
-                and group == self.model_group):
+        if func.namespace == "c10d" and group == self.model_group:
             self.model_collectives += 1
 
     def collectives(self) -> Dict:
@@ -328,8 +335,8 @@ def _fresh(meta_tree) -> Any:
 
 
 def _batch_rows(meta_tree, shardings, mesh) -> Any:
-    """Each input's block over the batch axes alone (a serving replica's
-    rows; an axis ``model`` names is whole)."""
+    """Each input's block over the batch axes alone (a recsys serving
+    replica's rows; an axis ``model`` names is whole)."""
     names = list(shd.axis_sizes(mesh))
 
     def one(m, s):
@@ -355,25 +362,8 @@ def _train_params(bundle, cell: str):
     return bundle.abstract_params()
 
 
-def _serving(bundle, cell: str, inputs: Dict) -> Tuple[Any, Any]:
-    """(the serving layout's abstract weights, the step fn)."""
-    if bundle.family == "lm":
-        from repro_torch.models import transformer as TF
-        from repro_torch.models.attention import slot_block_table, slot_page
-
-        cfg = bundle.config
-        params = abstract(lambda g: bundle.init(g, masters=False))
-        if cell == "prefill_32k":
-            return params, lambda p, b: TF.prefill(cfg, p, b["tokens"])
-
-        def decode(p, b):
-            c = dict(b["cache"])
-            B, n_kv, S = c["k"].shape[1:4]
-            c["page"] = slot_page(S, TF.DEFAULT_PAGE)
-            c["table"] = slot_block_table(B, n_kv, S, c["page"], "meta")
-            return TF.decode_step(cfg, p, b["token"], c)
-
-        return params, decode
+def _serving(bundle, cell: str) -> Tuple[Any, Any]:
+    """A recsys serve cell's (abstract serving weights, step fn)."""
     sv = bundle.serving
     params = abstract(lambda g: sv.init(sv.config, g))
     fn = sv.retrieval if cell == "retrieval_cand" else sv.score
@@ -404,7 +394,19 @@ def cell_step(bundle, cell: str, mesh) -> Step:
         held = [t.to_local() if isinstance(t, shd.DTensor) else t
                 for t in leaves((params, opt))] + leaves(batch)
         return Step("train", _train_step(bundle, cell), args, size, held)
-    meta, fn = _serving(bundle, cell, inputs)
+    if bundle.family == "lm":
+        # the reference's arguments are its f32 masters, cut by the rules;
+        # the port's serve step holds the serving layout's blocks
+        meta = bundle.abstract_params()
+        pshard = shd.shard_by_rules(meta, mesh, bundle.rules)
+        serving = abstract(lambda g: bundle.init(g, masters=False))
+        params = tree_map(lambda m, s: _placed(m, s, mesh), serving, pshard)
+        batch = tree_map(lambda m, s: _placed(m, s, mesh), inputs, ishard)
+        size = _shard_bytes(meta, pshard, mesh) + batch_shard
+        held = [t.to_local() for t in leaves((params, batch))]
+        return Step("serve", bundle.serve_step(cell), (params, batch), size,
+                    held)
+    meta, fn = _serving(bundle, cell)
     params = _fresh(meta)
     batch = _batch_rows(inputs, ishard, mesh)
     size = sum(_nbytes(t) for t in leaves(params)) + batch_shard
@@ -533,15 +535,19 @@ def _write(path: str, result: Dict) -> None:
         json.dump(result, f, indent=1)
 
 
-def lm_cell(arch: str, batch: int, seq: int, microbatches: int):
-    """``arch``'s LM bundle with ``train_4k`` at ``batch`` x ``seq`` in
-    ``microbatches`` (the card's cross-check runs its own batch)."""
+def lm_cell(arch: str, batch: int, seq: int,
+            microbatches: Optional[int] = None, cell: str = "train_4k"):
+    """``arch``'s LM bundle with ``cell`` at ``batch`` x ``seq`` (a
+    decode cell's slots x S_max) and ``train_4k`` in ``microbatches``
+    (the bundle's own where None): the card's cross-checks run their own
+    shapes."""
     from repro_torch.configs.families import lm_bundle
 
     b = get_bundle(arch)
-    shapes = dict(b.shapes, train_4k=(batch, seq))
+    shapes = dict(b.shapes, **{cell: (batch, seq)})
     return lm_bundle(arch, b.config, shapes=shapes, opt=b.opt,
-                     microbatches=microbatches)
+                     microbatches=(b.microbatches if microbatches is None
+                                   else microbatches))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -555,20 +561,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--lm-train", type=str, default="",
                     help="B,S,M: an LM arch's train_4k at B x S in M "
                     "microbatches (with --arch, --shape train_4k)")
+    ap.add_argument("--lm-serve", type=str, default="",
+                    help="B,S: an LM arch's serve cell (--shape) at B x S "
+                    "(with --arch)")
     ap.add_argument("--out", type=str, default="",
                     help="write the one cell's JSON here")
     ap.add_argument("--flop-counter", action="store_true",
                     help="run FlopCounterMode beside the count")
     args = ap.parse_args(argv)
 
-    if args.lm_train or args.mesh == "host":
+    if args.lm_train or args.lm_serve or args.mesh == "host":
         if not args.arch or not args.shape:
-            ap.error("--lm-train and --mesh host take one --arch and "
-                     "--shape")
+            ap.error("--lm-train, --lm-serve and --mesh host take one "
+                     "--arch and --shape")
         bundle = get_bundle(args.arch)
         if args.lm_train:
             B, S, M = (int(x) for x in args.lm_train.split(","))
             bundle = lm_cell(args.arch, B, S, M)
+        if args.lm_serve:
+            B, S = (int(x) for x in args.lm_serve.split(","))
+            bundle = lm_cell(args.arch, B, S, cell=args.shape)
         if args.mesh == "both":
             ap.error("one cell takes one mesh")
         mesh_shape, axes = MESHES[args.mesh]

@@ -12,7 +12,9 @@
                             the paged kernel (``kernels.paged_attention``)
   * ``slot_decode_attention`` — the same on the head-major (B, n_kv, S_max,
                             D) cache that the port's transformer keeps,
-                            with no copy of the cache
+                            with no copy of the cache (on a block of its
+                            sequence too, with the log-sum-exp that
+                            merges the blocks' outputs)
 
 The reference dispatched between ``mha`` and a chunked ``flash_ref`` at
 S = 4096; both computed the same function, and so does the flash kernel
@@ -31,7 +33,7 @@ a layer.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -111,10 +113,16 @@ def slot_decode_attention(
     lengths: torch.Tensor,  # (B,) valid cache lengths (including new token)
     page: int,
     table: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Decode attention on a head-major slot cache: one paged-kernel call
     over the cache's pool view.  ``table`` is
-    :func:`slot_block_table` for these shapes (built when omitted)."""
+    :func:`slot_block_table` for these shapes (built when omitted).  The
+    cache may be a block of each row's sequence (``S_max`` is then the
+    block's length, ``page`` and ``table`` made for it, and ``lengths``
+    the tokens of each row within it); ``return_lse`` adds the (B, H) f32
+    log-sum-exp of each row and head's scores over those tokens
+    (``kernels.paged_attention``), by which the blocks' outputs merge."""
     B, _, H, D = q.shape
     _, n_kv, s_max, _ = k_cache.shape
     if s_max % page:
@@ -128,7 +136,11 @@ def slot_decode_attention(
         v_cache.view(n_pages, page, D),
         table,
         lengths.to(torch.int32).repeat_interleave(n_kv),
+        return_lse=return_lse,
     )
+    if return_lse:
+        out, lse = out
+        return out.reshape(B, 1, H, D), lse.reshape(B, H)
     return out.reshape(B, 1, H, D)
 
 

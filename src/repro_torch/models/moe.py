@@ -99,12 +99,23 @@ def _top_k_dispatch(
     gates: torch.Tensor,  # (G, T, E) f32 softmax probs
     top_k: int,
     capacity: int,
+    plan: Optional[LMPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
-    """GShard dispatch/combine tensors: (G, T, E, C) each."""
+    """GShard dispatch/combine tensors: (G, T, E, C) each.  Where ``plan``
+    splits the experts, the columns of this rank's experts alone, (G, T,
+    E / size, C), the whole routing's (GSPMD shards them so over
+    ``model``), and each pick's gate enters them through
+    ``copy_to_model``.  Beside the drops and the picks, the aux values
+    hold ``kept`` (G, T), each token's picks that fit their experts'
+    capacity, and ``routed`` (G, E), each expert's: the sums of the
+    whole dispatch tensor over its slots, exact counts in f32."""
     G, T, E = gates.shape
+    own = None if plan is None or not plan.experts else plan.part(E)
     slots = torch.arange(capacity, device=gates.device)
     dispatch = combine = None
     dropped = torch.zeros((), dtype=torch.float32, device=gates.device)
+    kept = torch.zeros((G, T), dtype=torch.float32, device=gates.device)
+    routed = torch.zeros((G, E), dtype=torch.float32, device=gates.device)
     prev_counts = torch.zeros((G, 1, E), dtype=torch.int32,
                               device=gates.device)
     picks = _picks(gates, top_k)
@@ -114,15 +125,21 @@ def _top_k_dispatch(
         pos_k = (pos * onehot).sum(-1)                            # (G, T)
         keep = pos_k < capacity
         dropped = dropped + (1.0 - keep.float()).sum()
+        kept = kept + keep.float()
+        routed = routed + (onehot * keep[..., None].float()).sum(1)
         # jax.nn.one_hot of ``capacity`` (a dropped pick) is all zeros
         at = torch.where(keep, pos_k.to(torch.int64), capacity)
         cap_oh = (at[..., None] == slots).float()                 # (G, T, C)
+        if own is not None:
+            onehot = onehot[..., own]
+            gate_k = copy_to_model(gate_k, plan.group)
         d_k = onehot[..., None] * cap_oh[..., None, :]            # (G, T, E, C)
         dispatch = d_k if dispatch is None else dispatch + d_k
         c_k = d_k * gate_k[..., None, None]
         combine = c_k if combine is None else combine + c_k
     aux = {"dropped_tokens": dropped,
-           "experts": torch.stack([idx for idx, _, _ in picks], -1)}
+           "experts": torch.stack([idx for idx, _, _ in picks], -1),
+           "kept": kept, "routed": routed}
     return dispatch, combine, aux
 
 
@@ -313,25 +330,22 @@ def _moe_groups(p: Dict, xg: torch.Tensor, cfg: MoEConfig,
         aux["gate_mean"] = aux["route_frac"] = me
         return _add_shared(p, y, xg, xs, cfg, dtype, plan), aux
 
-    dispatch, combine, aux = _top_k_dispatch(gates, cfg.top_k, C)
+    # under a split of the experts, this rank's columns of the dispatch
+    dispatch, combine, aux = _top_k_dispatch(gates, cfg.top_k, C, plan)
+    kept_picks = aux.pop("kept")
     if kept:
-        aux["kept"] = dispatch.sum(dim=(2, 3))
+        aux["kept"] = kept_picks
 
     # load-balancing aux loss (Shazeer): E * sum_e f_e * p_e
     me = gates.mean(dim=(0, 1))
-    ce = dispatch.sum(dim=(1, 3)).mean(dim=0) / Tg
+    ce = aux.pop("routed").mean(dim=0) / Tg
     aux["balance_loss"] = E * torch.sum(me * ce)
     aux["gate_mean"], aux["route_frac"] = me, ce
 
     # expert-parallel placement: groups follow the batch axes, experts the
     # model axis
     xg = constrain(xg, "batch", None, None)
-    x_in = xg
-    if plan is not None and plan.experts:
-        own = plan.part(E)
-        dispatch = dispatch[:, :, own]
-        combine = copy_to_model(combine, plan.group)[:, :, own]
-        x_in = xs
+    x_in = xs if plan is not None and plan.experts else xg
     xe = torch.einsum("gtec,gtd->gecd", dispatch.to(dtype), x_in.to(dtype))
     xe = constrain(xe, "batch", "model", None, None)
     ye = constrain(_experts(p, xe, dtype), "batch", "model", None, None)

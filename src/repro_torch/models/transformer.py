@@ -25,6 +25,12 @@ a Python loop.  Differences, none of which changes a value:
     advanced, where the reference selects with a one-hot mask over the
     whole cache and returns a new one.  A row whose length has reached
     S_max is left unwritten, as the reference's select leaves it;
+  * inside a model group (``distributed.tensor_parallel``) every entry
+    point computes on the weights' ``model`` shards (:class:`LMPlan`),
+    where the reference's GSPMD program computes on them under
+    ``LM_RULES``; ``decode_step`` then takes the cache as the reference's
+    decode cells lay it out, its sequence split over ``model``, and
+    merges the ranks' attention by their log-sum-exp;
   * ``remat`` recomputes each block in the backward pass
     (``torch.utils.checkpoint``) under both of the reference's policies,
     and ``lm_loss`` recomputes each loss chunk's logits: memory, not
@@ -53,6 +59,8 @@ from repro_torch.distributed.hooks import (
 from repro_torch.distributed.tensor_parallel import (
     ModelGroup,
     copy_to_model,
+    gather_from_model,
+    merge_attention_partials,
     model_group,
     reduce_from_model,
     vocab_parallel_xent,
@@ -525,6 +533,16 @@ def _unembed_chunk(cfg: TransformerConfig, params: Params,
     return h @ _unembed_w(cfg, params, h.dtype)
 
 
+def _whole_logits(logits: torch.Tensor, plan: Optional[LMPlan]
+                  ) -> torch.Tensor:
+    """Logits over the whole vocabulary: under a ``plan`` that splits it,
+    every rank's columns gathered over ``model`` in rank (= vocabulary)
+    order."""
+    if plan is None or not plan.vocab:
+        return logits
+    return gather_from_model(logits, plan.group)
+
+
 def _chunk_nll(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                plan: Optional[LMPlan] = None) -> torch.Tensor:
     """A chunk's mean cross-entropy; under a ``plan`` that splits the
@@ -630,21 +648,29 @@ def prefill(cfg: TransformerConfig, params: Params, tokens: torch.Tensor
     head-major K/V (``k``, ``v``: (L, B, n_kv, S, D)) with ``len``, for
     copying into the slots of a :func:`make_cache` cache.  For an MoE
     config the dict also holds ``moe_dropped``, the picks dropped by
-    capacity over all layers (an f32 0-d tensor)."""
+    capacity over all layers (an f32 0-d tensor).
+
+    Inside a model group the weights are this rank's ``model`` shards as
+    :func:`lm_plan` splits them (as :func:`backbone` computes): the K/V
+    returned are those of this rank's query heads, and the logits are
+    whole, gathered over ``model`` where the vocabulary is split.  On a
+    mesh whose batch axes split the batch, the MoE groups are cut as
+    from the global batch (``moe_apply``'s ``batch``)."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = _embed(cfg, params, tokens)
+    plan, axes = lm_plan(cfg), batch_axes()
+    x = _embed(cfg, params, tokens, plan)
     cos, sin = rope_tables(positions, cfg.d_head, cfg.rope_theta)
     ks, vs = [], []
     dropped = None
     for lp in _unstack(params["block"], cfg.n_layers):
-        x, k, v = _attend(cfg, lp, x, cos, sin)
-        x, aux = _ffn(cfg, lp, x)
+        x, k, v = _attend(cfg, lp, x, cos, sin, plan)
+        x, aux = _ffn(cfg, lp, x, axes, plan)
         dropped = _add_dropped(dropped, aux)
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
     x = rms_norm(params["ln_f"], x, cfg.rms_eps)
-    logits = _unembed_chunk(cfg, params, x[:, -1:, :])
+    logits = _whole_logits(_unembed_chunk(cfg, params, x[:, -1:, :]), plan)
     cache = {
         "k": torch.stack(ks),  # (L, B, n_kv, S, D)
         "v": torch.stack(vs),
@@ -661,6 +687,30 @@ def _add_dropped(total: Optional[torch.Tensor], aux: Dict):
     return aux["dropped_tokens"] if total is None else total + aux["dropped_tokens"]
 
 
+def _decode_qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
+                plan: Optional[LMPlan] = None):
+    """Q, K and V of the new token, (B, 1, heads, D), every head on every
+    rank: a decode cache split over ``model`` on its sequence holds every
+    head of its block.  Where ``plan`` splits the heads, each rank's
+    (:func:`_qkv`) are gathered over ``model`` in one collective; where
+    K/V are whole there, rank ``n * size // n_kv`` holds K/V head ``n``
+    (:func:`_own_kv_head`)."""
+    q, k, v = _qkv(cfg, lp, h, plan)
+    if plan is None or not plan.heads:
+        return q, k, v
+    B, S, nq, D = q.shape
+    nkv = k.shape[2]
+    mine = torch.cat([t.reshape(B, S, -1) for t in (q, k, v)], -1)
+    every = gather_from_model(mine, plan.group).reshape(
+        B, S, plan.size, nq + 2 * nkv, D)
+    q, k, v = (every[..., a:b, :].reshape(B, S, -1, D) for a, b in (
+        (0, nq), (nq, nq + nkv), (nq + nkv, nq + 2 * nkv)))
+    if not plan.kv:
+        step = plan.size // cfg.n_kv_heads
+        k, v = k[:, :, ::step], v[:, :, ::step]
+    return q, k, v
+
+
 def decode_step(cfg: TransformerConfig, params: Params, token: torch.Tensor,
                 cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """One decode step: token (B,) -> logits (B, vocab); the
@@ -668,27 +718,49 @@ def decode_step(cfg: TransformerConfig, params: Params, token: torch.Tensor,
     ``len`` advanced by one.  Every row takes part, the empty slots of an
     engine too (they carry token 0): with MoE they take expert capacity,
     as in the reference.  For an MoE config the cache's ``moe_dropped``
-    is set to this step's picks dropped by capacity."""
+    is set to this step's picks dropped by capacity.
+
+    Inside a model group the weights are this rank's ``model`` shards
+    (:func:`lm_plan`) and the cache is this rank's block of the
+    sequence, as the reference's decode cells lay it out (``P(None,
+    batch, "model", None, None)``): ``k``/``v`` (L, B, n_kv, S_loc, D)
+    hold positions ``rank * S_loc`` on of every row and head of an
+    ``S_loc * size`` cache, ``page`` and ``table`` are made for S_loc,
+    and ``len`` is the rows' whole length.  Per layer, Q, K and V of
+    every head are on every rank (:func:`_decode_qkv`); the new entry is
+    written by the rank whose block holds position ``len[b]``; each rank
+    attends over its block's tokens with the paged kernel, which returns
+    the log-sum-exp too, and the ranks' outputs merge over ``model``
+    (``tensor_parallel.merge_attention_partials``: reduce-scattered into
+    ``wo``'s row split where the plan splits the heads, all-reduced
+    where it does not).  MoE groups are cut as from the global batch on
+    a mesh whose batch axes split it.  The logits are whole."""
     B = token.shape[0]
+    plan, axes = lm_plan(cfg), batch_axes()
     lens = cache["len"]  # (B,)
     positions = lens[:, None]  # (B, 1)
-    x = _embed(cfg, params, token[:, None])
+    x = _embed(cfg, params, token[:, None], plan)
     cos, sin = rope_tables(positions, cfg.d_head, cfg.rope_theta)
-    s_max = cache["k"].shape[3]
+    s_loc = cache["k"].shape[3]
+    start = 0 if plan is None else plan.rank * s_loc
     bidx = torch.arange(B, device=token.device)
     # the new token's K/V is written in place at [b, :, len[b]], where the
     # reference selects with a one-hot mask over the whole cache: the same
-    # values.  A full row (len == S_max) rewrites its last entry with its
-    # own value, i.e. stays unwritten, as under the reference's select.
-    slot = lens.long().clamp(max=s_max - 1)
-    room = (lens < s_max)[:, None, None]
+    # values.  Only the block that holds position len[b] writes it; a full
+    # row (len == S_max) lies in none and stays unwritten (its last entry
+    # rewritten with its own value), as under the reference's select.
+    at = lens.long() - start
+    room = ((at >= 0) & (at < s_loc))[:, None, None]
+    slot = at.clamp(0, s_loc - 1)
     new_lens = lens + 1
+    # the tokens of each row in this block
+    block_lens = (new_lens - start).clamp(0, s_loc)
     dropped = None
     layers = _unstack(params["block"], cfg.n_layers)
     for lp, kc, vc in zip(layers, cache["k"], cache["v"]):
-        # kc, vc: (B, n_kv, S_max, D) views of the layer's cache
+        # kc, vc: (B, n_kv, S_loc, D) views of the layer's cache
         h = rms_norm(lp["ln1"], x, cfg.rms_eps)
-        q, k, v = _qkv(cfg, lp, h)
+        q, k, v = _decode_qkv(cfg, lp, h, plan)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         q, k, v = _constrain_qkv(cfg, q, k, v)
@@ -696,13 +768,21 @@ def decode_step(cfg: TransformerConfig, params: Params, token: torch.Tensor,
                                         kc[bidx, :, slot])
         vc[bidx, :, slot] = torch.where(room, v[:, 0].to(vc.dtype),
                                         vc[bidx, :, slot])
-        o = slot_decode_attention(q, kc, vc, new_lens, cache["page"],
-                                  cache["table"])
-        x = _out(cfg, lp, x, o)
-        x, aux = _ffn(cfg, lp, x)
+        if plan is None:
+            o = slot_decode_attention(q, kc, vc, block_lens, cache["page"],
+                                      cache["table"])
+        else:
+            o, lse = slot_decode_attention(q, kc, vc, block_lens,
+                                           cache["page"], cache["table"],
+                                           return_lse=True)
+            o = merge_attention_partials(o[:, 0], lse, plan.group,
+                                         heads=plan.heads
+                                         ).to(o.dtype)[:, None]
+        x = _out(cfg, lp, x, o, plan)
+        x, aux = _ffn(cfg, lp, x, axes, plan)
         dropped = _add_dropped(dropped, aux)
     x = rms_norm(params["ln_f"], x, cfg.rms_eps)
-    logits = _unembed_chunk(cfg, params, x)[:, 0]
+    logits = _whole_logits(_unembed_chunk(cfg, params, x)[:, 0], plan)
     cache["len"] = new_lens
     if dropped is not None:
         cache["moe_dropped"] = dropped

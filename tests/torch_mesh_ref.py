@@ -11,6 +11,8 @@ whose XLA_FLAGS force enough host devices for the production meshes.
         python tests/torch_mesh_ref.py dryrun OUT.json
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/torch_mesh_ref.py rowstep IN.npz OUT.npz
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        python tests/torch_mesh_ref.py servestep IN.npz OUT.npz
 
 ``specs`` writes every bundle's param, opt and input specs, at REDUCED
 and full sizes (abstract shapes), on the (16, 16) and (2, 16, 16)
@@ -31,9 +33,21 @@ batch over ``data``, once for each batch (``<arch>/batch/<i>/<name>``);
 it writes the losses (``<arch>/losses``) and the final params
 (``<arch>/final/<path>``).  ``dryrun`` lowers and compiles each cell of :data:`DRYRUN_CELLS` at
 REDUCED on a (2, 2) ``("data", "model")`` mesh as the reference's dry run
-does its production cells (``repro.launch.dryrun.run_cell``), and writes
-per cell the per-device dot FLOPs of ``hlo_graph.analyze`` and
-``memory_analysis().argument_size_in_bytes``.
+does its production cells (``repro.launch.dryrun.run_cell``; a serve
+cell takes no optimizer state), and writes per cell the per-device dot
+FLOPs of ``hlo_graph.analyze`` and
+``memory_analysis().argument_size_in_bytes``.  ``servestep`` takes each
+arch of :data:`SERVE_ARCHS` REDUCED in f32 from the params of IN
+(``<arch>/init/<path>``) through the reference's ``prefill`` and
+``decode_step``, jitted as its bundle's ``prefill_step`` and
+``decode_step`` cells are, on the same (2, 2) mesh with the params
+placed by the bundle's shardings and the inputs by the cells' own:
+the prompt (``<arch>/tokens``, (B, S)) once, then from the cache
+(``<arch>/k``, ``<arch>/v``: (L, B, S_max, n_kv, D); ``<arch>/len``)
+one step for each row of ``<arch>/steps`` ((steps, B) tokens), each
+step on the cache the last returned; it writes the prefill's logits
+(``<arch>/prefill``) and each step's (``<arch>/decode``, (steps, B,
+vocab)).
 """
 
 from __future__ import annotations
@@ -230,11 +244,69 @@ def dump_row_step(inp: str, out: str) -> None:
     np.savez(out, **result)
 
 
+# the LM archs whose (2, 2) serve steps the port's are held to
+SERVE_ARCHS = ("granite-3-2b", "moonshot-v1-16b-a3b")
+
+
+def dump_serve_step(inp: str, out: str) -> None:
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.registry import get_bundle
+    from repro.distributed.sharding import sanitize_shardings
+    from repro.models import transformer as tf
+
+    data = dict(np.load(inp))
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
+                             ("data", "model"))
+    result = {}
+    for arch in SERVE_ARCHS:
+        bundle = get_bundle(arch, reduced=True)
+        cfg = dataclasses.replace(bundle.config, dtype=jnp.float32)
+        head = f"{arch}/init/"
+        params = _nested({k[len(head):]: v for k, v in data.items()
+                          if k.startswith(head)})
+        ps = bundle.param_shardings(mesh)
+        tokens = jnp.asarray(data[f"{arch}/tokens"])
+        cache = {"k": jnp.asarray(data[f"{arch}/k"]),
+                 "v": jnp.asarray(data[f"{arch}/v"]),
+                 "len": jnp.asarray(data[f"{arch}/len"])}
+        pre_in = sanitize_shardings(
+            bundle.cells["prefill_32k"].input_sharding(mesh)["batch"],
+            {"tokens": tokens}, mesh)
+        dec_in = sanitize_shardings(
+            bundle.cells["decode_32k"].input_sharding(mesh)["batch"],
+            {"token": cache["len"], "cache": cache}, mesh)
+        prefill = jax.jit(
+            lambda p, b, cfg=cfg: tf.prefill(cfg, p, b["tokens"])[0],
+            in_shardings=(ps, pre_in))
+        decode = jax.jit(
+            lambda p, b, cfg=cfg: tf.decode_step(cfg, p, b["token"],
+                                                 b["cache"]),
+            in_shardings=(ps, dec_in), out_shardings=(None, dec_in["cache"]))
+        steps = []
+        with mesh:
+            p = jax.device_put(params, ps)
+            result[f"{arch}/prefill"] = np.asarray(
+                prefill(p, {"tokens": tokens}))
+            for tok in data[f"{arch}/steps"]:
+                logits, cache = decode(p, {"token": jnp.asarray(tok),
+                                           "cache": cache})
+                steps.append(np.asarray(logits))
+        result[f"{arch}/decode"] = np.stack(steps)
+    np.savez(out, **result)
+
+
 # the cells the port's dry run is held to, (arch, cell) at REDUCED
 DRYRUN_CELLS = (("granite-3-2b", "train_4k"),
                 ("moonshot-v1-16b-a3b", "train_4k"),
                 ("dlrm-mlperf", "train_batch"), ("mace", "molecule"),
-                ("two-tower-retrieval", "train_batch"))
+                ("two-tower-retrieval", "train_batch"),
+                ("granite-3-2b", "prefill_32k"),
+                ("granite-3-2b", "decode_32k"),
+                ("moonshot-v1-16b-a3b", "decode_32k"))
 
 
 def dump_dryrun(out: str) -> None:
@@ -265,10 +337,11 @@ def dump_dryrun(out: str) -> None:
                                            jax.random.PRNGKey(0))]
                 in_shardings = [shard_by_rules(abstract[0], mesh,
                                                bundle.rules)]
-            abstract.append(jax.eval_shape(adamw_init, abstract[0]))
-            in_shardings.append({"mu": in_shardings[0],
-                                 "nu": in_shardings[0],
-                                 "step": NamedSharding(mesh, P())})
+            if cell.kind == "train":   # a serve cell holds no optimizer
+                abstract.append(jax.eval_shape(adamw_init, abstract[0]))
+                in_shardings.append({"mu": in_shardings[0],
+                                     "nu": in_shardings[0],
+                                     "step": NamedSharding(mesh, P())})
             abstract.append(cell.inputs["batch"])
             in_shardings.append(cell.input_sharding(mesh)["batch"])
             in_shardings = [sanitize_shardings(s, a, mesh)
@@ -293,5 +366,7 @@ if __name__ == "__main__":
         dump_dryrun(sys.argv[2])
     elif sys.argv[1] == "rowstep":
         dump_row_step(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "servestep":
+        dump_serve_step(sys.argv[2], sys.argv[3])
     else:
         dump_psum(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

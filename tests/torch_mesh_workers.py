@@ -33,6 +33,15 @@ set up from a file store in DIR (no network):
            mesh; and the lookup of one table nested over ``("data",
            "model")`` with its block's gradient; rank 0 writes
            ``DIR/rows_out.pt``.
+``serve``  on the same mesh, from ``DIR/serve_inputs.pt``: for each LM
+           case (an arch, config changes, its serving params, a prompt, a
+           decode cache and the tokens of its steps), the bundle's serve
+           steps on the ``model`` shards (``LMBundle.serve_step``): the
+           prompt's prefill, then the decode steps on the cache placed by
+           the cell's sharding (its sequence split over ``model``); every
+           rank's logits, prefill K/V, final cache blocks and MoE drops,
+           and the count of ``model`` collectives; rank 0 writes
+           ``DIR/serve_out.pt``.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from repro_torch.distributed.sharding import (
     RECSYS_RULES,
     full_tensor,
     place,
+    rewrap,
     shard_by_rules,
 )
 from repro_torch.distributed.hooks import batch_axes, use_mesh
@@ -344,6 +354,51 @@ def rows(rank: int, world: int, d: str, data: int) -> None:
         torch.save(out, os.path.join(d, "rows_out.pt"))
 
 
+def blocks(full: torch.Tensor, sharding):
+    """``full`` placed by ``sharding`` on blocks of their own: a rank's
+    cache is its own contiguous memory, as the paged kernel reads it."""
+    x = place(full, sharding)
+    return rewrap(x.to_local().contiguous(), x)
+
+
+def serve(rank: int, world: int, d: str, data: int) -> None:
+    """Each case of ``DIR/serve_inputs.pt`` through the bundle's serve
+    steps on the mesh."""
+    cases = torch.load(os.path.join(d, "serve_inputs.pt"))
+    mesh = make_mesh((data, world // data), ("data", "model"), device="cpu")
+    coord = tuple(mesh.get_coordinate())
+    out = {}
+    for name, case in cases.items():
+        bundle = lm_bundle_f32(case["arch"], **case["changes"])
+        placed = tree_map(place, case["params"],
+                          bundle.param_shardings(mesh))
+        MODEL_COLLECTIVES.reset()
+        pre = bundle.input_sharding("prefill_32k", mesh)["batch"]
+        logits, kv = bundle.serve_step("prefill_32k")(
+            placed, {"tokens": place(case["tokens"], pre["tokens"])})
+        mine = {"prefill": logits, "prefill_k": kv["k"],
+                "prefill_v": kv["v"],
+                "prefill_dropped": float(kv.get("moe_dropped", 0.0))}
+        shard = bundle.input_sharding("decode_32k", mesh)["batch"]
+        cache = {k: blocks(v, shard["cache"][k])
+                 for k, v in case["cache"].items()}
+        step = bundle.serve_step("decode_32k")
+        steps, dropped = [], []
+        for tok in case["steps"]:
+            logits, c = step(placed, {"token": place(tok, shard["token"]),
+                                      "cache": cache})
+            cache["len"] = rewrap(c["len"], cache["len"])
+            steps.append(logits)
+            dropped.append(float(c.get("moe_dropped", 0.0)))
+        mine.update({"decode": torch.stack(steps), "dropped": dropped,
+                     "k": cache["k"].to_local(), "v": cache["v"].to_local(),
+                     "len": cache["len"].to_local(),
+                     "collectives": MODEL_COLLECTIVES.count})
+        out[name] = every_rank((coord, mine))
+    if rank == 0:
+        torch.save(out, os.path.join(d, "serve_out.pt"))
+
+
 def main() -> None:
     case, rank, world, d = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
                             sys.argv[4])
@@ -355,7 +410,8 @@ def main() -> None:
             np.save(os.path.join(d, f"psum_out_{rank}.npy"),
                     compressed_psum(x).numpy())
         else:
-            run = {"train": train, "tp": tp, "rows": rows}[case]
+            run = {"train": train, "tp": tp, "rows": rows,
+                   "serve": serve}[case]
             run(rank, world, d,
                 int(sys.argv[5]) if len(sys.argv) > 5 else world)
         dist.barrier()
