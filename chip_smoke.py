@@ -131,7 +131,17 @@ Phases (any failure exits non-zero before the last line is printed):
      table cut in two by row windows (each half bit for bit against its
      plain version, the halves summing to the whole launch); timed
      beside its bytes bound (each distinct row its ids read counted
-     once) and ``torch.nn.functional.embedding_bag``;
+     once) and ``torch.nn.functional.embedding_bag``.  Then the mesh
+     recsys serve check (``mesh_recsys_serve_phase``, its own one-rank
+     NCCL mesh): each recsys arch's ``serve_p99`` (B 512), ``serve_bulk``
+     (B 262,144) and ``retrieval_cand`` (1,000,000 candidates) at its
+     published widths through ``RecsysBundle.serve_step``, unsharded and
+     on the mesh (weights placed by the rules, a view of DLRM's 45.55 GB
+     of tables from phase 8; the batch placed by the cell's layout, the
+     candidates split over ``data`` and their top 100 merged): scores
+     bit for bit, ids equal, the bag kernel once a DLRM forward, the
+     lookups', ``model``'s and the merge's collectives where the route
+     issues them, the peak at most 1.10 of the unsharded call's;
  11. recsys train: dlrm-mlperf at its published widths with each table
      capped at 2^22 rows (5 of 26 cut: 23,458,556 rows, 3.0G parameters;
      the cut is printed as ``reduced``), f32 masters drawn on the card,
@@ -244,7 +254,8 @@ Phases (any failure exits non-zero before the last line is printed):
      both flash backward routes, their launches and the paged kernel's
      by path, and the paged kernel's log-sum-exp route; the search
      kernels' launches summed over the search and replica phases, the
-     bag's over recsys serving and training), then the result line.
+     bag's over recsys serving, the mesh serve check and training), then
+     the result line.
 
 Exits with code 2 when no CUDA device is present.  Imports nothing of
 JAX or of the ``repro`` package.
@@ -255,6 +266,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import os
 import json
 import subprocess
@@ -423,6 +435,22 @@ MESH_RECSYS = ("dlrm-mlperf", "two-tower-retrieval")   # tables where rows lie
 # table); 2^23 rows peak at 69.3 GB, 9M at 73.6
 MESH_TWO_TOWER_BATCH = 32_768
 MESH_TWO_TOWER_USERS = 1 << 23
+# mesh recsys serve: each recsys arch's three serve cells at published
+# widths on a one-rank NCCL mesh against the same calls unsharded.  The
+# mesh call's peak of allocated bytes (weights included) at most this
+# much above the unsharded call's: the route's own buffers (a lookup's
+# gathered ids and partial rows, its reduce-scatter's output) are a few
+# percent of a call (the dry run of the one-rank route counts 1.016 for
+# DLRM's serve_bulk and 1.069 for two-tower's, 1.000 for the others); a
+# copy of any table made by placing or gathering it would be far more
+MESH_SERVE_PEAK_RATIO = 1.10
+# placing the serving weights on the one-rank mesh is a view: at most
+# this many bytes allocated by it
+MESH_PLACE_BYTES = 1 << 20
+# the archs in the order the check runs them: DLRM on the tables the
+# recsys serve phase drew, then the others, DIN's retrieval of 1,000,000
+# candidates (68.1 GB of live bytes at its peak, dry run) last
+MESH_SERVE_ARCHS = ("dlrm-mlperf", "two-tower-retrieval", "sasrec", "din")
 
 # dry run phase: the card's granite step at LM_TRAIN_BATCH x LM_TRAIN_SEQ
 # held to its own dry run, and the cells traced on the CPU (no card:
@@ -2443,6 +2471,166 @@ def top_swaps(card: List[int], cpu: List[int], scores: torch.Tensor,
     return swaps
 
 
+def serve_call(step, params, batch: dict, device,
+               reset: Callable[[], None] = lambda: None) -> dict:
+    """``step(params, batch)`` twice from an emptied cache, the first a
+    warm-up (its first launches set cuBLAS and NCCL up; its blocks stay
+    cached for the second), then ``reset()``, then the second measured:
+    its output, host time (synchronised) and the peak of allocated bytes
+    during it (weights included).  The cache is emptied first because
+    DIN's retrieval peaks at 68.1 GB of live bytes (dry run), which a
+    call fitted into the blocks that another call's pattern left cached
+    did not find room for (out of memory with 14.85 GiB reserved but
+    unallocated)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    step(params, batch)
+    torch.cuda.synchronize()
+    reset()
+    torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    out = step(params, batch)
+    torch.cuda.synchronize()
+    return {"out": out, "s": time.perf_counter() - t,
+            "peak_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def mesh_recsys_serve(arch: str, params: dict, mesh, device, bag,
+                      failures: List[str]) -> dict:
+    """``arch``'s ``serve_p99`` (B 512), ``serve_bulk`` (B 262,144) and
+    ``retrieval_cand`` (1,000,000 candidates) at its published widths in
+    its bf16 serving weights ``params``, each through
+    ``RecsysBundle.serve_step`` without a mesh and then on the one-rank
+    ``mesh`` (the weights placed by the rules, a view whose placing must
+    allocate at most MESH_PLACE_BYTES; the batch placed by the cell's
+    ``input_sharding``, so the candidates are split over ``data`` and
+    their top 100 merged), on the same batch: scores bit for bit and ids
+    equal; DLRM's bag kernel once a forward (once a 262,144-candidate
+    chunk in retrieval); the lookups' (``ROW_COLLECTIVES``) and
+    ``model``'s collectives above 0 for DLRM and two-tower and none for
+    DIN and SASRec (tables gathered whole, no MLP split), one merge in
+    retrieval; the mesh call's peak at most MESH_SERVE_PEAK_RATIO of the
+    unsharded call's.  Each call is run once before it is measured
+    (:func:`serve_call`); the counts are the measured mesh call's."""
+    from repro_torch.configs.registry import get_bundle
+    from repro_torch.distributed.row_parallel import (
+        MERGE_COLLECTIVES,
+        ROW_COLLECTIVES,
+    )
+    from repro_torch.distributed.sharding import place, sanitize_shardings
+    from repro_torch.distributed.tensor_parallel import MODEL_COLLECTIVES
+    from repro_torch.models.recsys import DLRM_RETRIEVAL_CHUNK
+    from repro_torch.tree import tree_map
+
+    bundle = get_bundle(arch)
+    sv = bundle.serving
+    label = f"mesh recsys serve {arch}"
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    placed = tree_map(place, params, bundle.param_shardings(mesh))
+    place_bytes = torch.cuda.max_memory_allocated(device) - before
+    if place_bytes > MESH_PLACE_BYTES:
+        failures.append(f"{label}: placing the weights allocated "
+                        f"{place_bytes:,} B (a view expected)")
+    gen = torch.Generator(device=device).manual_seed(31)
+    counters = (ROW_COLLECTIVES, MODEL_COLLECTIVES, MERGE_COLLECTIVES)
+    routed = arch in ("dlrm-mlperf", "two-tower-retrieval")
+    out = {"arch": arch, "place_bytes": place_bytes, "cells": {}}
+    for cell in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        retrieval = cell == "retrieval_cand"
+        batch = (retrieval_batch(sv, sv.n_candidates, gen, device)
+                 if retrieval else
+                 recsys_batch(sv, sv.batch_sizes[cell], gen, device))
+        layout = sanitize_shardings(bundle.input_sharding(cell, mesh)["batch"],
+                                    batch, mesh)
+        on_mesh = {k: place(v, layout[k]) for k, v in batch.items()}
+        step = bundle.serve_step(cell)
+        plain = serve_call(step, params, batch, device)
+
+        def reset():
+            bag.launches = 0
+            for c in counters:
+                c.reset()
+
+        sharded = serve_call(step, placed, on_mesh, device, reset)
+        counts = {"bag_launches": bag.launches,
+                  "row_collectives": ROW_COLLECTIVES.count,
+                  "model_collectives": MODEL_COLLECTIVES.count,
+                  "merge_collectives": MERGE_COLLECTIVES.count}
+        a, b = sharded.pop("out"), plain.pop("out")
+        same = bool(torch.equal(a, b))
+        ratio = sharded["peak_bytes"] / plain["peak_bytes"]
+        forwards = (-(-sv.n_candidates // DLRM_RETRIEVAL_CHUNK)
+                    if retrieval else 1)
+        want = {"bag_launches": forwards if arch == "dlrm-mlperf" else 0,
+                "merge_collectives": int(retrieval)}
+        rep = {"shape": list(a.shape), "bit_identical": same,
+               "unsharded_ms": plain["s"] * 1e3, "mesh_ms": sharded["s"] * 1e3,
+               "unsharded_peak_bytes": plain["peak_bytes"],
+               "mesh_peak_bytes": sharded["peak_bytes"], "peak_ratio": ratio,
+               **counts}
+        if not retrieval:
+            rep["finite"] = bool(torch.isfinite(b.float()).all())
+        out["cells"][cell] = rep
+        log(f"{label} {cell}: {json.dumps(rep)}")
+        where = f"{label} {cell}"
+        if not same:
+            failures.append(f"{where}: the one-rank mesh call differs from "
+                            "the unsharded one")
+        if not rep.get("finite", True):
+            failures.append(f"{where}: non-finite scores")
+        if ratio > MESH_SERVE_PEAK_RATIO:
+            failures.append(f"{where}: the mesh call's peak is {ratio:.4f} "
+                            f"of the unsharded call's (at most "
+                            f"{MESH_SERVE_PEAK_RATIO})")
+        for key, n in want.items():
+            if counts[key] != n:
+                failures.append(f"{where}: {key} {counts[key]}, {n} expected")
+        if (counts["row_collectives"] > 0, counts["model_collectives"] > 0) \
+                != (routed, routed):
+            failures.append(f"{where}: {counts['row_collectives']} lookup "
+                            f"and {counts['model_collectives']} model "
+                            f"collectives ({'both' if routed else 'none'} "
+                            "expected)")
+        del a, b, batch, on_mesh
+    del placed
+    return out
+
+
+def mesh_recsys_serve_phase(device, bag, drawn: Dict[str, dict]) -> dict:
+    """The recsys family's serve cells on a one-rank NCCL mesh
+    (:func:`one_rank_mesh`), each arch of MESH_SERVE_ARCHS at its
+    published widths against its unsharded calls
+    (:func:`mesh_recsys_serve`): DLRM on its 26 bf16 tables that the
+    recsys serve phase drew (``drawn``: params by arch, each popped and
+    freed once its arch is done), the others drawn here from seed 0."""
+    from repro_torch.configs.registry import get_serving
+
+    t0 = time.perf_counter()
+    failures: List[str] = []
+    out: dict = {"archs": {}}
+    with one_rank_mesh() as mesh:
+        out["mesh"] = {"shape": list(mesh.shape),
+                       "axes": list(mesh.mesh_dim_names)}
+        for arch in MESH_SERVE_ARCHS:
+            params = drawn.pop(arch, None)
+            if params is None:
+                sv = get_serving(arch)
+                params = sv.init(sv.config,
+                                 torch.Generator(device=device).manual_seed(0))
+            out["archs"][arch] = mesh_recsys_serve(arch, params, mesh, device,
+                                                   bag, failures)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["launches"] = sum(c["bag_launches"] for a in out["archs"].values()
+                          for c in a["cells"].values())
+    out["failures"] = failures
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def recsys_parity_phase(device) -> dict:
     """The four recsys archs in float32 (TF32 off), on the card (DLRM's
     lookups through the bag kernel) and on the CPU (through its plain
@@ -4081,6 +4269,32 @@ def mesh_serve_step(arch: str, mesh, device, kernels, failures: List[str],
 
 
 @contextlib.contextmanager
+def one_rank_mesh():
+    """A one-rank NCCL process group, set up from a FileStore in a
+    temporary directory (no network), and its ``make_host_mesh()`` (1, 1)
+    ``("data", "model")`` mesh; the group is destroyed after the block.
+    The allocator's cache is emptied first: NCCL allocates its own device
+    buffers, and after the bag phase's cases the cache held so much of
+    the card beside DLRM's tables that its setup failed (``unhandled
+    cuda error``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device(
+                "cuda", torch.cuda.current_device()))
+        try:
+            yield make_host_mesh()
+        finally:
+            dist.destroy_process_group()
+
+
+@contextlib.contextmanager
 def deterministic_algorithms():
     """PyTorch's deterministic algorithms inside the block (warnings, not
     errors, for an op that has none), as they were after it."""
@@ -4261,7 +4475,6 @@ def mesh_phase(device, kernels, bag) -> dict:
     from repro_torch.distributed.hooks import use_mesh
     from repro_torch.distributed.sharding import is_sharded, place
     from repro_torch.distributed.tensor_parallel import MODEL_COLLECTIVES
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import synth_lm_batches
     from repro_torch.train.trainer import Trainer, TrainerConfig
     from repro_torch.tree import flatten_with_path, leaves, path_name, tree_map
@@ -4269,127 +4482,119 @@ def mesh_phase(device, kernels, bag) -> dict:
     t0 = time.perf_counter()
     failures = free_check("mesh", device)
     out: dict = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group(
-            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
-            rank=0, world_size=1, device_id=torch.device(
-                "cuda", torch.cuda.current_device()))
-        try:
-            mesh = make_host_mesh()
-            out["mesh"] = {"shape": list(mesh.shape),
-                           "axes": list(mesh.mesh_dim_names),
-                           "backend": dist.get_backend()}
-            gen = torch.Generator(device=device).manual_seed(61)
-            x = torch.randn(MESH_PSUM_SHAPE, generator=gen, device=device)
-            psum = compressed_psum(x)
-            out["psum_bit_identical"] = bool(torch.equal(
-                psum, dequantize_int8(*quantize_int8(x))))
-            del x, psum
-            if not out["psum_bit_identical"]:
-                failures.append("mesh: compressed_psum on one rank differs "
-                                "from dequantize(quantize(x))")
+    with tempfile.TemporaryDirectory() as tmp, one_rank_mesh() as mesh:
+        out["mesh"] = {"shape": list(mesh.shape),
+                       "axes": list(mesh.mesh_dim_names),
+                       "backend": dist.get_backend()}
+        gen = torch.Generator(device=device).manual_seed(61)
+        x = torch.randn(MESH_PSUM_SHAPE, generator=gen, device=device)
+        psum = compressed_psum(x)
+        out["psum_bit_identical"] = bool(torch.equal(
+            psum, dequantize_int8(*quantize_int8(x))))
+        del x, psum
+        if not out["psum_bit_identical"]:
+            failures.append("mesh: compressed_psum on one rank differs "
+                            "from dequantize(quantize(x))")
 
-            tree = {"w": torch.randn((4096, 2048), generator=gen,
-                                     device=device).to(torch.bfloat16),
-                    "b": torch.randn((2048,), generator=gen,
-                                     device=device).to(torch.bfloat16),
-                    "s": torch.randn((7,), generator=gen, device=device)}
-            ck = os.path.join(tmp, "ckpt")
-            save_checkpoint(ck, 1, tree)
-            back, _, _, _ = load_checkpoint(ck, tree, device=device)
-            out["bf16_checkpoint_bit_identical"] = all(
-                a.dtype == b.dtype and a.device == b.device and torch.equal(
-                    a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
-                    b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
-                for a, b in zip(leaves(back), leaves(tree)))
-            del tree, back
-            if not out["bf16_checkpoint_bit_identical"]:
-                failures.append("mesh: a bf16 checkpoint of CUDA tensors "
-                                "did not restore bit for bit")
+        tree = {"w": torch.randn((4096, 2048), generator=gen,
+                                 device=device).to(torch.bfloat16),
+                "b": torch.randn((2048,), generator=gen,
+                                 device=device).to(torch.bfloat16),
+                "s": torch.randn((7,), generator=gen, device=device)}
+        ck = os.path.join(tmp, "ckpt")
+        save_checkpoint(ck, 1, tree)
+        back, _, _, _ = load_checkpoint(ck, tree, device=device)
+        out["bf16_checkpoint_bit_identical"] = all(
+            a.dtype == b.dtype and a.device == b.device and torch.equal(
+                a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+            for a, b in zip(leaves(back), leaves(tree)))
+        del tree, back
+        if not out["bf16_checkpoint_bit_identical"]:
+            failures.append("mesh: a bf16 checkpoint of CUDA tensors "
+                            "did not restore bit for bit")
 
-            bundle = get_bundle("granite-3-2b")
-            cfg, mb = bundle.config, bundle.microbatches
-            params = bundle.init(torch.Generator(device=device).manual_seed(0))
-            batch = {k: torch.as_tensor(v, device=device) for k, v in
-                     synth_lm_batches(cfg.vocab, LM_TRAIN_BATCH,
-                                      LM_TRAIN_SEQ)(0).items()}
-            tc = TrainerConfig(opt=bundle.opt, microbatches=mb, log_every=1)
-            plain_tr = Trainer(bundle.loss_fn(), params, tc, device=device)
-            plain = one_step(plain_tr, batch, device)
-            plain_params = plain_tr.params
-            del plain_tr
-            log(f"mesh: unsharded step {plain['s']:.2f} s, loss "
-                f"{plain['loss']:.6f}, step peak "
-                f"{plain['step_peak_bytes']:,} B")
+        bundle = get_bundle("granite-3-2b")
+        cfg, mb = bundle.config, bundle.microbatches
+        params = bundle.init(torch.Generator(device=device).manual_seed(0))
+        batch = {k: torch.as_tensor(v, device=device) for k, v in
+                 synth_lm_batches(cfg.vocab, LM_TRAIN_BATCH,
+                                  LM_TRAIN_SEQ)(0).items()}
+        tc = TrainerConfig(opt=bundle.opt, microbatches=mb, log_every=1)
+        plain_tr = Trainer(bundle.loss_fn(), params, tc, device=device)
+        plain = one_step(plain_tr, batch, device)
+        plain_params = plain_tr.params
+        del plain_tr
+        log(f"mesh: unsharded step {plain['s']:.2f} s, loss "
+            f"{plain['loss']:.6f}, step peak "
+            f"{plain['step_peak_bytes']:,} B")
 
-            placed = tree_map(place, params, bundle.param_shardings(mesh))
-            mesh_tr = Trainer(bundle.loss_fn(), placed, tc, device=device)
-            del placed, params
-            for k in kernels:
-                k.launches = 0
-            MODEL_COLLECTIVES.reset()
-            with use_mesh(mesh):
-                sharded = one_step(mesh_tr, batch, device)
-            launches = {k.symbol: k.launches for k in kernels}
-            collectives = MODEL_COLLECTIVES.count
-            log(f"mesh: one-rank mesh step {sharded['s']:.2f} s, loss "
-                f"{sharded['loss']:.6f}, step peak "
-                f"{sharded['step_peak_bytes']:,} B, {collectives} model "
-                f"collectives")
-            differ = [path_name(p) for (p, a), b in zip(
-                flatten_with_path(mesh_tr.params), leaves(plain_params))
-                if not (is_sharded(a) and torch.equal(a.to_local(), b))]
-            same_loss = sharded["loss"] == plain["loss"]
-            ratio = sharded["step_peak_bytes"] / plain["step_peak_bytes"]
-            expect = 2 * cfg.n_layers * mb
-            expect_bwd = cfg.n_layers * mb
-            out.update({
-                "arch": cfg.name, "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ],
-                "microbatches": mb, "unsharded": plain, "sharded": sharded,
-                "loss_bit_identical": same_loss,
-                "params_differing": differ[:10],
-                "n_params_differing": len(differ),
-                "step_peak_ratio": ratio, "launches": launches,
-                "model_collectives": collectives,
-                "expected_flash_wgmma_launches": expect,
-                "expected_flash_backward_wgmma_launches": expect_bwd})
-            if collectives == 0:
-                failures.append("mesh: the mesh step issued no model "
-                                "collective (not the tensor-parallel route)")
-            if not same_loss or differ:
-                failures.append(
-                    f"mesh: the one-rank mesh step differs from the unsharded "
-                    f"one: loss {sharded['loss']!r} vs {plain['loss']!r}, "
-                    f"{len(differ)} params differ ({differ[:3]})")
-            if ratio > MESH_PEAK_RATIO:
-                failures.append(f"mesh: the mesh step's peak is {ratio:.4f} "
-                                f"of the unsharded step's (at most "
-                                f"{MESH_PEAK_RATIO})")
-            if launches.get("flash_attention_wgmma") != expect:
-                failures.append(
-                    f"mesh: flash_attention_wgmma launched "
-                    f"{launches.get('flash_attention_wgmma')} times in the "
-                    f"mesh step, {expect} expected")
-            if launches.get("flash_attention_backward_wgmma") != expect_bwd:
-                failures.append(
-                    f"mesh: flash_attention_backward_wgmma launched "
-                    f"{launches.get('flash_attention_backward_wgmma')} times "
-                    f"in the mesh step, {expect_bwd} expected (one a layer "
-                    f"and microbatch: {cfg.n_layers} x {mb})")
-            del mesh_tr, plain_params, batch
-            out["moe"] = mesh_moe_step(mesh, device, kernels, failures)
-            out["serve"] = mesh_serve_step("granite-3-2b", mesh, device,
-                                           kernels, failures)
-            out["serve_moe"] = mesh_serve_step(
-                "moonshot-v1-16b-a3b", mesh, device, kernels, failures,
-                batch=MESH_SERVE_MOE_BATCH, layers=MESH_SERVE_MOE_LAYERS,
-                rtol=MESH_SERVE_MOE_RTOL)
-            with deterministic_algorithms():
-                out["recsys"] = {arch: mesh_recsys_step(arch, mesh, device,
-                                                        bag, failures)
-                                 for arch in MESH_RECSYS}
-        finally:
-            dist.destroy_process_group()
+        placed = tree_map(place, params, bundle.param_shardings(mesh))
+        mesh_tr = Trainer(bundle.loss_fn(), placed, tc, device=device)
+        del placed, params
+        for k in kernels:
+            k.launches = 0
+        MODEL_COLLECTIVES.reset()
+        with use_mesh(mesh):
+            sharded = one_step(mesh_tr, batch, device)
+        launches = {k.symbol: k.launches for k in kernels}
+        collectives = MODEL_COLLECTIVES.count
+        log(f"mesh: one-rank mesh step {sharded['s']:.2f} s, loss "
+            f"{sharded['loss']:.6f}, step peak "
+            f"{sharded['step_peak_bytes']:,} B, {collectives} model "
+            f"collectives")
+        differ = [path_name(p) for (p, a), b in zip(
+            flatten_with_path(mesh_tr.params), leaves(plain_params))
+            if not (is_sharded(a) and torch.equal(a.to_local(), b))]
+        same_loss = sharded["loss"] == plain["loss"]
+        ratio = sharded["step_peak_bytes"] / plain["step_peak_bytes"]
+        expect = 2 * cfg.n_layers * mb
+        expect_bwd = cfg.n_layers * mb
+        out.update({
+            "arch": cfg.name, "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ],
+            "microbatches": mb, "unsharded": plain, "sharded": sharded,
+            "loss_bit_identical": same_loss,
+            "params_differing": differ[:10],
+            "n_params_differing": len(differ),
+            "step_peak_ratio": ratio, "launches": launches,
+            "model_collectives": collectives,
+            "expected_flash_wgmma_launches": expect,
+            "expected_flash_backward_wgmma_launches": expect_bwd})
+        if collectives == 0:
+            failures.append("mesh: the mesh step issued no model "
+                            "collective (not the tensor-parallel route)")
+        if not same_loss or differ:
+            failures.append(
+                f"mesh: the one-rank mesh step differs from the unsharded "
+                f"one: loss {sharded['loss']!r} vs {plain['loss']!r}, "
+                f"{len(differ)} params differ ({differ[:3]})")
+        if ratio > MESH_PEAK_RATIO:
+            failures.append(f"mesh: the mesh step's peak is {ratio:.4f} "
+                            f"of the unsharded step's (at most "
+                            f"{MESH_PEAK_RATIO})")
+        if launches.get("flash_attention_wgmma") != expect:
+            failures.append(
+                f"mesh: flash_attention_wgmma launched "
+                f"{launches.get('flash_attention_wgmma')} times in the "
+                f"mesh step, {expect} expected")
+        if launches.get("flash_attention_backward_wgmma") != expect_bwd:
+            failures.append(
+                f"mesh: flash_attention_backward_wgmma launched "
+                f"{launches.get('flash_attention_backward_wgmma')} times "
+                f"in the mesh step, {expect_bwd} expected (one a layer "
+                f"and microbatch: {cfg.n_layers} x {mb})")
+        del mesh_tr, plain_params, batch
+        out["moe"] = mesh_moe_step(mesh, device, kernels, failures)
+        out["serve"] = mesh_serve_step("granite-3-2b", mesh, device,
+                                       kernels, failures)
+        out["serve_moe"] = mesh_serve_step(
+            "moonshot-v1-16b-a3b", mesh, device, kernels, failures,
+            batch=MESH_SERVE_MOE_BATCH, layers=MESH_SERVE_MOE_LAYERS,
+            rtol=MESH_SERVE_MOE_RTOL)
+        with deterministic_algorithms():
+            out["recsys"] = {arch: mesh_recsys_step(arch, mesh, device,
+                                                    bag, failures)
+                             for arch in MESH_RECSYS}
     torch.cuda.empty_cache()
     out["failures"] = failures
     out["seconds"] = time.perf_counter() - t0
@@ -4529,14 +4734,12 @@ def dryrun_phase(device, kernels, smi: str,
     that no timed work of the run shares the host with them; every cell
     must be ``ok``, and its line (ms of each roofline term, the dominant
     one, peak GB against 80) is logged."""
-    import torch.distributed as dist
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs.registry import get_bundle
     from repro_torch.distributed.hooks import use_mesh
     from repro_torch.distributed.sharding import place
     from repro_torch.distributed.tensor_parallel import MODEL_COLLECTIVES
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import synth_lm_batches
     from repro_torch.train.trainer import Trainer, TrainerConfig
     from repro_torch.tree import tree_map
@@ -4549,12 +4752,7 @@ def dryrun_phase(device, kernels, smi: str,
     with tempfile.TemporaryDirectory() as tmp:
         dry_json = os.path.join(tmp, "granite.json")
         decode_json = os.path.join(tmp, "granite_decode.json")
-        dist.init_process_group(
-            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
-            rank=0, world_size=1, device_id=torch.device(
-                "cuda", torch.cuda.current_device()))
-        try:
-            mesh = make_host_mesh()
+        with one_rank_mesh() as mesh:
             params = bundle.init(torch.Generator(device=device).manual_seed(0))
             batch = {k: torch.as_tensor(v, device=device) for k, v in
                      synth_lm_batches(cfg.vocab, LM_TRAIN_BATCH,
@@ -4591,8 +4789,6 @@ def dryrun_phase(device, kernels, smi: str,
             torch.cuda.empty_cache()
             with use_mesh(mesh):
                 decode = decode_count(mesh, device, kernels)
-        finally:
-            dist.destroy_process_group()
         torch.cuda.empty_cache()
         texts = []
         for proc in procs:
@@ -5178,10 +5374,14 @@ def main(argv: Sequence[str] = ()) -> int:
     log("recsys parity: " + json.dumps(rparity))
     failures += rparity["failures"]
     bags = bag_phase(dlrm_params, device)
+    drawn = {"dlrm-mlperf": dlrm_params}
     del dlrm_params
     for where, case in bags.items():
         log(f"kernel embedding_bag {where}: " + json.dumps(case))
     failures += bag_failures(bags)
+    mserve = mesh_recsys_serve_phase(device, EMBEDDING_BAG, drawn)
+    log("mesh recsys serve: " + json.dumps(mserve))
+    failures += mserve["failures"]
     log(f"recsys phases: {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
@@ -5357,10 +5557,11 @@ def main(argv: Sequence[str] = ()) -> int:
             "source": EMBEDDING_BAG.source,
             "replaces": EMBEDDING_BAG.replaces,
             "launches": (recsys["launches"] + train["launches"]
-                         + mesh_bags),
+                         + mesh_bags + mserve["launches"]),
             "launches_by_path": {"serve": recsys["launches"],
                                  "train": train["launches"],
-                                 "mesh": mesh_bags},
+                                 "mesh": mesh_bags,
+                                 "mesh_serve": mserve["launches"]},
             **{key: bags["serve_bf16"][key]
                for key in ("max_abs_err", "max_err_ratio", "ms", "plain_ms",
                            "bound_ms", "bound_by", "library_ms", "shape",
@@ -5391,7 +5592,8 @@ def main(argv: Sequence[str] = ()) -> int:
              "search_kernels": checks,
              "serve": serve, "parity": parity, "attention": attn,
              "recsys": recsys, "recsys_parity": rparity,
-             "embedding_bag": bags, "recsys_train": train,
+             "embedding_bag": bags, "mesh_recsys_serve": mserve,
+             "recsys_train": train,
              "moe_serve": moe, "moe_serve_qwen3": qwen3,
              "moe_parity": mparity, "lm_train": lm, "mesh": mesh,
              "gnn_train": gnn, "dryrun": dry,

@@ -3,7 +3,7 @@
 GNN-training phases alone on one CUDA card, to iterate on them without
 the whole smoke run.
 
-    python3 scripts/smoke_phases.py recsys,rtrain,moe,qwen3,mparity,lm,mesh,guard,attn,gnn \
+    python3 scripts/smoke_phases.py recsys,mserve,rtrain,moe,qwen3,mparity,lm,mesh,guard,attn,gnn \
         [--seed 0] [--out build/smoke_phases.json]
 
 Phases: ``kattn`` (the attention kernels against their plain versions
@@ -12,7 +12,10 @@ attention phase: the paged kernel with its log-sum-exp and the merge of
 a cache's sequence blocks among them), ``recsys`` (DLRM-MLPerf served at
 its published config, the four
 recsys archs card against CPU, and the bag kernel's cases, the grouped
-launch among them), ``rtrain`` (DLRM-MLPerf trained with tables capped at
+launch among them), ``mserve`` (the four recsys archs' serve cells at
+published widths on a one-rank NCCL mesh against the same calls
+unsharded, on DLRM's tables from ``recsys`` where it ran before, as the
+smoke run does, else drawn anew), ``rtrain`` (DLRM-MLPerf trained with tables capped at
 2^22 rows), ``moe`` (Moonlight-16B-A3B served at its full config), ``qwen3``
 (Qwen3-235B-A22B widths at 8 layers), ``mparity`` (both MoE configs at
 REDUCED, card against CPU), ``lm`` (granite-3-2b trained at its published
@@ -49,7 +52,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("kattn", "recsys", "rtrain", "moe", "qwen3", "mparity", "lm",
+PHASES = ("kattn", "recsys", "mserve", "rtrain", "moe", "qwen3", "mparity", "lm",
           "mesh", "guard", "attn", "bwd", "gnn", "dryrun")
 PATH_NAMES = {"moe": "moe_serve", "qwen3": "moe_serve_qwen3", "lm": "lm_train"}
 SUMMARY_KEYS = ("tokens_per_s", "prefill", "decode_step", "dropped",
@@ -59,7 +62,7 @@ SUMMARY_KEYS = ("tokens_per_s", "prefill", "decode_step", "dropped",
                 "reduced_checks", "hand_kernel_launches", "seconds",
                 "unsharded", "sharded", "step_peak_ratio",
                 "model_collectives", "moe", "peak_ratio", "roofline_share",
-                "real", "cells", "cells_s", "failures")
+                "real", "cells", "cells_s", "archs", "failures")
 
 
 def backward_phase(cs, device) -> dict:
@@ -93,11 +96,14 @@ def kernel_attention_phase(cs, device) -> dict:
     return {"cases": cases, "failures": failures}
 
 
-def recsys_phase(cs, device, bag) -> dict:
-    """The smoke run's recsys serve, parity and bag-kernel phases."""
+def recsys_phase(cs, device, bag, drawn: dict) -> dict:
+    """The smoke run's recsys serve, parity and bag-kernel phases; with
+    ``drawn`` a dict, DLRM's params are left in it for ``mserve``."""
     serve, params = cs.recsys_serve_phase(device, bag)
     parity = cs.recsys_parity_phase(device)
     bags = cs.bag_phase(params, device)
+    if drawn is not None:
+        drawn["dlrm-mlperf"] = params
     del params
     return {"serve": serve, "parity": parity, "bags": bags,
             "launches": serve["launches"],
@@ -148,7 +154,11 @@ def main(argv=None) -> int:
     cs.log(cs.smi_line())
     calls = {
         "kattn": lambda: kernel_attention_phase(cs, device),
-        "recsys": lambda: recsys_phase(cs, device, EMBEDDING_BAG),
+        "recsys": lambda: recsys_phase(
+            cs, device, EMBEDDING_BAG,
+            drawn if "mserve" in wanted else None),
+        "mserve": lambda: cs.mesh_recsys_serve_phase(device, EMBEDDING_BAG,
+                                                     drawn),
         "rtrain": lambda: cs.recsys_train_phase(device, EMBEDDING_BAG),
         "moe": lambda: cs.moe_serve_phase(device, kernels),
         "qwen3": lambda: cs.moe_qwen3_phase(device, kernels),
@@ -170,6 +180,7 @@ def main(argv=None) -> int:
             if args.dryrun_cells else cs.DRYRUN_CELLS),
     }
     out: dict = {"smi": cs.smi_line()}
+    drawn: dict = {}
     failed = False
     for name in PHASES:
         if name not in wanted:

@@ -10,8 +10,11 @@
     in :class:`RecsysBundle`; the reference's ``recsys_bundle``): each
     arch's config with its score and retrieval functions, the batch
     sizes of its cells and its candidate count (cells ``serve_p99``,
-    ``serve_bulk`` and ``retrieval_cand``), and for its ``train_batch``
-    cell the loss, the optimizer settings and the train step.
+    ``serve_bulk`` and ``retrieval_cand``, whose serve step
+    :meth:`RecsysBundle.serve_step` computes on a mesh on the rules'
+    shards and merges a retrieval's top ids over the ranks that split
+    the candidates), and for its ``train_batch`` cell the loss, the
+    optimizer settings and the train step.
   * GNN (:class:`GNNCell`, gathered in :class:`GNNBundle`; the
     reference's ``gnn_bundle``): MACE in its four cells, each with the
     dataset's config, its init, its loss and train step under the
@@ -36,6 +39,7 @@ from torch.overrides import TorchFunctionMode
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.hooks import local, use_mesh
+from repro_torch.distributed.row_parallel import row_shard
 from repro_torch.distributed.sharding import NamedSharding, P
 from repro_torch.distributed.tensor_parallel import (
     MODEL,
@@ -133,6 +137,11 @@ class _Sharded:
         return {"batch": batch_sharded(mesh,
                                        self.abstract_inputs(cell)["batch"])}
 
+    def serve_params(self, cell: str, params: Any) -> Any:
+        """The part of a params tree that ``cell``'s serve step reads (the
+        reference's jitted cell takes no other argument): all of it."""
+        return params
+
 
 @dataclasses.dataclass(frozen=True)
 class RecsysServing:
@@ -145,6 +154,9 @@ class RecsysServing:
     batch_sizes: Dict[str, int]
     n_candidates: int       # candidates of one retrieval call
     serve_candidates: Optional[int] = None  # per row, where scoring takes them
+    # the top-level params a retrieval call reads, where it reads not all
+    # (two-tower's query side: its candidates come as embeddings)
+    retrieval_reads: Optional[Tuple[str, ...]] = None
     # the reference's abstract inputs: train(B), serve(B), retrieval()
     train_inputs: Optional[Callable[[int], Dict[str, Shape]]] = None
     serve_inputs: Optional[Callable[[int], Dict[str, Shape]]] = None
@@ -363,6 +375,110 @@ class RecsysBundle(_Sharded):
     @property
     def cells(self) -> Tuple[str, ...]:
         return RECSYS_SHAPES
+
+    def init(self, gen: torch.Generator, masters: bool = True):
+        """Parameters drawn on ``gen``'s device: f32 masters (the
+        reference bundle's init), or with ``masters=False`` the serving
+        layout in ``config.dtype``."""
+        return self.training.init(self.config, gen, masters=masters)
+
+    def serve_params(self, cell: str, params: Any) -> Any:
+        """The part of a params tree that ``cell``'s serve step reads: in
+        ``retrieval_cand`` the arch's ``retrieval_reads`` where it names
+        them (jit drops the reference's unused arguments), else all."""
+        keys = self.serving.retrieval_reads
+        if cell != "retrieval_cand" or keys is None:
+            return params
+        return {k: params[k] for k in keys}
+
+    def serve_step(self, cell: str) -> Callable:
+        """A serve cell's ``step(params, batch)``, the reference bundle's
+        ``serve_step`` (``serve_p99``, ``serve_bulk``: the arch's score
+        function, (B,) or (B, C) scores) and ``retrieval_step``
+        (``retrieval_cand``: its retrieval function, the ids of the top
+        100 candidates), under ``torch.no_grad``.
+
+        ``params`` are the serving layout (:meth:`init` with
+        ``masters=False``), plain or placed by :meth:`param_shardings`
+        (DTensors; the rules match by path, so the serving dtype takes
+        the masters' specs); ``batch`` is laid out as
+        :meth:`abstract_inputs` gives it, plain, placed by
+        :meth:`input_sharding` or as this rank's blocks of that (plain
+        candidates are taken whole).  It reads only the params of
+        :meth:`serve_params`.  Without a mesh the step is the
+        score or retrieval call itself, bit for bit.  On a mesh (which
+        must have a ``model`` axis) it computes as the training step's
+        route does (``models.recsys.recsys_model_dims`` read by the
+        trainer's ``_compute_leaf``, inside ``use_mesh`` and
+        ``use_model_group`` with ``recsys_plan``): DLRM's and
+        two-tower's tables looked up where their rows lie, never
+        gathered, their MLP weights on their ``model`` columns, DIN's
+        and SASRec's tables gathered whole.  A score cell returns this
+        rank's rows' scores.  A retrieval over candidates split over the
+        batch axes ranks this rank's block and merges the blocks' top ids
+        over those axes (:func:`_candidate_block`, ``RecsysPlan
+        .candidates``), so every rank returns the top 100 of all of them,
+        as the reference's ``jax.lax.top_k`` over all N does; over whole
+        candidates each rank ranks them all."""
+        sv, cfg = self.serving, self.config
+        if cell == "retrieval_cand":
+            fn = sv.retrieval
+        elif cell in ("serve_p99", "serve_bulk"):
+            fn = sv.score
+        else:
+            raise ValueError(f"{cell} is not a serve cell")
+
+        def step(params: Any, batch: Dict) -> torch.Tensor:
+            params = self.serve_params(cell, params)
+            mesh = shd.mesh_of(params)
+            if mesh is None:
+                with torch.no_grad():
+                    return fn(cfg, params, batch)
+            mg = model_group_of(mesh)
+            if mg is None:
+                raise ValueError("a recsys serve step on a mesh computes "
+                                 f"over its {MODEL!r} axis; the mesh has "
+                                 f"{mesh.mesh_dim_names}")
+            block = (_candidate_block(batch, mesh)
+                     if cell == "retrieval_cand" else None)
+            dims = RS.recsys_model_dims(cfg, params, mg)
+            with torch.no_grad(), use_mesh(mesh):
+                full = tree_map(_compute_leaf, params, dims)
+                with use_model_group(mg):
+                    plan = dataclasses.replace(RS.recsys_plan(cfg),
+                                               candidates=block)
+                    return fn(cfg, full, {k: local(v)
+                                          for k, v in batch.items()}, plan)
+
+        return step
+
+
+def _candidate_block(batch: Dict, mesh: Any) -> Optional[Any]:
+    """This rank's block of a retrieval's candidates (``candidates``, or
+    two-tower's ``candidate_embs``) as a ``row_parallel.RowShard`` where
+    they are a DTensor whose dim 0 the batch axes split, else None
+    (whole on every rank).  Every other input of as many rows must be
+    laid out as they are; a split over ``model`` (whose ranks compute
+    the same rows) or of another dim is refused, as are blocks of
+    unequal sizes."""
+    key = "candidates" if "candidates" in batch else "candidate_embs"
+    x = batch[key]
+    if not shd.is_sharded(x):
+        return None
+    names = x.device_mesh.mesh_dim_names
+    axes = tuple(names[i] for i, pl in enumerate(x.placements)
+                 if isinstance(pl, shd.Shard))
+    if MODEL in axes or any(pl != shd.Shard(0) for pl in x.placements
+                            if isinstance(pl, shd.Shard)):
+        raise ValueError(f"the candidates are placed {x.placements}: only "
+                         "their rows may be split, over the batch axes")
+    for k, v in batch.items():
+        if (k != key and v.dim() and v.shape[0] == x.shape[0]
+                and tuple(getattr(v, "placements", ())) != x.placements):
+            raise ValueError(f"{k} is not laid out as {key}")
+    if not axes:
+        return None
+    return row_shard(mesh, axes, x.shape[0])
 
 
 # ================================================================= GNN =====

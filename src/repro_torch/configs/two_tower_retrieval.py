@@ -44,6 +44,7 @@ def serving(reduced: bool = False) -> RecsysServing:
         batch_sizes=({"train_batch": 128, "serve_p99": 32, "serve_bulk": 256}
                      if reduced else RECSYS_BATCH_SIZES),
         n_candidates=1000 if reduced else 1_000_000,
+        retrieval_reads=("user", "ctx", "user_tower"),
         train_inputs=_train_inputs(cfg), serve_inputs=_train_inputs(cfg),
         retrieval_inputs=_retrieval_inputs(cfg, 1000 if reduced else 1_000_000),
     )

@@ -33,6 +33,11 @@ A block ``("data", "model")`` nested on dim 0 is rank (d, m)'s block
 Every collective of the route is issued even on an axis of one rank, as
 ``tensor_parallel``'s are, so the route and its count
 (:data:`ROW_COLLECTIVES`) are the same on one card as on many.
+
+Retrieval over candidates split over the batch axes (a block of rows a
+rank, laid out as a table's rows are: a :class:`RowShard`) ranks each
+block where it lies and merges the blocks' top ids
+(:func:`merge_top_ids`, counted in :data:`MERGE_COLLECTIVES`).
 """
 
 from __future__ import annotations
@@ -50,6 +55,9 @@ from repro_torch.kernels.embedding_bag.ref import resolve_window
 # the collectives the lookups issue (forward and backward); a test or the
 # smoke run zeroes it, runs a step and reads it
 ROW_COLLECTIVES = CollectiveCount()
+# the all-gathers of the blocks' top ids that a retrieval over split
+# candidates issues (one for each batch axis that splits them)
+MERGE_COLLECTIVES = CollectiveCount()
 
 
 # --------------------------------------------------------- where rows lie --
@@ -94,12 +102,13 @@ def row_shard(mesh: Any, entry: Any, rows: int) -> RowShard:
 
 
 # ------------------------------------------------------------ collectives --
-def _gather(x: torch.Tensor, groups: Sequence[Any]) -> torch.Tensor:
+def _gather(x: torch.Tensor, groups: Sequence[Any],
+            counter: CollectiveCount = ROW_COLLECTIVES) -> torch.Tensor:
     """``x`` of every rank along ``groups`` (the outermost first) along
     dim 0, in the global batch's order: the innermost gathered first."""
     for g in reversed(groups):
         parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
-        ROW_COLLECTIVES.count += 1
+        counter.count += 1
         dist.all_gather(parts, x.contiguous(), group=g)
         x = torch.cat(parts, 0)
     return x
@@ -161,3 +170,41 @@ def block_rows(table: torch.Tensor, ids: torch.Tensor,
     out = torch.where(ok[:, None], out, float("nan"))
     out = torch.where(add[:, None], out, 0.0)
     return out.reshape(*ids.shape, table.shape[1])
+
+
+def merge_top_ids(scores: torch.Tensor, block: RowShard, k: int
+                  ) -> torch.Tensor:
+    """The global ids of the ``k`` largest of ``block.rows`` scores split
+    over the batch axes, the lower id first among equal scores, as
+    ``jax.lax.top_k`` over all of them gives them; ``scores`` are this
+    rank's block's (rows ``[block.first, block.first + block.n)``).
+
+    Each rank takes its block's top ``min(k, n)`` (a stable descending
+    sort, as ``models.recsys.top_ids`` takes them) as (score, global id)
+    pairs packed in float64 (exact for f32 and bf16 scores and for ids
+    below 2^53), padded to ``k`` with (-inf, ``rows`` + i); the pairs of
+    every rank along the block's axes are all-gathered in rank order (a
+    counted collective an axis); a stable ascending sort of the ids,
+    then a stable descending sort of the scores, keep the first ``k``.
+    The blocks
+    are contiguous and gathered in rank order, and each block's list is
+    already ordered (score descending, id ascending), so the result is
+    the top ``k`` of all ``rows`` ties included; the sort by id places a
+    pad after every candidate, so none is kept while ``k <= rows``.
+    Every rank along the block's axes returns the same ids; ranks along
+    the axes that do not split the candidates (``model``) hold the same
+    block and return them too.  Every such rank calls it."""
+    n = scores.shape[0]
+    if block.n != n:
+        raise ValueError(f"{n} scores for a block of {block.n} rows")
+    mine = torch.sort(scores, descending=True, stable=True).indices[:k]
+    pairs = torch.full((k, 2), float("-inf"), dtype=torch.float64,
+                       device=scores.device)
+    pairs[:, 1] = torch.arange(block.rows, block.rows + k,
+                               dtype=torch.float64, device=scores.device)
+    pairs[:mine.shape[0], 0] = scores[mine].double()
+    pairs[:mine.shape[0], 1] = (mine + block.first).double()
+    every = _gather(pairs, block.batch, MERGE_COLLECTIVES)
+    every = every[torch.sort(every[:, 1], stable=True).indices]
+    order = torch.sort(every[:, 0], descending=True, stable=True).indices
+    return every[order[:k], 1].to(torch.int64)

@@ -23,18 +23,21 @@ The steps.  A train cell (LM ``train_4k``, recsys ``train_batch``, every
 GNN cell) is the bundle's train step on DTensor params and optimizer
 state placed by the bundle's shardings, given the global batch as the
 port's trainer takes it: data-parallel over the batch axes and, for the
-LM, tensor- and expert-parallel over ``model``.  An LM serve cell
-(``prefill_32k``, ``decode_32k``, ``long_500k``) is the bundle's serve
-step (``LMBundle.serve_step``, which real runs call too) on the serving
-layout's weights (``cfg.dtype``) placed by the rules and the batch
-placed by the cell's ``input_sharding``: it gathers each weight over
-the batch axes and computes on its ``model`` shard, and a decode cell's
-cache is cut over the batch axes and over ``model`` on its sequence, as
-the reference's GSPMD cells are.  A recsys serve cell runs as the port
-serves it, as replicas: the serving layout's weights whole on every
-rank, its own rows of the batch (dim 0 over the batch axes where they
-divide it) through the score and retrieval calls.  A retrieval rank
-ranks its own candidates; no merge across ranks is counted.
+LM, tensor- and expert-parallel over ``model``.  A serve cell is the
+bundle's serve step (``LMBundle.serve_step``, ``RecsysBundle
+.serve_step``, which real runs call too) on the serving layout's
+weights (``cfg.dtype``) placed by the rules and the batch placed by the
+cell's ``input_sharding``, as the reference's GSPMD cells lay them out.
+An LM serve cell (``prefill_32k``, ``decode_32k``, ``long_500k``)
+gathers each weight over the batch axes and computes on its ``model``
+shard, and a decode cell's cache is cut over the batch axes and over
+``model`` on its sequence.  A recsys serve cell (``serve_p99``,
+``serve_bulk``, ``retrieval_cand``) looks DLRM's and two-tower's tables
+up where their rows lie and computes their MLPs on their ``model``
+columns, gathers DIN's and SASRec's tables whole, scores a rank's rows
+of the batch, and in ``retrieval_cand`` ranks a rank's block of the
+candidates (split over the batch axes from 1,000,000 rows) and merges
+the blocks' top 100 over those axes.
 
 What is counted, for rank 0:
 
@@ -52,12 +55,15 @@ What is counted, for rank 0:
     of groups whose ranks sit on more than one node;
     ``model_collectives`` are the ``c10d`` collectives over the mesh's
     ``model`` group (``tensor_parallel``'s all-reduces, gathers and
-    reduce-scatters), beside ``MODEL_COLLECTIVES``' count over the same
-    trace;
+    reduce-scatters, and the lookups' sums over ``model``), beside
+    ``MODEL_COLLECTIVES``' count over the same trace, and the counts of
+    ``row_parallel``'s lookups (``ROW_COLLECTIVES``) and retrieval merges
+    (``MERGE_COLLECTIVES``);
   * ``memory``: ``argument_size`` (the rank's blocks of the params,
     optimizer state and batch, as the reference's in_shardings cut them;
     its params are f32 masters in every cell, where the port serves from
-    ``cfg.dtype``),
+    ``cfg.dtype``, and a serve cell's are those it reads:
+    ``serve_params``),
     ``batch_held`` (the batch as the port's step takes it), the peak of
     the bytes of live storages during the step (tracked through
     ``weakref.finalize`` on each storage, so the count holds none alive),
@@ -94,6 +100,10 @@ from repro_torch.configs.families import abstract
 from repro_torch.configs.registry import ARCH_IDS, get_bundle, shape_cells
 from repro_torch.device import dry_running
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.row_parallel import (
+    MERGE_COLLECTIVES,
+    ROW_COLLECTIVES,
+)
 from repro_torch.distributed.tensor_parallel import MODEL, MODEL_COLLECTIVES
 from repro_torch.launch import roofline
 from repro_torch.launch.mesh import HW, make_mesh
@@ -334,20 +344,6 @@ def _fresh(meta_tree) -> Any:
                                           device="meta"), meta_tree)
 
 
-def _batch_rows(meta_tree, shardings, mesh) -> Any:
-    """Each input's block over the batch axes alone (a recsys serving
-    replica's rows; an axis ``model`` names is whole)."""
-    names = list(shd.axis_sizes(mesh))
-
-    def one(m, s):
-        pl = [p if names[i] in shd.BATCH else shd.Replicate()
-              for i, p in enumerate(s.placements)]
-        return torch.empty(_local_shape(m.shape, pl, mesh), dtype=m.dtype,
-                           device="meta")
-
-    return tree_map(one, meta_tree, shardings)
-
-
 def _train_step(bundle, cell: str):
     if bundle.family == "gnn":
         return bundle.cell_specs[cell].train_step()
@@ -360,14 +356,6 @@ def _train_params(bundle, cell: str):
     if bundle.family == "gnn":
         return abstract(bundle.cell_specs[cell].init)
     return bundle.abstract_params()
-
-
-def _serving(bundle, cell: str) -> Tuple[Any, Any]:
-    """A recsys serve cell's (abstract serving weights, step fn)."""
-    sv = bundle.serving
-    params = abstract(lambda g: sv.init(sv.config, g))
-    fn = sv.retrieval if cell == "retrieval_cand" else sv.score
-    return params, lambda p, b: fn(sv.config, p, b)
 
 
 def cell_step(bundle, cell: str, mesh) -> Step:
@@ -394,29 +382,19 @@ def cell_step(bundle, cell: str, mesh) -> Step:
         held = [t.to_local() if isinstance(t, shd.DTensor) else t
                 for t in leaves((params, opt))] + leaves(batch)
         return Step("train", _train_step(bundle, cell), args, size, held)
-    if bundle.family == "lm":
-        # the reference's arguments are its f32 masters, cut by the rules;
-        # the port's serve step holds the serving layout's blocks
-        meta = bundle.abstract_params()
-        pshard = shd.shard_by_rules(meta, mesh, bundle.rules)
-        serving = abstract(lambda g: bundle.init(g, masters=False))
-        params = tree_map(lambda m, s: _placed(m, s, mesh), serving, pshard)
-        batch = tree_map(lambda m, s: _placed(m, s, mesh), inputs, ishard)
-        size = _shard_bytes(meta, pshard, mesh) + batch_shard
-        held = [t.to_local() for t in leaves((params, batch))]
-        return Step("serve", bundle.serve_step(cell), (params, batch), size,
-                    held)
-    meta, fn = _serving(bundle, cell)
-    params = _fresh(meta)
-    batch = _batch_rows(inputs, ishard, mesh)
-    size = sum(_nbytes(t) for t in leaves(params)) + batch_shard
-
-    def serve(p, b):
-        with torch.no_grad():
-            return fn(p, b)
-
-    return Step("serve", serve, (params, batch), size,
-                leaves(params) + leaves(batch))
+    # the reference's arguments are its f32 masters that the cell reads,
+    # cut by the rules; the port's serve step holds the serving layout's
+    # blocks
+    meta = bundle.abstract_params()
+    pshard = shd.shard_by_rules(meta, mesh, bundle.rules)
+    serving = abstract(lambda g: bundle.init(g, masters=False))
+    params = tree_map(lambda m, s: _placed(m, s, mesh), serving, pshard)
+    batch = tree_map(lambda m, s: _placed(m, s, mesh), inputs, ishard)
+    size = _shard_bytes(bundle.serve_params(cell, meta),
+                        bundle.serve_params(cell, pshard), mesh) + batch_shard
+    held = [t.to_local() for t in leaves((params, batch))]
+    return Step("serve", bundle.serve_step(cell), (params, batch), size,
+                held)
 
 
 def _is_train(bundle, cell: str) -> bool:
@@ -463,7 +441,8 @@ def _traced(bundle, cell, mesh_shape, axes, world, flop_counter) -> Dict:
         for t in step.held:
             count.hold(t)
         held = count.live
-        MODEL_COLLECTIVES.reset()
+        for counter in (MODEL_COLLECTIVES, ROW_COLLECTIVES, MERGE_COLLECTIVES):
+            counter.reset()
         fc = FlopCounterMode(display=False) if flop_counter else None
         t0 = time.time()
         with fc or contextlib.nullcontext(), Counting(count):
@@ -492,6 +471,8 @@ def _traced(bundle, cell, mesh_shape, axes, world, flop_counter) -> Dict:
             "collectives": count.collectives(),
             "model_collectives": count.model_collectives,
             "model_collectives_counted": MODEL_COLLECTIVES.count,
+            "row_collectives_counted": ROW_COLLECTIVES.count,
+            "merge_collectives_counted": MERGE_COLLECTIVES.count,
             "kernels": count.kernels,
             "memory": {
                 "argument_size": int(step.argument_size),

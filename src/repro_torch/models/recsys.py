@@ -37,6 +37,16 @@ DLRM's and two-tower's tables looked up where their rows lie
 set of axes that shard tables); DIN's and SASRec's tables gathered
 whole.  Two-tower's towers run on this rank's rows, and its in-batch
 negatives are the whole batch's items, gathered.
+
+Serving on a mesh (``configs.families.RecsysBundle.serve_step``) takes
+the same plan: every score and retrieval function takes ``plan`` (None
+without a mesh: the same bits as before it existed).  A score call
+returns this rank's rows' scores.  A retrieval over candidates that the
+batch axes split (``RecsysPlan.candidates``, the reference's layout of
+1,000,000 candidates or more) ranks this rank's block and merges the
+blocks' top ids over those axes (``row_parallel.merge_top_ids``), so
+every rank returns the top 100 of all candidates; over whole candidates
+each rank ranks all of them and nothing is merged.
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ from repro_torch.distributed.row_parallel import (
     RowShard,
     block_rows,
     lookup_rows,
+    merge_top_ids,
     row_shard,
 )
 from repro_torch.distributed.sharding import (
@@ -104,6 +115,20 @@ def top_ids(scores: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(scores, descending=True, stable=True).indices[:k]
 
 
+def _top(scores: torch.Tensor, k: Optional[int],
+         plan: Optional[RecsysPlan]) -> torch.Tensor:
+    """The ids of the top ``k`` candidates (``min(RETRIEVAL_K, N)`` of N
+    where ``k`` is None) by ``scores``, this rank's block's where
+    ``plan`` splits the candidates (their ids global, merged over the
+    ranks: ``row_parallel.merge_top_ids``)."""
+    block = None if plan is None else plan.candidates
+    n = scores.shape[0] if block is None else block.rows
+    k = min(RETRIEVAL_K, n) if k is None else k
+    if block is None:
+        return top_ids(scores, k)
+    return merge_top_ids(scores, block, k)
+
+
 def bce_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean binary cross-entropy of logits, in f32.  Its gradient at a
     logit of 0 is the reference's: ``maximum`` splits a tie in half in
@@ -119,13 +144,16 @@ def bce_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 # ============================================================ on a mesh ====
 @dataclasses.dataclass(frozen=True)
 class RecsysPlan:
-    """How this rank computes a recsys loss on a mesh: its MLPs' columns
-    over ``columns``, the ``model`` group (:func:`_mlp`; None where the
-    arch computes its MLPs whole), and each table of ``tables`` (by
-    path) where its rows lie, as ``RECSYS_RULES`` lays it out on the
-    mesh."""
+    """How this rank computes a recsys loss or serving call on a mesh:
+    its MLPs' columns over ``columns``, the ``model`` group
+    (:func:`_mlp`; None where the arch computes its MLPs whole), each
+    table of ``tables`` (by path) where its rows lie, as
+    ``RECSYS_RULES`` lays it out on the mesh, and ``candidates``, this
+    rank's block of a retrieval's candidates where the batch axes split
+    them (None: whole on every rank)."""
     columns: Optional[ModelGroup]
     tables: Dict[str, RowShard]
+    candidates: Optional[RowShard] = None
 
 
 def row_tables(cfg: Any) -> Dict[str, Tuple[int, int]]:
@@ -386,11 +414,18 @@ def dlrm_loss(cfg: DLRMConfig, p: Params, batch: Dict) -> torch.Tensor:
                       batch["label"])
 
 
-def dlrm_candidate_scores(cfg: DLRMConfig, p: Params,
-                          batch: Dict) -> torch.Tensor:
+def dlrm_candidate_scores(cfg: DLRMConfig, p: Params, batch: Dict,
+                          plan: Optional[RecsysPlan] = None
+                          ) -> torch.Tensor:
     """One user context (``dense`` (1, 13), ``sparse`` (1, 26)) scored
     against ``candidates`` (N,) ids of table 0, in forwards of at most
-    ``DLRM_RETRIEVAL_CHUNK`` candidates."""
+    ``DLRM_RETRIEVAL_CHUNK`` candidates.  Under ``plan`` the candidates
+    are this rank's (its block, or all of them) and each forward looks
+    the tables up where their rows lie: ``lookup_rows`` is a collective,
+    so every rank runs the same forwards on chunks of the same sizes,
+    for the same tables in the same order.  The blocks of split
+    candidates are equal (``row_parallel.row_shard`` refuses others), so
+    no rank's block ends before another's."""
     cand = batch["candidates"]
     out = []
     for s in range(0, cand.shape[0], DLRM_RETRIEVAL_CHUNK):
@@ -400,14 +435,14 @@ def dlrm_candidate_scores(cfg: DLRMConfig, p: Params,
         sparse[:, 0] = c
         out.append(dlrm_forward(cfg, p, {
             "dense": batch["dense"].expand(n, cfg.n_dense),
-            "sparse": sparse}))
+            "sparse": sparse}, plan))
     return torch.cat(out)
 
 
-def dlrm_retrieval(cfg: DLRMConfig, p: Params, batch: Dict) -> torch.Tensor:
+def dlrm_retrieval(cfg: DLRMConfig, p: Params, batch: Dict,
+                   plan: Optional[RecsysPlan] = None) -> torch.Tensor:
     """Score one user context against N candidate items (vary table 0)."""
-    scores = dlrm_candidate_scores(cfg, p, batch)
-    return top_ids(scores, min(RETRIEVAL_K, scores.shape[0]))
+    return _top(dlrm_candidate_scores(cfg, p, batch, plan), None, plan)
 
 
 # =================================================================== DIN ====
@@ -465,8 +500,9 @@ def din_loss(cfg: DINConfig, p: Params, batch: Dict) -> torch.Tensor:
                       batch["label"])
 
 
-def din_candidate_scores(cfg: DINConfig, p: Params,
-                         batch: Dict) -> torch.Tensor:
+def din_candidate_scores(cfg: DINConfig, p: Params, batch: Dict,
+                         plan: Optional[RecsysPlan] = None
+                         ) -> torch.Tensor:
     """One history (1, seq_len) against ``candidates`` and
     ``candidate_cates`` (N,)."""
     n = batch["candidates"].shape[0]
@@ -476,12 +512,12 @@ def din_candidate_scores(cfg: DINConfig, p: Params,
         "hist_mask": batch["hist_mask"].expand(n, cfg.seq_len),
         "target_item": batch["candidates"],
         "target_cate": batch["candidate_cates"],
-    })
+    }, plan)
 
 
-def din_retrieval(cfg: DINConfig, p: Params, batch: Dict) -> torch.Tensor:
-    scores = din_candidate_scores(cfg, p, batch)
-    return top_ids(scores, min(RETRIEVAL_K, scores.shape[0]))
+def din_retrieval(cfg: DINConfig, p: Params, batch: Dict,
+                  plan: Optional[RecsysPlan] = None) -> torch.Tensor:
+    return _top(din_candidate_scores(cfg, p, batch, plan), None, plan)
 
 
 # ================================================================ SASRec ====
@@ -566,24 +602,28 @@ def sasrec_loss(cfg: SASRecConfig, p: Params, batch: Dict) -> torch.Tensor:
     return batch_mean(tot, n)
 
 
-def sasrec_score(cfg: SASRecConfig, p: Params, batch: Dict) -> torch.Tensor:
-    """Serving: last-position scores (B, C) for ``candidates`` (B, C)."""
+def sasrec_score(cfg: SASRecConfig, p: Params, batch: Dict,
+                 plan: Optional[RecsysPlan] = None) -> torch.Tensor:
+    """Serving: last-position scores (B, C) for ``candidates`` (B, C).
+    A ``plan`` splits nothing of SASRec's (its tables are gathered
+    whole, and the rules split none of its weights)."""
     h = sasrec_backbone(cfg, p, batch["seq"])[:, -1]                  # (B, d)
     cand = embedding_lookup(p["item"]["table"], batch["candidates"], cfg.dtype)
     return torch.einsum("bd,bcd->bc", h, cand)
 
 
-def sasrec_candidate_scores(cfg: SASRecConfig, p: Params,
-                            batch: Dict) -> torch.Tensor:
+def sasrec_candidate_scores(cfg: SASRecConfig, p: Params, batch: Dict,
+                            plan: Optional[RecsysPlan] = None
+                            ) -> torch.Tensor:
     """One sequence (1, S) against ``candidates`` (N,)."""
     h = sasrec_backbone(cfg, p, batch["seq"])[:, -1]                  # (1, d)
     cand = embedding_lookup(p["item"]["table"], batch["candidates"], cfg.dtype)
     return torch.einsum("bd,cd->bc", h, cand)[0]
 
 
-def sasrec_retrieval(cfg: SASRecConfig, p: Params, batch: Dict) -> torch.Tensor:
-    scores = sasrec_candidate_scores(cfg, p, batch)
-    return top_ids(scores, min(RETRIEVAL_K, scores.shape[0]))
+def sasrec_retrieval(cfg: SASRecConfig, p: Params, batch: Dict,
+                     plan: Optional[RecsysPlan] = None) -> torch.Tensor:
+    return _top(sasrec_candidate_scores(cfg, p, batch, plan), None, plan)
 
 
 # ============================================================= Two-tower ====
@@ -674,23 +714,29 @@ def twotower_loss(cfg: TwoTowerConfig, p: Params, batch: Dict) -> torch.Tensor:
     return batch_mean(mine * b, b)
 
 
-def twotower_score(cfg: TwoTowerConfig, p: Params, batch: Dict) -> torch.Tensor:
-    u = user_embed(cfg, p, batch)
-    i = item_embed(cfg, p, batch["item_id"], batch["item_cat"])
+def twotower_score(cfg: TwoTowerConfig, p: Params, batch: Dict,
+                   plan: Optional[RecsysPlan] = None) -> torch.Tensor:
+    u = user_embed(cfg, p, batch, plan)
+    i = item_embed(cfg, p, batch["item_id"], batch["item_cat"], plan)
     return torch.einsum("bd,bd->b", u, i) / cfg.temperature
 
 
-def twotower_candidate_scores(cfg: TwoTowerConfig, p: Params,
-                              batch: Dict) -> torch.Tensor:
+def twotower_candidate_scores(cfg: TwoTowerConfig, p: Params, batch: Dict,
+                              plan: Optional[RecsysPlan] = None
+                              ) -> torch.Tensor:
     """One user against ``candidate_embs`` (N, d) precomputed, in f32.
+    Under ``plan`` the user's row, the same on every rank, is looked up
+    where its tables' rows lie (each rank gets its own copy back) and
+    its tower computed on the ``model`` columns.
 
     The candidate store is the paper's S-strategy in device form: one
     physically contiguous segment array scanned sequentially."""
-    u = user_embed(cfg, p, batch)                                     # (1, d)
+    u = user_embed(cfg, p, batch, plan)                               # (1, d)
     cands = batch["candidate_embs"].to(cfg.dtype)
     return torch.einsum("bd,nd->bn", u, cands)[0].float()
 
 
-def twotower_retrieval(cfg: TwoTowerConfig, p: Params,
-                       batch: Dict) -> torch.Tensor:
-    return top_ids(twotower_candidate_scores(cfg, p, batch), RETRIEVAL_K)
+def twotower_retrieval(cfg: TwoTowerConfig, p: Params, batch: Dict,
+                       plan: Optional[RecsysPlan] = None) -> torch.Tensor:
+    return _top(twotower_candidate_scores(cfg, p, batch, plan), RETRIEVAL_K,
+                plan)

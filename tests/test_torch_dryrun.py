@@ -13,12 +13,13 @@
     a dry run is one charge of its cost and no launch; a tensor with no
     data that reaches a launch outside a dry run raises; a CPU call
     inside one charges nothing;
-  * at REDUCED on a (2, 2) mesh, eight cells (five train cells and the
-    LM's serve cells granite ``prefill_32k`` and ``decode_32k`` and
-    moonshot ``decode_32k``) against the reference's dry run of the same
-    cells (``tests/torch_mesh_ref.py dryrun``, 4 forced host devices):
-    the per-rank dot FLOPs within the band each test states, and
-    ``argument_size`` equal;
+  * at REDUCED on a (2, 2) mesh, ten cells (five train cells, the LM's
+    serve cells granite ``prefill_32k`` and ``decode_32k`` and moonshot
+    ``decode_32k``, and the recsys serve cells DLRM ``serve_bulk`` and
+    two-tower ``retrieval_cand``) against the reference's dry run of the
+    same cells (``tests/torch_mesh_ref.py dryrun``, 4 forced host
+    devices): the per-rank dot FLOPs within the band each test states,
+    and ``argument_size`` equal;
   * granite-3-2b's ``train_4k`` at full width on the (16, 16) mesh: it
     traces, its flash charges are the step's launches, and the ``model``
     all-reduces it sees are ``MODEL_COLLECTIVES``' count;
@@ -26,7 +27,9 @@
     table gathered, under 1 GB of wire bytes and 10 GB of peak;
   * moonshot's ``decode_32k`` at full width on the (16, 16) mesh: it
     fits 80 GB, its ``argument_size`` is the rules' cut, it computes on
-    its ``model`` shards with the cache's sequence split.
+    its ``model`` shards with the cache's sequence split;
+  * two-tower's ``retrieval_cand`` at full width on the (16, 16) mesh:
+    no table gathered, one merge (an all-gather over ``data``), 100 ids.
 """
 
 import json
@@ -66,7 +69,9 @@ REDUCED_CELLS = (("granite-3-2b", "train_4k"),
                  ("two-tower-retrieval", "train_batch"),
                  ("granite-3-2b", "prefill_32k"),
                  ("granite-3-2b", "decode_32k"),
-                 ("moonshot-v1-16b-a3b", "decode_32k"))
+                 ("moonshot-v1-16b-a3b", "decode_32k"),
+                 ("dlrm-mlperf", "serve_bulk"),
+                 ("two-tower-retrieval", "retrieval_cand"))
 
 
 # ------------------------------------------------------------ model_flops --
@@ -279,7 +284,21 @@ def test_reduced_dot_flops_and_arguments_match_reference(arch, cell,
     want = ref_dryrun[f"{arch}|{cell}"]
     assert r["ok"]
     assert r["memory"]["argument_size"] == want["argument_size"]
-    if r["kind"] == "serve":
+    if r["kind"] == "serve" and bundle.family == "recsys":
+        # No backward pass.  Per rank, the port's aten dot FLOPs (the
+        # bag kernel's charge is a gather's, which the reference's dots
+        # leave out) are at least the reference's and at most twice
+        # them: the port repeats on each of the two ``model`` ranks what
+        # GSPMD spreads over them (DLRM's interaction of a rank's rows,
+        # 1.29 here; two-tower's scoring of the whole candidates, 1.89).
+        ratio = r["aten_dot_flops"] / want["dot_flops"]
+        assert 1.0 <= ratio <= 2.0, ratio
+        # the lookups' sums over ``model`` are ``c10d`` collectives over
+        # its group beside ``tensor_parallel``'s
+        assert r["model_collectives_counted"] > 0
+        assert r["model_collectives_counted"] <= r["model_collectives"] \
+            <= r["model_collectives_counted"] + r["row_collectives_counted"]
+    elif r["kind"] == "serve":
         # No backward pass.  The reference's prefill at REDUCED computes
         # every score of its S x S (``mha``, below S 4,096), where the
         # flash kernel charges the causal half, S (S + 1) / 2 pairs: the
@@ -403,6 +422,36 @@ def test_moonshot_decode_at_full_width_fits_on_its_shards():
     finally:
         dist.destroy_process_group()
     assert r["memory"]["argument_size"] == want
+
+
+def test_two_tower_retrieval_at_full_width_merges_over_data(monkeypatch):
+    """two-tower's ``retrieval_cand`` at published widths on the (16, 16)
+    mesh: the 1,000,000 candidates split over ``data`` (62,500 a rank),
+    the query's tables looked up where their rows lie (no all-gather as
+    large as the smallest table the query reads, ``ctx``'s 100,000 rows,
+    51.2 MB in bf16), each rank's top 100 merged by one all-gather over
+    ``data`` (16 ranks x 100 (score, id) pairs in f64, 25,600 bytes),
+    and 100 ids (int64) returned."""
+    from repro_torch.models.recsys import RETRIEVAL_K
+
+    gathers = []
+    count = dryrun.Count._collective
+
+    def spy(self, func, kind, args, kwargs, outs):
+        if kind == "all-gather":
+            gathers.append(sum(dryrun._nbytes(t) for t in outs))
+        return count(self, func, kind, args, kwargs, outs)
+
+    monkeypatch.setattr(dryrun.Count, "_collective", spy)
+    bundle = get_bundle("two-tower-retrieval")
+    cfg = bundle.config
+    r = dryrun.run(bundle, "retrieval_cand", (16, 16), ("data", "model"))
+    assert r["ok"] and r["memory"]["fits"]
+    assert r["merge_collectives_counted"] == 1
+    assert 16 * RETRIEVAL_K * 2 * 8 in gathers
+    assert max(gathers) < cfg.n_context * cfg.embed_dim * 2
+    assert r["collectives"]["by_axis"]["data"]["count"] >= 1
+    assert r["memory"]["output_size"] == RETRIEVAL_K * 8
 
 
 # ------------------------------------------- the card's cross-check --

@@ -13,6 +13,8 @@ whose XLA_FLAGS force enough host devices for the production meshes.
         python tests/torch_mesh_ref.py rowstep IN.npz OUT.npz
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/torch_mesh_ref.py servestep IN.npz OUT.npz
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        python tests/torch_mesh_ref.py recsysserve IN.npz OUT.npz
 
 ``specs`` writes every bundle's param, opt and input specs, at REDUCED
 and full sizes (abstract shapes), on the (16, 16) and (2, 16, 16)
@@ -47,7 +49,15 @@ the prompt (``<arch>/tokens``, (B, S)) once, then from the cache
 one step for each row of ``<arch>/steps`` ((steps, B) tokens), each
 step on the cache the last returned; it writes the prefill's logits
 (``<arch>/prefill``) and each step's (``<arch>/decode``, (steps, B,
-vocab)).
+vocab)).  ``recsysserve`` takes each arch of :data:`RECSYS_SERVE_ARCHS`
+REDUCED in f32 from the params of IN (``<arch>/init/<path>``) through
+the reference's score and retrieval functions, jitted as its bundle's
+``serve_step`` and ``retrieval_step`` cells are, on the same (2, 2)
+mesh with the params placed by the bundle's shardings: for each call of
+``<arch>/calls`` (JSON: name -> [cell, split]) on the batch
+``<arch>/<name>/<input>``, placed by the cell's own ``input_sharding``,
+or with ``split`` with the candidates (and every input of as many rows)
+over ``data``; it writes each call's scores or ids (``<arch>/<name>``).
 """
 
 from __future__ import annotations
@@ -175,7 +185,8 @@ def dump_tp_step(inp: str, out: str) -> None:
 
 
 def _nested(flat: dict) -> dict:
-    """``{"a/b/c": x}`` as ``{"a": {"b": {"c": x}}}``."""
+    """``{"a/b/c": x}`` as ``{"a": {"b": {"c": x}}}``; a level whose keys
+    are all indices (``"0"``, ``"1"``, ...) becomes a list."""
     out: dict = {}
     for k, v in flat.items():
         node = out
@@ -183,7 +194,16 @@ def _nested(flat: dict) -> dict:
         for p in path:
             node = node.setdefault(p, {})
         node[leaf] = v
-    return out
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(out)
 
 
 # the recsys archs whose (2, 2) steps the port's route on their shards
@@ -299,6 +319,62 @@ def dump_serve_step(inp: str, out: str) -> None:
     np.savez(out, **result)
 
 
+# the recsys archs whose (2, 2) serve calls the port's are held to
+RECSYS_SERVE_ARCHS = ("dlrm-mlperf", "din", "sasrec", "two-tower-retrieval")
+
+
+def dump_recsys_serve(inp: str, out: str) -> None:
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs.registry import get_bundle
+    from repro.distributed.sharding import sanitize_shardings
+    from repro.models import recsys as rs
+
+    fns = {"dlrm-mlperf": (rs.dlrm_forward, rs.dlrm_retrieval),
+           "din": (rs.din_forward, rs.din_retrieval),
+           "sasrec": (rs.sasrec_score, rs.sasrec_retrieval),
+           "two-tower-retrieval": (rs.twotower_score,
+                                   rs.twotower_retrieval)}
+    data = dict(np.load(inp))
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
+                             ("data", "model"))
+    result = {}
+    for arch in RECSYS_SERVE_ARCHS:
+        score, retrieval = fns[arch]
+        bundle = get_bundle(arch, reduced=True)
+        cfg = dataclasses.replace(bundle.config, dtype=jnp.float32)
+        head = f"{arch}/init/"
+        params = _nested({k[len(head):]: v for k, v in data.items()
+                          if k.startswith(head)})
+        ps = bundle.param_shardings(mesh)
+        calls = json.loads(str(data[f"{arch}/calls"]))
+        with mesh:
+            p = jax.device_put(params, ps)
+            for name, (cell, split) in calls.items():
+                head = f"{arch}/{name}/"
+                batch = {k[len(head):]: jnp.asarray(v)
+                         for k, v in data.items() if k.startswith(head)}
+                bs = sanitize_shardings(
+                    bundle.cells[cell].input_sharding(mesh)["batch"], batch,
+                    mesh)
+                if split:
+                    n = batch["candidates" if "candidates" in batch
+                              else "candidate_embs"].shape[0]
+                    bs = {k: NamedSharding(mesh, P("data", *([None] * (
+                        v.ndim - 1)))) if v.ndim and v.shape[0] == n
+                        else bs[k] for k, v in batch.items()}
+                fn = retrieval if cell == "retrieval_cand" else score
+                step = jax.jit(lambda p, b, fn=fn, cfg=cfg: fn(cfg, p, b),
+                               in_shardings=(ps, bs))
+                result[f"{arch}/{name}"] = np.asarray(step(p, batch))
+    np.savez(out, **result)
+
+
 # the cells the port's dry run is held to, (arch, cell) at REDUCED
 DRYRUN_CELLS = (("granite-3-2b", "train_4k"),
                 ("moonshot-v1-16b-a3b", "train_4k"),
@@ -306,7 +382,9 @@ DRYRUN_CELLS = (("granite-3-2b", "train_4k"),
                 ("two-tower-retrieval", "train_batch"),
                 ("granite-3-2b", "prefill_32k"),
                 ("granite-3-2b", "decode_32k"),
-                ("moonshot-v1-16b-a3b", "decode_32k"))
+                ("moonshot-v1-16b-a3b", "decode_32k"),
+                ("dlrm-mlperf", "serve_bulk"),
+                ("two-tower-retrieval", "retrieval_cand"))
 
 
 def dump_dryrun(out: str) -> None:
@@ -368,5 +446,7 @@ if __name__ == "__main__":
         dump_row_step(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "servestep":
         dump_serve_step(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "recsysserve":
+        dump_recsys_serve(sys.argv[2], sys.argv[3])
     else:
         dump_psum(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

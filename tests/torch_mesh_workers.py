@@ -42,6 +42,15 @@ set up from a file store in DIR (no network):
            rank's logits, prefill K/V, final cache blocks and MoE drops,
            and the count of ``model`` collectives; rank 0 writes
            ``DIR/serve_out.pt``.
+``recsysserve``  on the same mesh, from ``DIR/recsysserve_inputs.pt``:
+           for each recsys arch (its f32 serving params and its calls:
+           a cell, a batch and whether the candidates are split over
+           ``data``), the bundle's serve step (``RecsysBundle
+           .serve_step``) on the params placed by the rules and the
+           batch placed by the cell's sharding (:func:`serve_layout`);
+           every rank's scores or ids and the counts of lookup,
+           ``model`` and merge collectives; rank 0 writes
+           ``DIR/recsysserve_out.pt``.
 """
 
 from __future__ import annotations
@@ -116,6 +125,37 @@ def recsys_f32(arch: str):
     tr = get_training(arch, reduced=True)
     return dataclasses.replace(
         tr, config=dataclasses.replace(tr.config, dtype=torch.float32))
+
+
+def recsys_bundle_f32(arch: str):
+    """The arch's REDUCED recsys bundle computing (and serving) in f32."""
+    b = get_bundle(arch, reduced=True)
+    cfg = dataclasses.replace(b.config, dtype=torch.float32)
+    return dataclasses.replace(
+        b, serving=dataclasses.replace(b.serving, config=cfg),
+        training=dataclasses.replace(b.training, config=cfg))
+
+
+def serve_layout(bundle, cell: str, batch: dict, mesh, split: bool) -> dict:
+    """The shardings of a serve cell's ``batch`` on ``mesh``: the cell's
+    own (``input_sharding``, fitted to the shapes), or with ``split`` its
+    retrieval candidates (and every input of as many rows) over
+    ``data``."""
+    from repro_torch.distributed.sharding import (
+        NamedSharding,
+        P,
+        sanitize_shardings,
+    )
+
+    own = sanitize_shardings(bundle.input_sharding(cell, mesh)["batch"],
+                             batch, mesh)
+    if not split:
+        return own
+    n = batch["candidates" if "candidates" in batch
+              else "candidate_embs"].shape[0]
+    return {k: NamedSharding(mesh, P("data", *([None] * (v.dim() - 1))))
+            if v.dim() and v.shape[0] == n else own[k]
+            for k, v in batch.items()}
 
 
 def lm_trainer(bundle, params, mesh, ckpt_dir):
@@ -399,6 +439,38 @@ def serve(rank: int, world: int, d: str, data: int) -> None:
         torch.save(out, os.path.join(d, "serve_out.pt"))
 
 
+def recsysserve(rank: int, world: int, d: str, data: int) -> None:
+    """Each arch of ``DIR/recsysserve_inputs.pt`` through its bundle's
+    serve steps on the mesh."""
+    from repro_torch.distributed.row_parallel import (
+        MERGE_COLLECTIVES,
+        ROW_COLLECTIVES,
+    )
+
+    inputs = torch.load(os.path.join(d, "recsysserve_inputs.pt"))
+    mesh = make_mesh((data, world // data), ("data", "model"), device="cpu")
+    coord = tuple(mesh.get_coordinate())
+    counters = (ROW_COLLECTIVES, MODEL_COLLECTIVES, MERGE_COLLECTIVES)
+    out = {}
+    for arch, case in inputs.items():
+        bundle = recsys_bundle_f32(arch)
+        placed = tree_map(place, case["params"],
+                          bundle.param_shardings(mesh))
+        mine = {}
+        for name, (cell, batch, split) in case["calls"].items():
+            layout = serve_layout(bundle, cell, batch, mesh, split)
+            for c in counters:
+                c.reset()
+            got = bundle.serve_step(cell)(
+                placed, {k: place(v, layout[k]) for k, v in batch.items()})
+            mine[name] = {"out": got, "rows": ROW_COLLECTIVES.count,
+                          "model": MODEL_COLLECTIVES.count,
+                          "merge": MERGE_COLLECTIVES.count}
+        out[arch] = every_rank((coord, mine))
+    if rank == 0:
+        torch.save(out, os.path.join(d, "recsysserve_out.pt"))
+
+
 def main() -> None:
     case, rank, world, d = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
                             sys.argv[4])
@@ -411,7 +483,7 @@ def main() -> None:
                     compressed_psum(x).numpy())
         else:
             run = {"train": train, "tp": tp, "rows": rows,
-                   "serve": serve}[case]
+                   "serve": serve, "recsysserve": recsysserve}[case]
             run(rank, world, d,
                 int(sys.argv[5]) if len(sys.argv) > 5 else world)
         dist.barrier()
