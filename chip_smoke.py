@@ -233,7 +233,13 @@ Phases (any failure exits non-zero before the last line is printed):
      every gradient leaf) at full width on Cora and molecule, and all
      four cells at REDUCED, 3 steps card against CPU.  TF32 must be off
      and no hand kernel may launch: the reference's MACE reaches no
-     Pallas kernel;
+     Pallas kernel.  Then "mesh gnn": Cora and the molecules at those
+     widths, one step each unsharded and on a one-rank NCCL mesh (the
+     batch on its node and edge blocks, ``graph_parallel``), from the
+     same params and batch under deterministic algorithms: the loss and
+     every param bit for bit, ``GRAPH_COLLECTIVES`` as worked out from
+     the layers, no hand kernel launched, the step's peak at most
+     MESH_PEAK_RATIO of the unsharded step's;
  16. dryrun: granite-3-2b's step on a one-rank NCCL mesh at 8 x 4,096 in
      4 microbatches held to its own dry run (``launch.dryrun``) at that
      shape: each hand kernel's charges equal its launches, the ``model``
@@ -502,6 +508,8 @@ REDDIT_DEGREE = 492
 GNN_INVARIANCE_TOL = 1e-4
 GNN_LOSS_RTOL = 1e-5
 GNN_GRAD_REL_L2 = 1e-4
+# mesh gnn: the cells stepped unsharded and on a one-rank mesh
+MESH_GNN = ("full_graph_sm", "molecule")
 
 
 def log(msg: str) -> None:
@@ -5267,6 +5275,136 @@ def gnn_train_phase(device, hand_kernels, seed: int = 0) -> dict:
             "seconds": time.perf_counter() - t0, "failures": failures}
 
 
+def graph_route_count(n_layers: int, node_axes: int, edge_axes: int,
+                      energies: bool) -> int:
+    """The collectives ``graph_parallel``'s route issues in one MACE train
+    step whose nodes are split over ``node_axes`` mesh axes and edges
+    over ``edge_axes``: the positions gathered once (one a node axis);
+    in each layer's forward and again in its recompute, the states
+    gathered (one a node axis) and the messages summed into their
+    owners (one an edge axis), and in its backward both transposed; a
+    molecule's energies summed over the node axes and back."""
+    count = node_axes + 3 * n_layers * (node_axes + edge_axes)
+    return count + (2 * node_axes if energies else 0)
+
+
+def split_axes(mesh, rows: int) -> int:
+    """The batch axes ``shard_batch`` splits ``rows`` rows over: all of
+    them where their product divides the rows, else none."""
+    from repro_torch.distributed.sharding import BATCH, axis_sizes
+
+    sizes = axis_sizes(mesh)
+    axes = [n for n in BATCH if n in sizes]
+    return len(axes) if rows % int(np.prod([sizes[n] for n in axes])) == 0 \
+        else 0
+
+
+def mesh_gnn_step(name: str, spec, batch: dict, mesh, device,
+                  failures: List[str]) -> dict:
+    """One ``Trainer`` step of the cell ``spec`` with the bundle's AdamW,
+    without a mesh and then on ``mesh`` from the same params and batch
+    (the trainer places the batch over the batch axes; each rank
+    computes its node rows and edge block): the loss and every param bit
+    for bit, ``GRAPH_COLLECTIVES`` equal to :func:`graph_route_count`,
+    the step's peak at most MESH_PEAK_RATIO of the unsharded step's.  A
+    step of each route from the same params is taken first and thrown
+    away, so both timed steps run warm."""
+    from repro_torch.distributed.graph_parallel import GRAPH_COLLECTIVES
+    from repro_torch.distributed.sharding import (
+        GNN_RULES,
+        is_sharded,
+        place,
+        shard_by_rules,
+    )
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import flatten_with_path, leaves, path_name, tree_map
+
+    cfg = spec.config
+    expect = graph_route_count(
+        cfg.n_layers, split_axes(mesh, batch["pos"].shape[0]),
+        split_axes(mesh, batch["edges_src"].shape[0]), "energy" in batch)
+    log(f"mesh gnn {name}: {expect} graph collectives expected a step")
+    params = spec.init(torch.Generator(device=device).manual_seed(0))
+    placed = tree_map(place, params, shard_by_rules(params, mesh, GNN_RULES))
+    tc = TrainerConfig(opt=spec.opt, log_every=1)
+    for warm in (params, placed):     # each trainer copies its params
+        one_step(Trainer(spec.loss_fn(), warm, tc, device=device), batch,
+                 device)
+    plain_tr = Trainer(spec.loss_fn(), params, tc, device=device)
+    plain = one_step(plain_tr, batch, device)
+    plain_params = leaves(plain_tr.params)
+    del plain_tr
+    mesh_tr = Trainer(spec.loss_fn(), placed, tc, device=device)
+    del placed, params
+    GRAPH_COLLECTIVES.reset()
+    sharded = one_step(mesh_tr, batch, device)
+    count = GRAPH_COLLECTIVES.count
+    differ = [path_name(p) for (p, a), b in zip(
+        flatten_with_path(mesh_tr.params), plain_params)
+        if not (is_sharded(a) and torch.equal(a.to_local(), b))]
+    same_loss = sharded["loss"] == plain["loss"]
+    ratio = sharded["step_peak_bytes"] / plain["step_peak_bytes"]
+    log(f"mesh gnn {name}: unsharded step {plain['s'] * 1e3:.1f} ms, mesh "
+        f"step {sharded['s'] * 1e3:.1f} ms, loss {sharded['loss']:.6f} vs "
+        f"{plain['loss']:.6f}, {len(differ)} params differ, step peak "
+        f"ratio {ratio:.4f}, {count} graph collectives ({expect} expected)")
+    if not same_loss or differ:
+        failures.append(
+            f"mesh gnn {name}: the one-rank mesh step differs from the "
+            f"unsharded one: loss {sharded['loss']!r} vs {plain['loss']!r}, "
+            f"{len(differ)} params differ ({differ[:3]})")
+    if count != expect:
+        failures.append(f"mesh gnn {name}: {count} graph collectives, "
+                        f"{expect} expected")
+    if ratio > MESH_PEAK_RATIO:
+        failures.append(f"mesh gnn {name}: the mesh step's peak is "
+                        f"{ratio:.4f} of the unsharded step's (at most "
+                        f"{MESH_PEAK_RATIO})")
+    del mesh_tr, plain_params
+    return {"nodes": int(batch["pos"].shape[0]),
+            "edges": int(batch["edges_src"].shape[0]),
+            "unsharded": plain, "sharded": sharded,
+            "loss_bit_identical": same_loss, "params_differing": differ[:10],
+            "n_params_differing": len(differ), "step_peak_ratio": ratio,
+            "graph_collectives": count,
+            "expected_graph_collectives": expect}
+
+
+def mesh_gnn_phase(device, hand_kernels, seed: int = 0) -> dict:
+    """MESH_GNN's cells of ``get_bundle("mace")`` at their published
+    widths (Cora's 2,708 nodes, 10,556 edges and 1,433 features; 128
+    molecules), each through :func:`mesh_gnn_step` on a one-rank NCCL
+    mesh (``one_rank_mesh``) under :func:`deterministic_algorithms`:
+    the edge blocks' ``index_add_`` sums take CUDA atomics in an order
+    that changes from run to run without it.  No hand kernel may
+    launch."""
+    from repro_torch.configs.registry import get_bundle
+
+    t0 = time.perf_counter()
+    failures = free_check("mesh gnn", device)
+    before = {k.symbol: k.launches for k in hand_kernels}
+    bundle = get_bundle("mace")
+    cells: Dict[str, dict] = {}
+    with one_rank_mesh() as mesh, deterministic_algorithms():
+        for name in MESH_GNN:
+            spec = bundle.cell_specs[name]
+            batch = (gnn_mol_batch(spec.config, bundle.sizes["mol"], seed,
+                                   device) if name == "molecule" else
+                     gnn_node_batch(spec.config, *bundle.sizes["cora"],
+                                    seed, device))
+            cells[name] = mesh_gnn_step(name, spec, batch, mesh, device,
+                                        failures)
+            del batch
+    after = {k.symbol: k.launches for k in hand_kernels}
+    if after != before:
+        failures.append(f"mesh gnn: hand kernels launched on the GNN path: "
+                        f"{before} -> {after}")
+    torch.cuda.empty_cache()
+    return {"cells": cells,
+            "hand_kernel_launches": {k: after[k] - before[k] for k in after},
+            "seconds": time.perf_counter() - t0, "failures": failures}
+
+
 # ---------------------------------------------------------------- main --
 def smi_line() -> str:
     proc = subprocess.run(
@@ -5449,6 +5587,11 @@ def main(argv: Sequence[str] = ()) -> int:
         {k: v for k, v in gnn.items() if k not in ("cells", "config")}))
     failures += gnn["failures"]
     log(f"gnn train phase: {gnn['seconds']:.1f} s")
+    mgnn = mesh_gnn_phase(device, kernels + train_kernels + (EMBEDDING_BAG,),
+                          args.seed)
+    log("mesh gnn: " + json.dumps(mgnn))
+    failures += mgnn["failures"]
+    log(f"mesh gnn phase: {mgnn['seconds']:.1f} s")
 
     dry = dryrun_phase(device, train_kernels + kernels + (EMBEDDING_BAG,),
                        smi)
@@ -5596,7 +5739,7 @@ def main(argv: Sequence[str] = ()) -> int:
              "recsys_train": train,
              "moe_serve": moe, "moe_serve_qwen3": qwen3,
              "moe_parity": mparity, "lm_train": lm, "mesh": mesh,
-             "gnn_train": gnn, "dryrun": dry,
+             "gnn_train": gnn, "mesh_gnn": mgnn, "dryrun": dry,
              "kernels": line["kernels"], "failures": failures}, indent=1))
     if failures:
         for f in failures:

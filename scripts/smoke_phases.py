@@ -32,7 +32,10 @@ attention wrappers' grad guard and the flash
 backward kernel on both routes against the plain backward at the cases
 the ``lm`` phase checks, without the training), ``gnn`` (MACE trained at
 its published widths in the GNN bundle's four cells, data from
-``--seed``; no hand kernel may launch), ``dryrun`` (granite-3-2b's step
+``--seed``; no hand kernel may launch), ``mgnn`` (Cora's and the
+molecules' steps at those widths on a one-rank NCCL mesh, on their node
+and edge blocks, against the same steps unsharded, bit for bit, with
+the route's count of collectives), ``dryrun`` (granite-3-2b's step
 on a one-rank NCCL mesh held to its own dry run, then the dry run of the
 cells; ``--dryrun-cells ARCH,...`` traces only those archs' cells on
 the (16, 16) mesh).  Builds the kernels,
@@ -53,7 +56,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("kattn", "recsys", "mserve", "rtrain", "moe", "qwen3", "mparity", "lm",
-          "mesh", "guard", "attn", "bwd", "gnn", "dryrun")
+          "mesh", "guard", "attn", "bwd", "gnn", "mgnn", "dryrun")
 PATH_NAMES = {"moe": "moe_serve", "qwen3": "moe_serve_qwen3", "lm": "lm_train"}
 SUMMARY_KEYS = ("tokens_per_s", "prefill", "decode_step", "dropped",
                 "peak_mem_bytes", "serve_peak_mem_bytes", "launches", "step",
@@ -171,6 +174,9 @@ def main(argv=None) -> int:
             device)},
         "bwd": lambda: backward_phase(cs, device),
         "gnn": lambda: cs.gnn_train_phase(
+            device, kernels + (VARINT_DECODE, SORTED_MEMBER_MASK,
+                               EMBEDDING_BAG), args.seed),
+        "mgnn": lambda: cs.mesh_gnn_phase(
             device, kernels + (VARINT_DECODE, SORTED_MEMBER_MASK,
                                EMBEDDING_BAG), args.seed),
         "dryrun": lambda: cs.dryrun_phase(

@@ -23,11 +23,11 @@ every call is a no-op on the local tensors it is given; the calls stand
 at the reference's sites, as its record of where each activation lies.
 
 A step on a mesh hands a loss its batch as DTensors sharded over the
-batch axes.  A loss takes its rows with :func:`local` (or the whole
-batch with :func:`gathered`, where rows are not independent, as in a
-graph) and ends in :func:`batch_mean`, which makes the value this rank's
-share of the mean over the global batch: the shares sum to it, and so do
-their gradients, whatever each rank's count of valid terms.
+batch axes.  A loss takes its rows with :func:`local` (a graph's node
+rows and edge block through ``graph_parallel``, where rows are not
+independent) and ends in :func:`batch_mean`, which makes the value this
+rank's share of the mean over the global batch: the shares sum to it,
+and so do their gradients, whatever each rank's count of valid terms.
 """
 
 from __future__ import annotations
@@ -46,7 +46,6 @@ from repro_torch.distributed.sharding import (
     P,
     PartitionSpec,
     axis_sizes,
-    full_tensor,
     local_shard,
     placements,
 )
@@ -110,11 +109,6 @@ def constrain(x, *entries):
 def local(x: Any) -> Any:
     """This rank's block of a DTensor; anything else as it is."""
     return x.to_local() if isinstance(x, DTensor) else x
-
-
-def gathered(x: Any) -> Any:
-    """The whole of a DTensor on every rank; anything else as it is."""
-    return full_tensor(x)
 
 
 def local_batch(batch: Any) -> Any:

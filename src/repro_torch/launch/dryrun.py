@@ -21,9 +21,16 @@ For each cell:
 
 The steps.  A train cell (LM ``train_4k``, recsys ``train_batch``, every
 GNN cell) is the bundle's train step on DTensor params and optimizer
-state placed by the bundle's shardings, given the global batch as the
-port's trainer takes it: data-parallel over the batch axes and, for the
-LM, tensor- and expert-parallel over ``model``.  A serve cell is the
+state placed by the bundle's shardings.  An LM or recsys cell is given
+the global batch as the port's trainer takes it: data-parallel over the
+batch axes and, for the LM, tensor- and expert-parallel over ``model``
+(the recsys tables where their rows lie).  A GNN cell is given its batch
+placed by the cell's ``input_sharding``, as the reference lays it out,
+and computes each rank's node rows and edge block
+(``distributed.graph_parallel``): on (16, 16) Cora and ogbn-products
+are whole on every rank, the sampled cell and the molecules split over
+``data``; on (2, 16, 16) Cora, the sampled cell and the molecules split
+over the batch axes or ``pod``, ogbn-products' edges over ``pod``.  A serve cell is the
 bundle's serve step (``LMBundle.serve_step``, ``RecsysBundle
 .serve_step``, which real runs call too) on the serving layout's
 weights (``cfg.dtype``) placed by the rules and the batch placed by the
@@ -58,7 +65,8 @@ What is counted, for rank 0:
     reduce-scatters, and the lookups' sums over ``model``), beside
     ``MODEL_COLLECTIVES``' count over the same trace, and the counts of
     ``row_parallel``'s lookups (``ROW_COLLECTIVES``) and retrieval merges
-    (``MERGE_COLLECTIVES``);
+    (``MERGE_COLLECTIVES``) and of ``graph_parallel``'s route
+    (``GRAPH_COLLECTIVES``);
   * ``memory``: ``argument_size`` (the rank's blocks of the params,
     optimizer state and batch, as the reference's in_shardings cut them;
     its params are f32 masters in every cell, where the port serves from
@@ -100,6 +108,7 @@ from repro_torch.configs.families import abstract
 from repro_torch.configs.registry import ARCH_IDS, get_bundle, shape_cells
 from repro_torch.device import dry_running
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.graph_parallel import GRAPH_COLLECTIVES
 from repro_torch.distributed.row_parallel import (
     MERGE_COLLECTIVES,
     ROW_COLLECTIVES,
@@ -372,7 +381,11 @@ def cell_step(bundle, cell: str, mesh) -> Step:
         pshard = shd.shard_by_rules(meta, mesh, bundle.rules)
         params = tree_map(lambda m, s: _placed(m, s, mesh), meta, pshard)
         opt = opt_init(params)
-        batch = _fresh(inputs)
+        # a GNN cell computes on the reference's layout of its batch (the
+        # trainer keeps a placed batch as it lies); the LM's and the
+        # recsys family's take the global batch, placed by the trainer
+        batch = (tree_map(lambda m, s: _placed(m, s, mesh), inputs, ishard)
+                 if bundle.family == "gnn" else _fresh(inputs))
         args = (params, opt, batch)
         # the params' blocks, AdamW's f32 mu and nu of each, its int32 step
         size = (_shard_bytes(meta, pshard, mesh)
@@ -380,7 +393,7 @@ def cell_step(bundle, cell: str, mesh) -> Step:
                                    pshard, mesh)
                 + 4 + batch_shard)
         held = [t.to_local() if isinstance(t, shd.DTensor) else t
-                for t in leaves((params, opt))] + leaves(batch)
+                for t in leaves((params, opt, batch))]
         return Step("train", _train_step(bundle, cell), args, size, held)
     # the reference's arguments are its f32 masters that the cell reads,
     # cut by the rules; the port's serve step holds the serving layout's
@@ -441,7 +454,8 @@ def _traced(bundle, cell, mesh_shape, axes, world, flop_counter) -> Dict:
         for t in step.held:
             count.hold(t)
         held = count.live
-        for counter in (MODEL_COLLECTIVES, ROW_COLLECTIVES, MERGE_COLLECTIVES):
+        for counter in (MODEL_COLLECTIVES, ROW_COLLECTIVES, MERGE_COLLECTIVES,
+                        GRAPH_COLLECTIVES):
             counter.reset()
         fc = FlopCounterMode(display=False) if flop_counter else None
         t0 = time.time()
@@ -473,6 +487,7 @@ def _traced(bundle, cell, mesh_shape, axes, world, flop_counter) -> Dict:
             "model_collectives_counted": MODEL_COLLECTIVES.count,
             "row_collectives_counted": ROW_COLLECTIVES.count,
             "merge_collectives_counted": MERGE_COLLECTIVES.count,
+            "graph_collectives_counted": GRAPH_COLLECTIVES.count,
             "kernels": count.kernels,
             "memory": {
                 "argument_size": int(step.argument_size),

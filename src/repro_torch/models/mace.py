@@ -40,10 +40,18 @@ einsums outside any Pallas kernel; the port is plain PyTorch (gathers,
     where the reference's does (Y, rbf, R, the gathered h, the messages,
     A and each layer's output); it is a no-op outside a mesh, and on one
     it leaves the port's local tensors as they are.
-  * Under a mesh the losses gather the graph's inputs
-    (``hooks.gathered``), run the forward whole on every rank, and take
-    their share of the loss over this rank's rows of the labels
-    (``hooks.rows_like``, ``hooks.batch_mean``).
+  * On a mesh (the batch's inputs DTensors placed over the batch axes)
+    each rank computes on its own blocks, as the reference's
+    ``constrain`` pins lay the work out
+    (:mod:`repro_torch.distributed.graph_parallel`): the first layer's
+    scalars and every layer's node algebra and output on its own node
+    rows, Y, rbf and the messages on its own edge block (whose indices
+    name the whole graph's nodes).  A layer gathers the node states
+    whole, sums its edges' messages into a whole partial A, and sums the
+    partials into the rows' owners; the positions are gathered whole,
+    with no gradient.  The readout and the loss take the rank's own
+    rows, and a molecule's energy sums its nodes' outputs over the ranks
+    that hold them.
 
 Gradients reach the parameters and the node inputs, not the positions:
 the reference's losses take none with respect to them, and a call that
@@ -62,13 +70,13 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from repro_torch.distributed.hooks import (
-    batch_mean,
-    constrain,
-    gathered,
-    local,
-    rows_like,
+from repro_torch.distributed.graph_parallel import (
+    GraphShards,
+    graph_shards,
+    local_inputs,
+    sum_over_nodes,
 )
+from repro_torch.distributed.hooks import batch_mean, constrain, rows_like
 from repro_torch.nn.layers import dense_init, mlp_apply, mlp_init
 from repro_torch.tree import flatten_with_path, leaves, unflatten
 
@@ -331,6 +339,19 @@ def _aggregate(lp: Params, h: torch.Tensor, e: _Edges) -> torch.Tensor:
     return constrain(A, "batch", None, None)
 
 
+def _node_sums(lp: Params, h: torch.Tensor, e: _Edges,
+               shards: Optional[GraphShards]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole graph's states and A of the rows of ``h``: without
+    ``shards`` h itself and every edge's message summed into its node;
+    with them the states gathered whole, this rank's edge block's
+    messages summed into a whole partial, and the partials summed into
+    their owners' rows."""
+    hw = h if shards is None else shards.gather(h)
+    A = _aggregate(lp, hw, e)
+    return hw, (A if shards is None else shards.to_owners(A))
+
+
 class _Layer(torch.autograd.Function):
     """One interaction layer, ``h -> node_update(h, A(h))``, remat as the
     reference's ``jax.checkpoint(layer)``: the forward keeps its input h
@@ -338,19 +359,24 @@ class _Layer(torch.autograd.Function):
     gradient a block at a time into one buffer per tensor: each node
     block's by autograd, each edge block's written out (only the radial
     MLP's by autograd), so a block never holds more than a few
-    (EDGE_BLOCK, k, 9) tensors."""
+    (EDGE_BLOCK, k, 9) tensors.  With ``shards`` h and the output are
+    this rank's node rows and the edges its edge block; the backward
+    transposes the route's collectives (``graph_parallel``) outside the
+    block loops."""
 
     @staticmethod
-    def forward(ctx, edges: _Edges, template: Params, last: bool,
-                h: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, edges: _Edges, shards: Optional[GraphShards],
+                template: Params, last: bool, h: torch.Tensor,
+                *params: torch.Tensor) -> torch.Tensor:
         lp = unflatten(template, list(params))
-        A = _aggregate(lp, h, edges)
+        A = _node_sums(lp, h, edges, shards)[1]
         N, k = h.shape[:2]
         out = torch.empty((N, k) if last else (N, k, N_IRREPS),
                           dtype=torch.float32, device=h.device)
         for n0, n1 in _blocks(N, NODE_BLOCK):
             out[n0:n1] = node_update(lp, h[n0:n1], A[n0:n1], edges.C, last)
-        ctx.edges, ctx.template, ctx.last = edges, template, last
+        ctx.edges, ctx.shards = edges, shards
+        ctx.template, ctx.last = template, last
         ctx.save_for_backward(h, *params)
         return out
 
@@ -358,7 +384,8 @@ class _Layer(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g_out: torch.Tensor):
         h, *params = ctx.saved_tensors
-        e, template, last = ctx.edges, ctx.template, ctx.last
+        e, shards = ctx.edges, ctx.shards
+        template, last = ctx.template, ctx.last
         k = h.shape[1]
         radial = [i for i, (path, _) in enumerate(flatten_with_path(template))
                   if path[0] == "radial"]
@@ -374,8 +401,11 @@ class _Layer(torch.autograd.Function):
                 if g is not None:
                     g_p[i] += g
 
-        A = _aggregate(unflatten(template, params), h, e)
-        g_h = torch.zeros_like(h)
+        # the whole graph's states' gradient takes this rank's node rows'
+        # from the node blocks and its edge block's from the edge blocks
+        hw, A = _node_sums(unflatten(template, params), h, e, shards)
+        first = 0 if shards is None else shards.nodes.first
+        g_h = torch.zeros_like(hw)
         g_A = torch.empty_like(A)
         for n0, n1 in _blocks(h.shape[0], NODE_BLOCK):
             with torch.enable_grad():
@@ -388,9 +418,11 @@ class _Layer(torch.autograd.Function):
                 out = node_update(unflatten(template, lp), hc, Ac, e.C, last)
                 gh, gA, *gp = torch.autograd.grad(
                     out, [hc, Ac, *ps], g_out[n0:n1], allow_unused=True)
-            g_h[n0:n1], g_A[n0:n1] = gh, gA
+            g_h[first + n0:first + n1], g_A[n0:n1] = gh, gA
             add(node, gp)
         del A
+        if shards is not None:
+            g_A = shards.to_owners_t(g_A)
         radial_template = template["radial"]
         for b0, b1 in _edge_blocks(e.src.shape[0], e.chunk):
             src, YC = e.src[b0:b1], y_gaunt(e.Y[b0:b1], e.C)
@@ -400,7 +432,7 @@ class _Layer(torch.autograd.Function):
             # msg = tp * R: d tp = d msg * R, d hs = d tp @ YC^T
             g_msg = g_A.index_select(0, e.dst[b0:b1])
             g_tp = g_msg * R.detach()
-            if h.dim() == 2:
+            if hw.dim() == 2:
                 g_hs = (g_tp * YC[:, None, 0, :]).sum(-1)
             else:
                 g_hs = torch.bmm(g_tp, YC.transpose(1, 2))
@@ -408,10 +440,12 @@ class _Layer(torch.autograd.Function):
             g_h.index_add_(0, src, g_hs)
             del g_hs
             # d R = d msg * tp
-            g_msg.mul_(_tensor_product(h.index_select(0, src), YC))
+            g_msg.mul_(_tensor_product(hw.index_select(0, src), YC))
             add(radial, torch.autograd.grad(R, ps, g_msg))
             del g_msg
-        return (None, None, None, g_h, *g_p)
+        if shards is not None:
+            g_h = shards.gather_t(g_h)
+        return (None, None, None, None, g_h, *g_p)
 
 
 def _padded_edges(cfg: MACEConfig, Y, rbf, src, dst, C) -> _Edges:
@@ -439,8 +473,12 @@ def mace_forward(
     edges_src: torch.Tensor,   # (E,) int32 or int64
     edges_dst: torch.Tensor,   # (E,)
     edge_mask: Optional[torch.Tensor] = None,  # (E,)
+    shards: Optional[GraphShards] = None,
 ) -> torch.Tensor:
-    """Returns node outputs (N, n_out)."""
+    """Returns node outputs (N, n_out).  With ``shards``
+    (``graph_parallel.graph_shards`` of the batch) the node inputs and
+    the outputs are this rank's node rows, and the edge inputs its edge
+    block, whose indices name the whole graph's nodes."""
     if positions.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
             "mace_forward takes no gradient with respect to positions "
@@ -453,6 +491,8 @@ def mace_forward(
         scal = p["species"]["table"].index_select(0, node_feat.reshape(-1))
 
     src, dst = edges_src, edges_dst
+    if shards is not None:
+        positions = shards.gather(positions)
     rvec = positions.index_select(0, dst) - positions.index_select(0, src)
     x, y, z = rvec.unbind(-1)
     # |rvec|^2 summed in the reference's order, and its square root
@@ -481,21 +521,21 @@ def mace_forward(
     h = scal
     n = len(p["layers"])
     for i, lp in enumerate(p["layers"]):
-        h = _Layer.apply(edges, lp, i == n - 1, h, *leaves(lp))
+        h = _Layer.apply(edges, shards, lp, i == n - 1, h, *leaves(lp))
     inv = h if n else scal                                   # (N, k)
     return mlp_apply(p["readout"], inv, dtype=torch.float32)
 
 
 # ------------------------------------------------------------- objectives ---
 def mace_node_xent(cfg: MACEConfig, p: Params, batch: Dict) -> torch.Tensor:
-    g = {k: gathered(v) for k, v in batch.items()}
+    shards = graph_shards(batch)
+    b = local_inputs(batch, shards)
     out = mace_forward(
-        cfg, p, g["feat"], g["pos"], g["edges_src"],
-        g["edges_dst"], g.get("edge_mask"),
+        cfg, p, b["feat"], b["pos"], b["edges_src"],
+        b["edges_dst"], b.get("edge_mask"), shards,
     )
-    logits = rows_like(out, batch["labels"]).float()
-    labels = local(batch["labels"])
-    mask = local(batch.get("label_mask"))
+    logits = out.float()
+    labels, mask = b["labels"], b.get("label_mask")
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long().clamp(min=0)[:, None])[:, 0]
     nll = logz - gold
@@ -505,13 +545,19 @@ def mace_node_xent(cfg: MACEConfig, p: Params, batch: Dict) -> torch.Tensor:
 
 
 def mace_energy_mse(cfg: MACEConfig, p: Params, batch: Dict) -> torch.Tensor:
-    g = {k: gathered(v) for k, v in batch.items()}
+    """The molecules' energies from every node's output: this rank's
+    nodes' outputs added by ``graph_of`` into a partial of every graph,
+    summed over the node axes (a graph's nodes may lie on several
+    ranks), and the rows of ``energy`` as it is placed."""
+    shards = graph_shards(batch)
+    b = local_inputs(batch, shards)
     out = mace_forward(
-        cfg, p, g["species"], g["pos"], g["edges_src"],
-        g["edges_dst"], g.get("edge_mask"),
+        cfg, p, b["species"], b["pos"], b["edges_src"],
+        b["edges_dst"], b.get("edge_mask"), shards,
     )[:, 0]
-    n_graphs = g["energy"].shape[0]
+    n_graphs = batch["energy"].shape[0]
     energies = torch.zeros(n_graphs, dtype=out.dtype, device=out.device)
-    energies = energies.index_add(0, g["graph_of"], out)
-    sq = rows_like((energies - g["energy"]) ** 2, batch["energy"])
+    energies = energies.index_add(0, b["graph_of"], out)
+    energies = rows_like(sum_over_nodes(energies, shards), batch["energy"])
+    sq = (energies - b["energy"]) ** 2
     return batch_mean(torch.sum(sq), sq.shape[0])

@@ -14,8 +14,10 @@ the port of ``repro.train.trainer``.
     (:mod:`repro_torch.distributed.sharding`), data-parallel over the
     batch axes and, for a loss that declares its split (the LM's and the
     recsys family's), tensor- and expert-parallel over ``model``
-    (:mod:`repro_torch.distributed.tensor_parallel`) and on tables where
-    their rows lie (:mod:`repro_torch.distributed.row_parallel`): see
+    (:mod:`repro_torch.distributed.tensor_parallel`), on tables where
+    their rows lie (:mod:`repro_torch.distributed.row_parallel`), and
+    for the GNN family on its node and edge blocks
+    (:mod:`repro_torch.distributed.graph_parallel`): see
     :func:`build_train_step`.
 """
 
@@ -110,7 +112,8 @@ def build_train_step(
     Where ``params`` are DTensors (and ``opt_state`` is laid out as
     :func:`opt_init` lays it), the step runs on their mesh, inside
     :func:`~repro_torch.distributed.hooks.use_mesh`, with ``batch`` the
-    global batch on every rank:
+    global batch on every rank, as plain tensors or already placed on
+    the mesh (DTensors, kept as they lie; one microbatch):
 
       * it gathers the params it computes with over the batch axes (on a
         mesh of one rank, their local tensors: nothing is copied).  Where
@@ -123,10 +126,13 @@ def build_train_step(
         a rank, the recsys MLPs' columns); ``leaf_kinds.LOCAL``, the
         leaf is computed on as it lies, this rank's block over every
         axis (a recsys table looked up where its rows lie); None, the
-        leaf is gathered whole.  Every leaf of a loss without it (the
-        GNN family) is gathered whole;
-      * each microbatch (rows in the global batch's order, as in the
-        reference) is placed by ``shard_batch`` over the batch axes, and
+        leaf is gathered whole.  Every leaf of a loss without it is
+        gathered whole: the GNN family's, which its rules replicate, and
+        which it computes with on its batch shards
+        (:mod:`repro_torch.distributed.graph_parallel`);
+      * each microbatch of plain tensors (rows in the global batch's
+        order, as in the reference) is placed by ``shard_batch`` over the
+        batch axes, and
         the loss, which takes its rows with ``hooks.local`` and ends in
         ``hooks.batch_mean``, is this rank's share of the global loss:
         its gradient is this rank's part of the global gradient, whatever
@@ -145,6 +151,8 @@ def build_train_step(
 
     def grads_of(params, batch, placed: Callable[[Any], Any]):
         mb = cfg.microbatches
+        if mb > 1 and any(is_sharded(x) for x in leaves(batch)):
+            raise ValueError("a batch placed on the mesh is one microbatch")
         if mb > 1:
             micro = tree_map(
                 lambda x: x.reshape((mb, x.shape[0] // mb) + tuple(x.shape[1:])),
@@ -183,7 +191,8 @@ def build_train_step(
         def placed(b):
             if mesh is None:
                 return b
-            return tree_map(place, b, shard_batch(b, mesh))
+            return tree_map(lambda x, s: x if is_sharded(x) else place(x, s),
+                            b, shard_batch(b, mesh))
 
         with use_mesh(mesh):
             full = tree_map(_compute_leaf, params, dims)

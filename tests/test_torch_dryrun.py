@@ -23,6 +23,9 @@
   * granite-3-2b's ``train_4k`` at full width on the (16, 16) mesh: it
     traces, its flash charges are the step's launches, and the ``model``
     all-reduces it sees are ``MODEL_COLLECTIVES``' count;
+  * MACE's ``minibatch_lg`` at full width on the (16, 16) mesh: its
+    route's 13 collectives over ``data``, a sixteenth of the whole
+    batch's dot FLOPs a rank;
   * two-tower's ``train_batch`` at full width on the (16, 16) mesh: no
     table gathered, under 1 GB of wire bytes and 10 GB of peak;
   * moonshot's ``decode_32k`` at full width on the (16, 16) mesh: it
@@ -268,11 +271,10 @@ def ref_dryrun(tmp_path_factory):
 
 
 # the factor by which the port repeats a rank's share that the reference
-# splits on a (2, 2) mesh: MACE runs the whole batch on every rank (the
-# reference splits it over data); the LM and the recsys family split as
-# the reference does
+# splits on a (2, 2) mesh: none, as every family splits as the reference
+# does (MACE's nodes and edges over data, each rank on its own blocks)
 REPEATED = {"granite-3-2b": 1, "moonshot-v1-16b-a3b": 1, "dlrm-mlperf": 1,
-            "mace": 2, "two-tower-retrieval": 1}
+            "mace": 1, "two-tower-retrieval": 1}
 
 
 @pytest.mark.parametrize("arch,cell", REDUCED_CELLS)
@@ -341,6 +343,32 @@ def test_granite_train_at_full_width_on_the_single_mesh():
     assert r["aten_dot_flops"] == r["flop_counter_total"]
     assert r["collectives"]["by_axis"]["model"]["cross_node"]
     assert r["memory"]["fits"]
+
+
+# MACE's ``minibatch_lg`` on (16, 16) counted over MODEL_FLOPS when every
+# rank ran the whole batch (the dry run before the route on the batch
+# shards, as PERF.md records it)
+MACE_MINIBATCH_WHOLE_X_MODEL = 298.55
+
+
+def test_mace_minibatch_at_full_width_computes_on_its_data_shards():
+    """The sampled cell's 169,984 nodes and 168,960 edges split over
+    ``data`` on (16, 16): the route's 13 collectives (the positions
+    gathered once; per layer, forward and recomputed, the states
+    gathered and the messages summed into their owners, and both
+    transposed) all over ``data``, and a rank's dot FLOPs a sixteenth of
+    the whole batch's."""
+    bundle = get_bundle("mace")
+    r = dryrun.run(bundle, "minibatch_lg", (16, 16), ("data", "model"))
+    layers = bundle.cell_specs["minibatch_lg"].config.n_layers
+    assert r["ok"]
+    assert r["graph_collectives_counted"] == 1 + 3 * layers * 2
+    assert set(r["collectives"]["by_axis"]) == {"data"}
+    assert r["collectives"]["by_axis"]["data"]["count"] \
+        >= r["graph_collectives_counted"]
+    x_model = r["flops"] / roofline.model_flops("mace", "minibatch_lg", 256)
+    assert MACE_MINIBATCH_WHOLE_X_MODEL / x_model == pytest.approx(
+        16, rel=0.02)
 
 
 def test_two_tower_train_at_full_width_gathers_no_table(monkeypatch):

@@ -15,6 +15,8 @@ whose XLA_FLAGS force enough host devices for the production meshes.
         python tests/torch_mesh_ref.py servestep IN.npz OUT.npz
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/torch_mesh_ref.py recsysserve IN.npz OUT.npz
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        python tests/torch_mesh_ref.py gnnstep IN.npz OUT.npz
 
 ``specs`` writes every bundle's param, opt and input specs, at REDUCED
 and full sizes (abstract shapes), on the (16, 16) and (2, 16, 16)
@@ -58,6 +60,13 @@ mesh with the params placed by the bundle's shardings: for each call of
 ``<arch>/<name>/<input>``, placed by the cell's own ``input_sharding``,
 or with ``split`` with the candidates (and every input of as many rows)
 over ``data``; it writes each call's scores or ids (``<arch>/<name>``).
+``gnnstep`` takes each MACE cell of IN REDUCED from its params
+(``<cell>/init/<path>``) through the cell's own jitted train step on the
+same (2, 2) mesh, params and optimizer state placed by the bundle's
+rules and the batch (``<cell>/batch/<input>``) by the cell's
+``input_sharding``, sanitized as the dry run sanitizes it, for one
+step; it writes the loss (``<cell>/loss``) and the final params
+(``<cell>/final/<path>``).
 """
 
 from __future__ import annotations
@@ -387,6 +396,46 @@ DRYRUN_CELLS = (("granite-3-2b", "train_4k"),
                 ("two-tower-retrieval", "retrieval_cand"))
 
 
+def dump_gnn_step(inp: str, out: str) -> None:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs.registry import get_bundle
+    from repro.distributed.sharding import (
+        sanitize_shardings,
+        shard_by_rules,
+    )
+    from repro.train.optim import adamw_init
+
+    data = dict(np.load(inp))
+    bundle = get_bundle("mace", reduced=True)
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
+                             ("data", "model"))
+    result = {}
+    for name in sorted({k.split("/")[0] for k in data}):
+        cell = bundle.cells[name]
+        head = f"{name}/init/"
+        params = _nested({k[len(head):]: v for k, v in data.items()
+                          if k.startswith(head)})
+        batch = {k.split("/")[2]: jnp.asarray(v) for k, v in data.items()
+                 if k.startswith(f"{name}/batch/")}
+        ps = shard_by_rules(params, mesh, bundle.rules)
+        os_ = {"mu": ps, "nu": ps, "step": NamedSharding(mesh, P())}
+        bs = sanitize_shardings(cell.input_sharding(mesh)["batch"], batch,
+                                mesh)
+        step = jax.jit(cell.fn, in_shardings=(ps, os_, bs),
+                       out_shardings=(ps, os_, None))
+        with mesh:
+            p, _, metrics = step(jax.device_put(params, ps),
+                                 jax.device_put(adamw_init(params), os_),
+                                 jax.device_put(batch, bs))
+        result[f"{name}/loss"] = np.asarray(float(metrics["loss"]))
+        result.update({f"{name}/final/{k}": v for k, v in _flat(p).items()})
+    np.savez(out, **result)
+
+
 def dump_dryrun(out: str) -> None:
     import jax
     from jax.sharding import NamedSharding
@@ -448,5 +497,7 @@ if __name__ == "__main__":
         dump_serve_step(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "recsysserve":
         dump_recsys_serve(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "gnnstep":
+        dump_gnn_step(sys.argv[2], sys.argv[3])
     else:
         dump_psum(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -51,6 +51,18 @@ set up from a file store in DIR (no network):
            every rank's scores or ids and the counts of lookup,
            ``model`` and merge collectives; rank 0 writes
            ``DIR/recsysserve_out.pt``.
+``gnn``    on the mesh of ``DIR/gnn_inputs.pt`` (its shape and axis
+           names; DATA is unused), for each GNN case (a REDUCED cell, f32
+           params, a batch, and whether the trainer places it or the
+           cell's ``input_sharding`` does): one ``Trainer`` step on the
+           node and edge blocks (``graph_parallel``) with the count of
+           the route's collectives, the step's gradient (the ranks'
+           shares summed over the batch axes) and where every rank's
+           blocks lie,
+           the same step without a mesh where the case asks, and
+           ``gather_nodes`` / ``sum_to_owners`` of a test function on the
+           case's blocks with its gradient; rank 0 writes
+           ``DIR/gnn_out.pt``.
 """
 
 from __future__ import annotations
@@ -84,7 +96,12 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.transformer import lm_model_dims
 from repro_torch.train.optim import global_norm
-from repro_torch.train.trainer import Trainer, TrainerConfig, opt_init
+from repro_torch.train.trainer import (
+    Trainer,
+    TrainerConfig,
+    opt_init,
+    value_and_grad,
+)
 from repro_torch.tree import flatten_with_path, path_name, tree_map
 
 LM_MICROBATCHES = 2
@@ -471,6 +488,85 @@ def recsysserve(rank: int, world: int, d: str, data: int) -> None:
         torch.save(out, os.path.join(d, "recsysserve_out.pt"))
 
 
+def gnn(rank: int, world: int, d: str, data: int) -> None:
+    """Each case of ``DIR/gnn_inputs.pt`` through ``Trainer`` on the node
+    and edge blocks, and the route's two differentiable collectives."""
+    from repro_torch.distributed.graph_parallel import (
+        GRAPH_COLLECTIVES,
+        gather_nodes,
+        graph_shards,
+        sum_to_owners,
+    )
+    from repro_torch.distributed.hooks import batch_sum_, local
+    from repro_torch.distributed.sharding import (
+        GNN_RULES,
+        sanitize_shardings,
+        shard_batch,
+    )
+
+    inputs = torch.load(os.path.join(d, "gnn_inputs.pt"))
+    shape, axes = inputs["mesh"]
+    mesh = make_mesh(tuple(shape), tuple(axes), device="cpu")
+    coord = tuple(mesh.get_coordinate())
+    bundle = get_bundle("mace", reduced=True)
+    out = {}
+    for name, case in inputs["cases"].items():
+        cell = bundle.cell_specs[case["cell"]]
+        batch = case["batch"]
+        layout = (sanitize_shardings(cell.input_sharding(mesh)["batch"],
+                                     batch, mesh)
+                  if case["layout"] == "cell" else shard_batch(batch, mesh))
+        placed = {k: place(v, layout[k]) for k, v in batch.items()}
+        shards = graph_shards(placed)
+        given = placed if case["layout"] == "cell" else batch
+        params = tree_map(place, case["params"],
+                          shard_by_rules(case["params"], mesh, GNN_RULES))
+        tr = Trainer(cell.loss_fn(), params,
+                     TrainerConfig(opt=cell.opt, log_every=1), device="cpu")
+        GRAPH_COLLECTIVES.reset()
+        tr.fit(lambda c: given, 1)
+        count = GRAPH_COLLECTIVES.count
+        # the step's gradient: every rank's share summed over the batch
+        # axes, as the step sums it
+        with use_mesh(mesh):
+            _, grads = value_and_grad(cell.loss_fn(), gathered(params),
+                                      placed)
+            grads = tree_map(batch_sum_, grads)
+        mine = {"loss": tr.history[0]["loss"], "params": gathered(tr.params),
+                "grads": grads, "collectives": count,
+                "axes": (shards.nodes.axes, shards.edges.axes),
+                "blocks": every_rank((coord, (shards.nodes.first,
+                                              shards.nodes.n),
+                                      (shards.edges.first, shards.edges.n)))}
+        if case.get("plain"):
+            one = Trainer(cell.loss_fn(), case["params"],
+                          TrainerConfig(opt=cell.opt, log_every=1),
+                          device="cpu")
+            one.fit(lambda c: batch, 1)
+            mine["plain"] = {"loss": one.history[0]["loss"],
+                             "params": one.params}
+        f = case.get("function")
+        if f is not None:
+            # y = sum_to_owners(c * z * w), z = gather_nodes(h): c counts
+            # the edges of this rank's block into each node, so y is the
+            # in-degree times h times w on the owners' rows; each rank
+            # holding a node row takes its share of sum(y * q)
+            first, n = shards.nodes.first, shards.nodes.n
+            h = f["h"][first:first + n].clone().requires_grad_(True)
+            z = gather_nodes(h, shards)
+            dst = local(placed["edges_dst"]).long()
+            c = torch.zeros(f["h"].shape[0]).index_add_(
+                0, dst, torch.ones(dst.shape[0]))
+            y = sum_to_owners(c[:, None] * z * f["w"], shards)
+            holders = world // (f["h"].shape[0] // n)
+            ((y * f["q"][first:first + n]).sum() / holders).backward()
+            mine["function"] = every_rank((first, z.detach(), y.detach(),
+                                           h.grad))
+        out[name] = mine
+    if rank == 0:
+        torch.save(out, os.path.join(d, "gnn_out.pt"))
+
+
 def main() -> None:
     case, rank, world, d = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
                             sys.argv[4])
@@ -483,7 +579,8 @@ def main() -> None:
                     compressed_psum(x).numpy())
         else:
             run = {"train": train, "tp": tp, "rows": rows,
-                   "serve": serve, "recsysserve": recsysserve}[case]
+                   "serve": serve, "recsysserve": recsysserve,
+                   "gnn": gnn}[case]
             run(rank, world, d,
                 int(sys.argv[5]) if len(sys.argv) > 5 else world)
         dist.barrier()
