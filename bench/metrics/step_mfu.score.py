@@ -1,0 +1,9 @@
+"""A scoring call's counted bound (its FLOPs over each dtype's peak, or
+its bytes over the bandwidth, the larger) over the window's mean call
+time."""
+
+from bench.lib import readers
+
+
+def read(run):
+    return readers.step_mfu(run, with_bytes=True)
