@@ -32,6 +32,7 @@ from repro_torch.kernels.embedding_bag.ref import (
     resolve_ids,
     resolve_window,
 )
+from repro_torch.obs import span
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 EMBEDDING_BAG = CudaKernel(
@@ -291,8 +292,9 @@ def embedding_bags(tables: Sequence[torch.Tensor], ids: torch.Tensor,
     if device.type != "cpu" and ids.shape[2] > 1 and (
             ids.stride(2) != 1 or weights.stride(2) != 1):
         raise ValueError("ids and weights must be contiguous along K")
-    return _EmbeddingBags.apply(head, ids, weights, id_rule, dtype, windows,
-                                *tables)
+    with span("lookup"):
+        return _EmbeddingBags.apply(head, ids, weights, id_rule, dtype,
+                                    windows, *tables)
 
 
 class _EmbeddingBags(torch.autograd.Function):

@@ -96,6 +96,7 @@ from repro_torch.distributed.tensor_parallel import (
     gather_from_model,
     model_group,
 )
+from repro_torch.obs import span
 from repro_torch.sparse.embedding import embedding_lookup
 from repro_torch.tree import flatten_with_path, path_name, unflatten
 
@@ -384,28 +385,33 @@ def dlrm_forward(cfg: DLRMConfig, p: Params, batch: Dict,
     looked up where their rows lie, one launch for each set of axes that
     shard tables (:func:`_dlrm_bags`), and the MLPs compute on this
     rank's columns."""
-    dense_x = batch["dense"]
-    sparse = batch["sparse"]
-    B = dense_x.shape[0]
-    d = _mlp(p["bot"], dense_x.to(cfg.dtype), plan, cfg.dtype,
-             final_act=True)                                     # (B, D)
-    tables = [p["tables"][f"t{i}"]["table"] for i in range(cfg.n_sparse)]
-    # each lookup is rounded to its table's dtype; where that is cfg.dtype
-    # the bags go straight into the f32 input of the interaction (a bf16
-    # value widens exactly), else into cfg.dtype and are widened after
-    zdt = torch.float32 if tables[0].dtype == cfg.dtype else cfg.dtype
-    if plan is None:
-        ids = sparse.to(torch.int32).t()[..., None]        # (26, B, 1) view
-        z = embedding_bags(tables, ids, _ones(cfg.n_sparse, B, ids.device),
-                           id_rule="fill", dtype=zdt, head=d)    # (B, 27, D)
-    else:
-        z = _dlrm_bags(cfg, plan, tables, sparse, d, zdt)
-    zf = z.float()
-    inter = zf @ zf.transpose(1, 2)                              # (B, 27, 27)
-    iu = torch.triu_indices(z.shape[1], z.shape[1], 1, device=z.device)
-    flat = inter[:, iu[0], iu[1]].to(cfg.dtype)                  # (B, 351)
-    x = torch.cat([d, flat], dim=-1)
-    return _mlp(p["top"], x, plan, cfg.dtype)[:, 0]
+    with span("dlrm.forward"):
+        dense_x = batch["dense"]
+        sparse = batch["sparse"]
+        B = dense_x.shape[0]
+        d = _mlp(p["bot"], dense_x.to(cfg.dtype), plan, cfg.dtype,
+                 final_act=True)                                 # (B, D)
+        tables = [p["tables"][f"t{i}"]["table"]
+                  for i in range(cfg.n_sparse)]
+        # each lookup is rounded to its table's dtype; where that is
+        # cfg.dtype the bags go straight into the f32 input of the
+        # interaction (a bf16 value widens exactly), else into cfg.dtype
+        # and are widened after
+        zdt = torch.float32 if tables[0].dtype == cfg.dtype else cfg.dtype
+        if plan is None:
+            ids = sparse.to(torch.int32).t()[..., None]    # (26, B, 1) view
+            z = embedding_bags(tables, ids,
+                               _ones(cfg.n_sparse, B, ids.device),
+                               id_rule="fill", dtype=zdt,
+                               head=d)                           # (B, 27, D)
+        else:
+            z = _dlrm_bags(cfg, plan, tables, sparse, d, zdt)
+        zf = z.float()
+        inter = zf @ zf.transpose(1, 2)                          # (B, 27, 27)
+        iu = torch.triu_indices(z.shape[1], z.shape[1], 1, device=z.device)
+        flat = inter[:, iu[0], iu[1]].to(cfg.dtype)              # (B, 351)
+        x = torch.cat([d, flat], dim=-1)
+        return _mlp(p["top"], x, plan, cfg.dtype)[:, 0]
 
 
 def dlrm_loss(cfg: DLRMConfig, p: Params, batch: Dict) -> torch.Tensor:

@@ -80,6 +80,7 @@ from repro_torch.nn.layers import (
     rope_tables,
     softmax_xent,
 )
+from repro_torch.obs import span
 from repro_torch.tree import (
     flatten_with_path,
     leaves,
@@ -346,12 +347,19 @@ def _embed(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     ``model``."""
     table = params["embed"]["table"]
     if plan is None or not plan.vocab:
-        return table[tokens].to(cfg.dtype)
+        return _cast(table[tokens], cfg.dtype)
     n = table.shape[0]
     at = tokens.long() - plan.rank * n
     here = ((at >= 0) & (at < n))[..., None]
     rows = torch.where(here, table[at.clamp(0, n - 1)], 0.0)
-    return reduce_from_model(rows, plan.group).to(cfg.dtype)
+    return _cast(reduce_from_model(rows, plan.group), cfg.dtype)
+
+
+def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A master weight (or its rows) in the compute dtype, in the span
+    that every such cast is charged to."""
+    with span("lm.cast"):
+        return t.to(dtype)
 
 
 def _constrain_qkv(cfg: TransformerConfig, q, k, v):
@@ -394,7 +402,7 @@ def _qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
         t = lp[name][key]
         if cols is not None and name != "wq":
             t = copy_to_model(t, plan.group).index_select(-1, cols)
-        return t.to(dt)
+        return _cast(t, dt)
 
     q = h @ weight("wq", "w")
     k = h @ weight("wk", "w")
@@ -414,7 +422,7 @@ def _out(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
     projected by ``wo`` (this rank's heads' rows under a ``plan`` that
     splits them, the products summed over ``model``)."""
     B, S = o.shape[:2]
-    o = o.reshape(B, S, -1) @ lp["wo"]["w"].to(cfg.dtype)
+    o = o.reshape(B, S, -1) @ _cast(lp["wo"]["w"], cfg.dtype)
     if plan is not None and plan.heads:
         o = reduce_from_model(o, plan.group)
     return constrain(x + o.to(x.dtype), "batch", None, None)
@@ -426,10 +434,12 @@ def _attend(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
     """Causal self-attention over ``x`` (B, S, d) added to it, and the
     layer's roped K and its V, (B, S, n_kv, D) each (this rank's heads
     under ``plan``)."""
-    h = rms_norm(lp["ln1"], x, cfg.rms_eps)
+    with span("lm.norm"):
+        h = rms_norm(lp["ln1"], x, cfg.rms_eps)
     q, k, v = _qkv(cfg, lp, h, plan)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    with span("lm.rope"):
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     q, k, v = _constrain_qkv(cfg, q, k, v)
     return _out(cfg, lp, x, attention(q, k, v, causal=True), plan), k, v
 
@@ -441,7 +451,8 @@ def _ffn(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
     (empty for a dense layer); ``batch`` and ``plan`` as ``moe_apply``
     takes them (the MLP's hidden units split under ``plan``, its output
     summed over ``model``)."""
-    h = rms_norm(lp["ln2"], x, cfg.rms_eps)
+    with span("lm.norm"):
+        h = rms_norm(lp["ln2"], x, cfg.rms_eps)
     dt = cfg.dtype
     if cfg.moe is not None:
         y, aux = moe_apply(lp["moe"], h, cfg.moe, dtype=dt, batch=batch,
@@ -452,9 +463,9 @@ def _ffn(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
         h = h.to(dt)
         if split:
             h = copy_to_model(h, plan.group)
-        g = F.silu(h @ m["wg"]["w"].to(dt))
-        u = h @ m["wu"]["w"].to(dt)
-        y = (g * u) @ m["wd"]["w"].to(dt)
+        g = F.silu(h @ _cast(m["wg"]["w"], dt))
+        u = h @ _cast(m["wu"]["w"], dt)
+        y = (g * u) @ _cast(m["wd"]["w"], dt)
         if split:
             y = reduce_from_model(y, plan.group)
         aux = {}
@@ -517,15 +528,16 @@ def backbone(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
         for key in AUX_SUMS:
             if key in aux:
                 sums[key] = sums[key] + aux[key] if key in sums else aux[key]
-    return rms_norm(params["ln_f"], x, cfg.rms_eps), sums
+    with span("lm.norm"):
+        return rms_norm(params["ln_f"], x, cfg.rms_eps), sums
 
 
 def _unembed_w(cfg: TransformerConfig, params: Params,
                dtype: torch.dtype) -> torch.Tensor:
     """The (d, vocab) unembedding in ``dtype``."""
     if cfg.tie_embeddings:
-        return params["embed"]["table"].to(dtype).T
-    return params["unembed"]["w"].to(dtype)
+        return _cast(params["embed"]["table"], dtype).T
+    return _cast(params["unembed"]["w"], dtype)
 
 
 def _unembed_chunk(cfg: TransformerConfig, params: Params,
@@ -573,23 +585,25 @@ def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     B, S, d = h.shape
     C = min(cfg.loss_chunk, S)
     assert S % C == 0
-    w = _unembed_w(cfg, params, h.dtype)
-    plan = lm_plan(cfg)
-    if plan is not None and plan.vocab:
-        h = copy_to_model(h, plan.group)
-    tot = torch.zeros((), dtype=torch.float32, device=h.device)
-    n = torch.zeros((), dtype=torch.int64, device=h.device)
-    for i in range(0, S, C):
-        ll = labels[:, i:i + C]
-        nll = checkpoint(_chunk_nll, h[:, i:i + C], w, ll, plan,
-                         use_reentrant=False)
-        cnt = (ll != -1).sum()
-        tot = tot + nll * cnt
-        n = n + cnt
-    loss = batch_mean(tot, n)
-    if "balance_loss" in aux:
-        loss = loss + 0.01 * aux["balance_loss"] / cfg.n_layers / batch_ranks()
-    return loss, aux
+    with span("lm.loss"):
+        w = _unembed_w(cfg, params, h.dtype)
+        plan = lm_plan(cfg)
+        if plan is not None and plan.vocab:
+            h = copy_to_model(h, plan.group)
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        n = torch.zeros((), dtype=torch.int64, device=h.device)
+        for i in range(0, S, C):
+            ll = labels[:, i:i + C]
+            nll = checkpoint(_chunk_nll, h[:, i:i + C], w, ll, plan,
+                             use_reentrant=False)
+            cnt = (ll != -1).sum()
+            tot = tot + nll * cnt
+            n = n + cnt
+        loss = batch_mean(tot, n)
+        if "balance_loss" in aux:
+            loss = loss + (0.01 * aux["balance_loss"] / cfg.n_layers
+                           / batch_ranks())
+        return loss, aux
 
 
 class LMLoss:

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.distributed.leaf_kinds import reduce_over_shards
 from repro_torch.distributed.tensor_parallel import ModelGroup
+from repro_torch.obs import span
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -120,19 +121,21 @@ def adamw_update(cfg: OptConfig, grads: Any, state: Dict, params: Any,
     leaf's temporaries at a time beside the state, where a new tree would
     hold the state twice (at DLRM-MLPerf's widths 36 GB of it).  The
     values are the same either way."""
-    step = state["step"] + 1
-    gn = global_norm(grads) if grad_norm is None else grad_norm
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    lr = schedule_lr(cfg, step)
-    bc1 = 1 - cfg.b1 ** step.to(torch.float32)
-    bc2 = 1 - cfg.b2 ** step.to(torch.float32)
-    out = [
-        _update_leaf(cfg, p, g, m, n, scale, lr, bc1, bc2, donate)
-        for p, g, m, n in zip(leaves(params), leaves(grads),
-                              leaves(state["mu"]), leaves(state["nu"]))
-    ]
-    new_p = unflatten(params, [o[0] for o in out])
-    new_mu = unflatten(params, [o[1] for o in out])
-    new_nu = unflatten(params, [o[2] for o in out])
-    metrics = {"grad_norm": gn, "lr": lr}
-    return new_p, {"mu": new_mu, "nu": new_nu, "step": step}, metrics
+    with span("optimizer"):
+        step = state["step"] + 1
+        gn = global_norm(grads) if grad_norm is None else grad_norm
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9),
+                            max=1.0)
+        lr = schedule_lr(cfg, step)
+        bc1 = 1 - cfg.b1 ** step.to(torch.float32)
+        bc2 = 1 - cfg.b2 ** step.to(torch.float32)
+        out = [
+            _update_leaf(cfg, p, g, m, n, scale, lr, bc1, bc2, donate)
+            for p, g, m, n in zip(leaves(params), leaves(grads),
+                                  leaves(state["mu"]), leaves(state["nu"]))
+        ]
+        new_p = unflatten(params, [o[0] for o in out])
+        new_mu = unflatten(params, [o[1] for o in out])
+        new_nu = unflatten(params, [o[2] for o in out])
+        metrics = {"grad_norm": gn, "lr": lr}
+        return new_p, {"mu": new_mu, "nu": new_nu, "step": step}, metrics

@@ -63,6 +63,7 @@ from repro_torch.distributed.sharding import (
     shard_batch,
     sharding_of,
 )
+from repro_torch.obs import span
 from repro_torch.train.optim import (
     OptConfig,
     adamw_init,
@@ -322,16 +323,18 @@ class Trainer:
         data order makes a restart exact."""
         last = {}
         while self.step_num < n_steps:
-            batch = tree_map(lambda x: _tensor(x, self.device),
-                             batches(self.data_cursor))
-            self.params, self.opt_state, metrics = self._step(
-                self.params, self.opt_state, batch
-            )
-            self.step_num += 1
-            self.data_cursor += 1
-            if self.step_num % self.cfg.log_every == 0 or self.step_num == n_steps:
-                last = {k: float(v) for k, v in metrics.items()}
-                self.history.append({"step": self.step_num, **last})
+            with span("train.step"):
+                batch = tree_map(lambda x: _tensor(x, self.device),
+                                 batches(self.data_cursor))
+                self.params, self.opt_state, metrics = self._step(
+                    self.params, self.opt_state, batch
+                )
+                self.step_num += 1
+                self.data_cursor += 1
+                if (self.step_num % self.cfg.log_every == 0
+                        or self.step_num == n_steps):
+                    last = {k: float(v) for k, v in metrics.items()}
+                    self.history.append({"step": self.step_num, **last})
             if self.ckpt and self.step_num % self.cfg.ckpt_every == 0:
                 self.ckpt.save(
                     self.step_num, self.params, self.opt_state,
