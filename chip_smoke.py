@@ -292,6 +292,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # (kernels.costs): the bound column of the kernels line
 from repro_torch.kernels.costs import (  # noqa: E402
     Cost,
+    adamw_cost,
     bag_bytes,
     flash_backward_cost,
     flash_cost,
@@ -3421,15 +3422,16 @@ def reduced_train_checks(device) -> dict:
     return out
 
 
-def recsys_train_phase(device, bag) -> dict:
+def recsys_train_phase(device, bag, adamw) -> dict:
     """dlrm-mlperf at its published widths with each table capped at
     TRAIN_ROW_CAP rows, f32 masters drawn on the card, trained through
     ``Trainer`` with the recsys bundle's optimizer on batches of
     ``train_batch`` rows: the kernel route's table gradients against the
     plain route's on one batch, TRAIN_WARMUP_STEPS warm-up steps and
-    TRAIN_TIMED_STEPS timed ones (the bag kernel must launch once a
-    step), one profiled step, AdamW and the bag's backward timed
-    alone, then the REDUCED checks."""
+    TRAIN_TIMED_STEPS timed ones (the bag kernel ``bag`` must launch once
+    a step, the fused AdamW ``adamw`` once a leaf a step), one profiled
+    step, AdamW and the bag's backward timed alone, then the REDUCED
+    checks."""
     from repro_torch.configs.registry import get_training
     from repro_torch.kernels.embedding_bag.kernel import embedding_bags
     from repro_torch.kernels.embedding_bag.ref import embedding_bags_plain
@@ -3482,6 +3484,7 @@ def recsys_train_phase(device, bag) -> dict:
         f"{torch.cuda.memory_allocated(device):,} B")
 
     bag.launches = 0
+    adamw.launches = 0
     for _ in range(TRAIN_WARMUP_STEPS):
         trainer.fit(get, trainer.step_num + 1)
         log(f"recsys train: step {trainer.step_num}, device memory "
@@ -3499,6 +3502,12 @@ def recsys_train_phase(device, bag) -> dict:
     if launches != expect:
         failures.append(f"{bag.symbol}: {launches} launches in training, "
                         f"{expect} expected (one a step, {n_steps} steps)")
+    n_leaves = len(leaves(trainer.params))
+    adamw_launches, adamw_expect = adamw.launches, n_leaves * n_steps
+    if adamw_launches != adamw_expect:
+        failures.append(f"{adamw.symbol}: {adamw_launches} launches in "
+                        f"training, {adamw_expect} expected (one a leaf a "
+                        f"step, {n_leaves} leaves x {n_steps} steps)")
     losses = [h["loss"] for h in trainer.history]
     if not all(np.isfinite(losses)) or len(losses) != n_steps:
         failures.append(f"recsys train: losses {losses}")
@@ -3527,12 +3536,95 @@ def recsys_train_phase(device, bag) -> dict:
         "step": percentiles_ms(step_s),
         "samples_per_s": B * len(step_s) / sum(step_s),
         "losses": losses, "launches": launches, "expected_launches": expect,
+        "adamw_launches": adamw_launches,
+        "expected_adamw_launches": adamw_expect,
         "peak_mem_bytes": peak, "profile": profile, "adamw_ms": adamw_ms,
         "backward": backward,
         "grad_check": {"loss": grad_loss, "tables": tables},
         "reduced_checks": checks, "seconds": time.perf_counter() - t0,
         "failures": failures,
     }
+
+
+# ------------------------------------------------------ the fused AdamW --
+# the leaves the kernel is timed at: DLRM-MLPerf's capped t0 table and
+# granite-3-2b's largest stacked leaf (its 40 layers' gate projection; the
+# up and down projections are as large), f32 p and g as the trainer holds
+# them
+ADAMW_CASES = {"dlrm_t0": (TRAIN_ROW_CAP, 128),
+               "granite_stacked": (40, 2048, 8192)}
+ADAMW_REPS = 10
+ADAMW_STEP = 1000    # the step of the bit-for-bit check (moments of a run)
+
+
+def adamw_phase(device, kernel) -> dict:
+    """The fused AdamW kernel (``kernel``, its ``CudaKernel``) at each of
+    ADAMW_CASES, f32 p and g: one update from moments of a long run at
+    step ADAMW_STEP with the clip active, out of place, against the plain
+    version bit for bit in p, mu and nu; then, updating in place,
+    ADAMW_REPS updates each of the kernel, the plain version and
+    ``torch.optim.AdamW(fused=True)``'s step (the library's yardstick,
+    which the port never calls) timed by CUDA events, beside the bound
+    (``costs.adamw_cost``).  The kernel must launch once an update."""
+    from repro_torch.kernels.adamw import adamw_leaf, adamw_leaf_plain
+    from repro_torch.train.optim import OptConfig, schedule_lr
+
+    t0 = time.perf_counter()
+    failures = free_check("adamw", device)
+    opt = OptConfig()
+    hyper = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                 weight_decay=opt.weight_decay)
+    step = torch.tensor(ADAMW_STEP, dtype=torch.int32, device=device)
+    s = step.to(torch.float32)
+    scalars = (torch.tensor(0.25, device=device), schedule_lr(opt, step),
+               1 - opt.b1 ** s, 1 - opt.b2 ** s)
+    gen = torch.Generator(device=device).manual_seed(53)
+    cases = {}
+    for name, shape in ADAMW_CASES.items():
+        p = torch.randn(shape, generator=gen, device=device)
+        g = torch.randn(shape, generator=gen, device=device)
+        mu = torch.randn(shape, generator=gen, device=device).mul_(0.1)
+        nu = torch.rand(shape, generator=gen, device=device).mul_(0.01)
+        want = adamw_leaf_plain(p, g, mu, nu, *scalars, donate=False,
+                                **hyper)
+        before = kernel.launches
+        got = adamw_leaf(p, g, mu, nu, *scalars, donate=False, **hyper)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(want, got))
+        diff = max(float((a - b).abs().max()) for a, b in zip(want, got))
+        del want, got
+        launched = kernel.launches - before
+        ms = cuda_ms(lambda: adamw_leaf(p, g, mu, nu, *scalars, donate=True,
+                                        **hyper), reps=ADAMW_REPS)
+        plain_ms = cuda_ms(lambda: adamw_leaf_plain(
+            p, g, mu, nu, *scalars, donate=True, **hyper), reps=ADAMW_REPS)
+        del mu, nu
+        param = torch.nn.Parameter(p)
+        param.grad = g
+        lib = torch.optim.AdamW([param], lr=opt.lr, betas=(opt.b1, opt.b2),
+                                eps=opt.eps, weight_decay=opt.weight_decay,
+                                fused=True)
+        library_ms = cuda_ms(lib.step, reps=ADAMW_REPS)
+        del lib, param, p, g
+        torch.cuda.empty_cache()
+        n = int(np.prod(shape))
+        cost = adamw_cost(n, torch.float32, torch.float32)
+        cases[name] = {"shape": list(shape), "n": n,
+                       "bit_identical": same, "max_abs_diff": diff,
+                       "launches": launched, "ms": ms,
+                       "bound_ms": cost.bound_ms(),
+                       "bound_by": cost.bound_by(),
+                       "roofline_share": cost.bound_ms() / ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms}
+        if not same:
+            failures.append(f"adamw {name}: the kernel's p, mu or nu differ "
+                            f"from the plain version's (max {diff:.3g})")
+        if launched != 1:
+            failures.append(f"adamw {name}: {launched} launches for one "
+                            "update")
+    return {"cases": cases, "seconds": time.perf_counter() - t0,
+            "failures": failures}
 
 
 # ----------------------------------------------------------- MoE serving --
@@ -3797,7 +3889,8 @@ def lm_reduced_checks(device, kernels=()) -> dict:
     against the CPU; per-step losses within TRAIN_LOSS_RTOL, parameters
     and optimizer state within TRAIN_PARAM_TOL.  f32 at D 8 and 16 is the
     f32 routes' path: ``kernels``' launches on the card are counted,
-    and the f32-route backward must launch once a layer and microbatch."""
+    the f32-route backward must launch once a layer and microbatch, and
+    the fused AdamW once a leaf a step."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.train import synth_lm_batches
     from repro_torch.models.transformer import init_params, lm_loss
@@ -3810,7 +3903,7 @@ def lm_reduced_checks(device, kernels=()) -> dict:
     opt = OptConfig(lr=3e-3, schedule="wsd", warmup_steps=20,
                     total_steps=LM_TRAIN_PARITY_STEPS)
     microbatches = 2
-    backward_expect = 0
+    backward_expect = adamw_expect = 0
     for k in kernels:
         k.launches = 0
     for arch in ("granite-3-2b", "moonshot-v1-16b-a3b"):
@@ -3829,6 +3922,7 @@ def lm_reduced_checks(device, kernels=()) -> dict:
             tr.fit(batches, LM_TRAIN_PARITY_STEPS)
             runs.append(tr)
         backward_expect += cfg.n_layers * microbatches * LM_TRAIN_PARITY_STEPS
+        adamw_expect += len(leaves(params)) * LM_TRAIN_PARITY_STEPS
         a, b = runs
         loss_err = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
                        for x, y in zip(a.history, b.history))
@@ -3857,6 +3951,11 @@ def lm_reduced_checks(device, kernels=()) -> dict:
             f"card, {backward_expect} expected (one a layer and microbatch: "
             f"the layers of both configs x {microbatches} microbatches x "
             f"{LM_TRAIN_PARITY_STEPS} steps)")
+    if kernels and out["launches"].get("adamw") != adamw_expect:
+        failures.append(
+            f"lm train REDUCED: adamw launched "
+            f"{out['launches'].get('adamw')} times on the card, "
+            f"{adamw_expect} expected (one a leaf a step of both configs)")
     out["failures"] = failures
     return out
 
@@ -3870,8 +3969,8 @@ def lm_train_phase(device, kernels) -> dict:
     through the plain version under autograd, then LM_TRAIN_WARMUP
     warm-up and LM_TRAIN_TIMED timed steps (the wgmma flash kernel must
     launch twice per layer and microbatch, the forward and the remat
-    recompute, and the tensor-core backward kernel once), one profiled
-    step, AdamW alone, the backward kernel against the plain backward
+    recompute, the tensor-core backward kernel once, and the fused AdamW
+    once a leaf a step), one profiled step, AdamW alone, the backward kernel against the plain backward
     (``flash_backward_cases``), and the REDUCED checks."""
     from repro_torch.configs.registry import get_bundle
     from repro_torch.kernels.flash_attention import kernel as flash_mod
@@ -3944,6 +4043,7 @@ def lm_train_phase(device, kernels) -> dict:
     largest = {k.symbol: k.largest for k in kernels}
     t1 = time.perf_counter()
     per_step = f"{cfg.n_layers} layers x {mb} microbatches x {n_steps} steps"
+    n_leaves = len(leaves(trainer.params))
     expect = {  # name: (count, how it is derived)
         "flash_attention_wgmma": (2 * cfg.n_layers * mb * n_steps,
                                   f"forward and remat recompute: 2 x "
@@ -3955,6 +4055,8 @@ def lm_train_phase(device, kernels) -> dict:
         "flash_attention_backward": (0, "bf16 at D 64 takes the wgmma "
                                      "route"),
         "paged_attention": (0, "no decode in training"),
+        "adamw": (n_leaves * n_steps, f"one a leaf a step: {n_leaves} "
+                  f"leaves x {n_steps} steps"),
     }
     for name, (n, why) in expect.items():
         if launches.get(name) != n:
@@ -4081,16 +4183,18 @@ def mesh_moe_step(mesh, device, kernels, failures: List[str]) -> dict:
                     / scale)
     loss_rel = abs(sharded["loss"] / plain["loss"] - 1)
     expect = 2 * cfg.n_layers
+    n_leaves = len(leaves(plain_params))
     out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
            "batch": list(MESH_MOE_BATCH), "unsharded": plain,
            "sharded": sharded, "model_collectives": collectives,
            "loss_rel_err": loss_rel,
            "loss_bit_identical": sharded["loss"] == plain["loss"],
            "params_bit_identical": same,
-           "n_params_leaves": len(leaves(plain_params)),
+           "n_params_leaves": n_leaves,
            "param_max_rel_err": worst, "launches": launches,
            "expected_flash_wgmma_launches": expect,
-           "expected_flash_backward_wgmma_launches": cfg.n_layers}
+           "expected_flash_backward_wgmma_launches": cfg.n_layers,
+           "expected_adamw_launches": n_leaves}
     log(f"mesh moe: {n_params:,} params, unsharded step {plain['s']:.2f} s, "
         f"mesh step {sharded['s']:.2f} s, loss {sharded['loss']:.6f} vs "
         f"{plain['loss']:.6f}, params within {worst:.3g} ({same} of "
@@ -4111,6 +4215,9 @@ def mesh_moe_step(mesh, device, kernels, failures: List[str]) -> dict:
         failures.append(f"mesh moe: flash kernels launched {launches}, "
                         f"{expect} forward and {cfg.n_layers} backward "
                         f"expected")
+    if launches.get("adamw") != n_leaves:
+        failures.append(f"mesh moe: adamw launched {launches.get('adamw')} "
+                        f"times, {n_leaves} expected (one a leaf)")
     del mesh_tr, plain_params, batch
     torch.cuda.empty_cache()
     return out
@@ -4449,7 +4556,7 @@ def mesh_phase(device, kernels, bag) -> dict:
     param bit for bit, the step's peak at most MESH_PEAK_RATIO of the
     unsharded step's, and the wgmma flash kernel and the backward kernel
     launched by it (the backward has no float atomics, so both steps'
-    gradients are the same bits).  The mesh step computes on the
+    gradients are the same bits), and the fused AdamW once a leaf.  The mesh step computes on the
     weights' ``model`` shards (``distributed.tensor_parallel``: on a
     one-rank axis each shard is the whole weight, and every collective of
     the route runs over the one rank); the count of ``model`` collectives
@@ -4459,8 +4566,8 @@ def mesh_phase(device, kernels, bag) -> dict:
     then on the mesh (the first trainer freed before the second), held
     to each other within MESH_MOE_RTOL (loss and each param, over its
     largest value; bit-identity reported) with equal MoE drops, the
-    ``model`` collectives above 0 and the flash kernels launched as
-    expected.  Then the LM serve cells on the mesh
+    ``model`` collectives above 0 and the flash kernels and AdamW
+    launched as expected.  Then the LM serve cells on the mesh
     (:func:`mesh_serve_step`): granite-3-2b at its published widths, a
     prefill of MESH_SERVE_BATCH and MESH_SERVE_STEPS decode steps, bit
     for bit against the same steps without a mesh, and moonshot cut to
@@ -4558,6 +4665,7 @@ def mesh_phase(device, kernels, bag) -> dict:
         ratio = sharded["step_peak_bytes"] / plain["step_peak_bytes"]
         expect = 2 * cfg.n_layers * mb
         expect_bwd = cfg.n_layers * mb
+        expect_adamw = len(leaves(plain_params))
         out.update({
             "arch": cfg.name, "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ],
             "microbatches": mb, "unsharded": plain, "sharded": sharded,
@@ -4567,7 +4675,8 @@ def mesh_phase(device, kernels, bag) -> dict:
             "step_peak_ratio": ratio, "launches": launches,
             "model_collectives": collectives,
             "expected_flash_wgmma_launches": expect,
-            "expected_flash_backward_wgmma_launches": expect_bwd})
+            "expected_flash_backward_wgmma_launches": expect_bwd,
+            "expected_adamw_launches": expect_adamw})
         if collectives == 0:
             failures.append("mesh: the mesh step issued no model "
                             "collective (not the tensor-parallel route)")
@@ -4591,6 +4700,10 @@ def mesh_phase(device, kernels, bag) -> dict:
                 f"{launches.get('flash_attention_backward_wgmma')} times "
                 f"in the mesh step, {expect_bwd} expected (one a layer "
                 f"and microbatch: {cfg.n_layers} x {mb})")
+        if launches.get("adamw") != expect_adamw:
+            failures.append(
+                f"mesh: adamw launched {launches.get('adamw')} times in the "
+                f"mesh step, {expect_adamw} expected (one a leaf)")
         del mesh_tr, plain_params, batch
         out["moe"] = mesh_moe_step(mesh, device, kernels, failures)
         out["serve"] = mesh_serve_step("granite-3-2b", mesh, device,
@@ -5173,8 +5286,9 @@ def gnn_train_phase(device, hand_kernels, seed: int = 0) -> dict:
     fanout [15, 10], features on the card), ogbn-products at its published
     size, the batched molecules; then E(3) invariance and card against
     CPU at full width on Cora and molecule, and the REDUCED cells card
-    against CPU.  The GNN path reaches no hand kernel: no launch counter
-    may rise during the phase, and TF32 must be off."""
+    against CPU.  The GNN path reaches no hand kernel but the optimizer's
+    fused AdamW (:func:`gnn_hand_kernel_failures`), and TF32 must be
+    off."""
     from repro_torch.configs.registry import get_bundle
 
     t0 = time.perf_counter()
@@ -5264,15 +5378,25 @@ def gnn_train_phase(device, hand_kernels, seed: int = 0) -> dict:
                             "relative L2, card against CPU")
     reduced = gnn_reduced_checks(seed, device)
     failures += reduced.pop("failures")
-    after = {k.symbol: k.launches for k in hand_kernels}
-    if after != before:
-        failures.append(f"gnn train: hand kernels launched on the GNN path: "
-                        f"{before} -> {after}")
+    launched = {k.symbol: k.launches - before[k.symbol]
+                for k in hand_kernels}
+    failures += gnn_hand_kernel_failures("gnn train", launched)
     return {"config": dataclasses.asdict(bundle.config) | {"dtype": "float32"},
             "seed": seed, "tf32": tf32, "cells": cells, "checks": checks,
-            "reduced_checks": reduced,
-            "hand_kernel_launches": {k: after[k] - before[k] for k in after},
+            "reduced_checks": reduced, "hand_kernel_launches": launched,
             "seconds": time.perf_counter() - t0, "failures": failures}
+
+
+def gnn_hand_kernel_failures(label: str, launched: Dict[str, int]
+                             ) -> List[str]:
+    """The GNN path's hand-kernel launches (``launched``, by kernel, over
+    a phase): the optimizer's fused AdamW launches on every step on the
+    card, and no other hand kernel does."""
+    others = {k: n for k, n in launched.items() if k != "adamw" and n}
+    if others or not launched.get("adamw"):
+        return [f"{label}: hand kernels launched on the GNN path {launched}, "
+                "only adamw expected"]
+    return []
 
 
 def graph_route_count(n_layers: int, node_axes: int, edge_axes: int,
@@ -5376,8 +5500,8 @@ def mesh_gnn_phase(device, hand_kernels, seed: int = 0) -> dict:
     molecules), each through :func:`mesh_gnn_step` on a one-rank NCCL
     mesh (``one_rank_mesh``) under :func:`deterministic_algorithms`:
     the edge blocks' ``index_add_`` sums take CUDA atomics in an order
-    that changes from run to run without it.  No hand kernel may
-    launch."""
+    that changes from run to run without it.  No hand kernel but the
+    optimizer's may launch (:func:`gnn_hand_kernel_failures`)."""
     from repro_torch.configs.registry import get_bundle
 
     t0 = time.perf_counter()
@@ -5395,13 +5519,11 @@ def mesh_gnn_phase(device, hand_kernels, seed: int = 0) -> dict:
             cells[name] = mesh_gnn_step(name, spec, batch, mesh, device,
                                         failures)
             del batch
-    after = {k.symbol: k.launches for k in hand_kernels}
-    if after != before:
-        failures.append(f"mesh gnn: hand kernels launched on the GNN path: "
-                        f"{before} -> {after}")
+    launched = {k.symbol: k.launches - before[k.symbol]
+                for k in hand_kernels}
+    failures += gnn_hand_kernel_failures("mesh gnn", launched)
     torch.cuda.empty_cache()
-    return {"cells": cells,
-            "hand_kernel_launches": {k: after[k] - before[k] for k in after},
+    return {"cells": cells, "hand_kernel_launches": launched,
             "seconds": time.perf_counter() - t0, "failures": failures}
 
 
@@ -5430,6 +5552,7 @@ def main(argv: Sequence[str] = ()) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.adamw import ADAMW
     from repro_torch.kernels.embedding_bag.kernel import EMBEDDING_BAG
     from repro_torch.kernels.flash_attention.kernel import (
         FLASH_ATTENTION,
@@ -5450,6 +5573,8 @@ def main(argv: Sequence[str] = ()) -> int:
     backward_kernels = (FLASH_ATTENTION_BACKWARD_WGMMA,
                         FLASH_ATTENTION_BACKWARD)
     train_kernels = serve_kernels + backward_kernels
+    # what the training phases reset and count: the optimizer's kernel too
+    step_kernels = train_kernels + (ADAMW,)
     # the case each serve kernel's row of the kernels line shows: the
     # f32-route flash kernel serves f32 (the parity phase), the others bf16
     row_dtype = {FLASH_ATTENTION_WGMMA.symbol: "bf16",
@@ -5523,7 +5648,7 @@ def main(argv: Sequence[str] = ()) -> int:
     log(f"recsys phases: {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    train = recsys_train_phase(device, EMBEDDING_BAG)
+    train = recsys_train_phase(device, EMBEDDING_BAG, ADAMW)
     log("recsys train: " + json.dumps(
         {k: v for k, v in train.items() if k not in ("profile", "grad_check")}))
     log("recsys train profile: " + json.dumps(train["profile"]))
@@ -5536,6 +5661,11 @@ def main(argv: Sequence[str] = ()) -> int:
                             for t in train["grad_check"]["tables"].values())}))
     failures += train["failures"]
     log(f"recsys train phase: {train['seconds']:.1f} s")
+    adamw = adamw_phase(device, ADAMW)
+    for where, case in adamw["cases"].items():
+        log(f"kernel adamw {where}: " + json.dumps(case))
+    failures += adamw["failures"]
+    log(f"adamw phase: {adamw['seconds']:.1f} s")
 
     t0 = time.perf_counter()
     moe = moe_serve_phase(device, serve_kernels)
@@ -5554,7 +5684,7 @@ def main(argv: Sequence[str] = ()) -> int:
     failures += mparity["failures"]
     log(f"moe phases: {time.perf_counter() - t0:.1f} s")
 
-    lm = lm_train_phase(device, train_kernels)
+    lm = lm_train_phase(device, step_kernels)
     log("lm train: " + json.dumps({k: v for k, v in lm.items()
                                    if k not in ("profile", "grad_check")}))
     log("lm train profile: " + json.dumps(lm["profile"]))
@@ -5562,7 +5692,7 @@ def main(argv: Sequence[str] = ()) -> int:
         {k: v for k, v in lm["grad_check"].items() if k != "rel_l2"}))
     failures += lm["failures"]
     log(f"lm train phase: {lm['seconds']:.1f} s")
-    mesh = mesh_phase(device, train_kernels, EMBEDDING_BAG)
+    mesh = mesh_phase(device, step_kernels, EMBEDDING_BAG)
     log("mesh: " + json.dumps(mesh))
     failures += mesh["failures"]
     log(f"mesh phase: {mesh['seconds']:.1f} s")
@@ -5577,7 +5707,7 @@ def main(argv: Sequence[str] = ()) -> int:
                                 f"{case['max_err_ratio']:.3g} times its limit")
             attn[name][where] = case
 
-    gnn = gnn_train_phase(device, kernels + train_kernels + (EMBEDDING_BAG,),
+    gnn = gnn_train_phase(device, kernels + step_kernels + (EMBEDDING_BAG,),
                           args.seed)
     for name, cell in gnn["cells"].items():
         log(f"gnn train {name}: " + json.dumps(
@@ -5587,13 +5717,13 @@ def main(argv: Sequence[str] = ()) -> int:
         {k: v for k, v in gnn.items() if k not in ("cells", "config")}))
     failures += gnn["failures"]
     log(f"gnn train phase: {gnn['seconds']:.1f} s")
-    mgnn = mesh_gnn_phase(device, kernels + train_kernels + (EMBEDDING_BAG,),
+    mgnn = mesh_gnn_phase(device, kernels + step_kernels + (EMBEDDING_BAG,),
                           args.seed)
     log("mesh gnn: " + json.dumps(mgnn))
     failures += mgnn["failures"]
     log(f"mesh gnn phase: {mgnn['seconds']:.1f} s")
 
-    dry = dryrun_phase(device, train_kernels + kernels + (EMBEDDING_BAG,),
+    dry = dryrun_phase(device, step_kernels + kernels + (EMBEDDING_BAG,),
                        smi)
     log("dryrun: " + json.dumps({k: v for k, v in dry.items()
                                  if k not in ("cells", "dry")}))
@@ -5615,6 +5745,17 @@ def main(argv: Sequence[str] = ()) -> int:
     by_path = {k.symbol: {path: rep["launches"].get(k.symbol, 0)
                           for path, rep in launch_paths.items()}
                for k in train_kernels}
+    # AdamW's launches on each training path, each counted from 0 by its
+    # phase; every one of them must have launched it
+    adamw_by_path = {
+        "recsys_train": train["adamw_launches"],
+        **{path: launch_paths[path]["launches"][ADAMW.symbol]
+           for path in ("lm_train", "lm_reduced", "mesh", "mesh_moe")},
+        "gnn_train": gnn["hand_kernel_launches"][ADAMW.symbol],
+        "mesh_gnn": mgnn["hand_kernel_launches"][ADAMW.symbol]}
+    if not all(adamw_by_path.values()):
+        failures.append(f"adamw: a training path launched it 0 times "
+                        f"({adamw_by_path})")
     # the backward rows show the lm train microbatch (tensor cores) and
     # REDUCED Moonshot's width in f32 (split-TF32)
     backward_row = {FLASH_ATTENTION_BACKWARD_WGMMA.symbol: "lm_train_bf16",
@@ -5723,6 +5864,18 @@ def main(argv: Sequence[str] = ()) -> int:
                                      "bound_ms", "bound_by", "library_ms",
                                      "bit_identical")},
             "backward": train["backward"],
+        },
+        {
+            "name": ADAMW.symbol,
+            "route": "cuda",
+            "source": ADAMW.source,
+            "replaces": ADAMW.replaces,
+            "launches": sum(adamw_by_path.values()),
+            "launches_by_path": adamw_by_path,
+            **{key: adamw["cases"]["dlrm_t0"][key]
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms", "shape", "bit_identical")},
+            "granite_stacked": adamw["cases"]["granite_stacked"],
         }
     ]}
     if args.out:
@@ -5736,7 +5889,7 @@ def main(argv: Sequence[str] = ()) -> int:
              "serve": serve, "parity": parity, "attention": attn,
              "recsys": recsys, "recsys_parity": rparity,
              "embedding_bag": bags, "mesh_recsys_serve": mserve,
-             "recsys_train": train,
+             "recsys_train": train, "adamw": adamw,
              "moe_serve": moe, "moe_serve_qwen3": qwen3,
              "moe_parity": mparity, "lm_train": lm, "mesh": mesh,
              "gnn_train": gnn, "mesh_gnn": mgnn, "dryrun": dry,

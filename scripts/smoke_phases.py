@@ -16,7 +16,10 @@ launch among them), ``mserve`` (the four recsys archs' serve cells at
 published widths on a one-rank NCCL mesh against the same calls
 unsharded, on DLRM's tables from ``recsys`` where it ran before, as the
 smoke run does, else drawn anew), ``rtrain`` (DLRM-MLPerf trained with tables capped at
-2^22 rows), ``moe`` (Moonlight-16B-A3B served at its full config), ``qwen3``
+2^22 rows), ``adamw`` (the fused AdamW kernel against its plain
+version at DLRM's capped table and granite's largest leaf, timed beside
+its bound, the plain version and ``torch.optim.AdamW(fused=True)``),
+``moe`` (Moonlight-16B-A3B served at its full config), ``qwen3``
 (Qwen3-235B-A22B widths at 8 layers), ``mparity`` (both MoE configs at
 REDUCED, card against CPU), ``lm`` (granite-3-2b trained at its published
 widths), ``mesh`` (granite-3-2b's step and moonshot-v1-16b-a3b's at 2
@@ -55,15 +58,16 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("kattn", "recsys", "mserve", "rtrain", "moe", "qwen3", "mparity", "lm",
-          "mesh", "guard", "attn", "bwd", "gnn", "mgnn", "dryrun")
+PHASES = ("kattn", "recsys", "mserve", "rtrain", "adamw", "moe", "qwen3",
+          "mparity", "lm", "mesh", "guard", "attn", "bwd", "gnn", "mgnn",
+          "dryrun")
 PATH_NAMES = {"moe": "moe_serve", "qwen3": "moe_serve_qwen3", "lm": "lm_train"}
 SUMMARY_KEYS = ("tokens_per_s", "prefill", "decode_step", "dropped",
                 "peak_mem_bytes", "serve_peak_mem_bytes", "launches", "step",
                 "grad_check", "configs", "reduced_checks", "backward",
                 "adamw_ms", "setup_s", "split_s", "checks",
-                "reduced_checks", "hand_kernel_launches", "seconds",
-                "unsharded", "sharded", "step_peak_ratio",
+                "reduced_checks", "hand_kernel_launches", "adamw_launches",
+                "seconds", "unsharded", "sharded", "step_peak_ratio",
                 "model_collectives", "moe", "peak_ratio", "roofline_share",
                 "real", "cells", "cells_s", "archs", "failures")
 
@@ -135,6 +139,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import chip_smoke as cs
     from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.adamw import ADAMW
     from repro_torch.kernels.embedding_bag.kernel import EMBEDDING_BAG
     from repro_torch.kernels.flash_attention.kernel import (
         FLASH_ATTENTION,
@@ -151,6 +156,8 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     kernels = (FLASH_ATTENTION_WGMMA, FLASH_ATTENTION, PAGED_ATTENTION,
                FLASH_ATTENTION_BACKWARD_WGMMA, FLASH_ATTENTION_BACKWARD)
+    # what the training phases reset and count: the optimizer's kernel too
+    step_kernels = kernels + (ADAMW,)
     t0 = time.perf_counter()
     cuda_lib.build()
     cs.log(f"build: {time.perf_counter() - t0:.1f} s")
@@ -162,26 +169,28 @@ def main(argv=None) -> int:
             drawn if "mserve" in wanted else None),
         "mserve": lambda: cs.mesh_recsys_serve_phase(device, EMBEDDING_BAG,
                                                      drawn),
-        "rtrain": lambda: cs.recsys_train_phase(device, EMBEDDING_BAG),
+        "rtrain": lambda: cs.recsys_train_phase(device, EMBEDDING_BAG,
+                                                ADAMW),
+        "adamw": lambda: cs.adamw_phase(device, ADAMW),
         "moe": lambda: cs.moe_serve_phase(device, kernels),
         "qwen3": lambda: cs.moe_qwen3_phase(device, kernels),
         "mparity": lambda: cs.moe_parity_phase(device, kernels),
-        "lm": lambda: cs.lm_train_phase(device, kernels),
-        "mesh": lambda: cs.mesh_phase(device, kernels, EMBEDDING_BAG),
+        "lm": lambda: cs.lm_train_phase(device, step_kernels),
+        "mesh": lambda: cs.mesh_phase(device, step_kernels, EMBEDDING_BAG),
         "guard": lambda: {"failures": cs.attention_grad_guard(device)},
         "attn": lambda: {"failures": [], "cases": cs.path_attention_phase(
             {PATH_NAMES[k]: out[k] for k in PATH_NAMES if k in out},
             device)},
         "bwd": lambda: backward_phase(cs, device),
         "gnn": lambda: cs.gnn_train_phase(
-            device, kernels + (VARINT_DECODE, SORTED_MEMBER_MASK,
-                               EMBEDDING_BAG), args.seed),
+            device, step_kernels + (VARINT_DECODE, SORTED_MEMBER_MASK,
+                                    EMBEDDING_BAG), args.seed),
         "mgnn": lambda: cs.mesh_gnn_phase(
-            device, kernels + (VARINT_DECODE, SORTED_MEMBER_MASK,
-                               EMBEDDING_BAG), args.seed),
+            device, step_kernels + (VARINT_DECODE, SORTED_MEMBER_MASK,
+                                    EMBEDDING_BAG), args.seed),
         "dryrun": lambda: cs.dryrun_phase(
-            device, kernels + (VARINT_DECODE, SORTED_MEMBER_MASK,
-                               EMBEDDING_BAG), out["smi"],
+            device, step_kernels + (VARINT_DECODE, SORTED_MEMBER_MASK,
+                                    EMBEDDING_BAG), out["smi"],
             [(f"--arch {args.dryrun_cells} --mesh single",)]
             if args.dryrun_cells else cs.DRYRUN_CELLS),
     }

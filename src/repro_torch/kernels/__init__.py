@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the search, LM serving and recsys paths.
+"""Hand-written Hopper kernels of the search, LM serving, recsys and
+training paths.
 
 Each kernel directory mirrors ``repro.kernels``:
 
@@ -27,6 +28,11 @@ Kernels:
   paged_attention — one-token attention over a paged KV pool (LM decode)
   embedding_bag   — fixed-size weighted bags of table rows, summed in
                     f32 (DLRM's 26 lookups)
+  adamw           — one leaf's whole AdamW update in one pass (every
+                    trainer step); it ports no Pallas kernel (the
+                    reference's AdamW is jnp arithmetic that XLA fuses),
+                    and its plain version lies beside the wrapper in
+                    ``kernel.py``
 
 ``cuda_lib`` builds ``csrc/`` into one shared library at first use and
 binds its C entry points through ctypes.

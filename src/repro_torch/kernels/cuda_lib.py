@@ -150,7 +150,8 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.source = source        # repository path of the CUDA source
-        self.replaces = replaces    # file:line of the TPU kernel it ports
+        # file:line of the TPU kernel it ports, or "none: <why>"
+        self.replaces = replaces
         self.launches = 0
         self.largest: Optional[Tuple[int, ...]] = None
         self._fn = None
@@ -204,7 +205,7 @@ class CudaKernel:
             self.largest = tuple(sizes)
 
 
-def _check_device(t: torch.Tensor, name: str) -> None:
+def check_device(t: torch.Tensor, name: str) -> None:
     """The card, the CPU, or (inside a dry run only) the ``meta`` device
     that stands for the card."""
     if t.device.type in ("cuda", "cpu"):
@@ -224,7 +225,7 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
         raise ValueError(f"{name} must be 1-d, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    _check_device(t, name)
+    check_device(t, name)
 
 
 def require_no_grad(kernel: str, *operands: torch.Tensor,
@@ -255,4 +256,4 @@ def check_float_operand(t: torch.Tensor, name: str, ndim: int) -> None:
         raise ValueError(f"{name} must be {ndim}-d, got {tuple(t.shape)}")
     if t.shape[-1] > 1 and t.stride(-1) != 1:
         raise ValueError(f"{name} must be contiguous along its last dim")
-    _check_device(t, name)
+    check_device(t, name)

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.distributed.leaf_kinds import reduce_over_shards
 from repro_torch.distributed.tensor_parallel import ModelGroup
+from repro_torch.kernels.adamw.kernel import adamw_leaf
 from repro_torch.obs import span
 from repro_torch.tree import leaves, tree_map, unflatten
 
@@ -88,23 +89,19 @@ def global_norm(tree: Any, dims: Any = None,
     return torch.sqrt(torch.as_tensor(sum(sums), dtype=torch.float32))
 
 
-def _update_leaf(cfg: OptConfig, p, g, mu, nu, scale, lr, bc1, bc2,
-                 donate: bool):
-    g = g.float() * scale
-    if donate:
-        mu = mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        nu = nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-    else:
-        mu = cfg.b1 * mu + (1 - cfg.b1) * g
-        nu = cfg.b2 * nu + (1 - cfg.b2) * g * g
-    del g
-    pf = p.float()
-    upd = lr * (mu / bc1 / (torch.sqrt(nu / bc2) + cfg.eps)
-                + cfg.weight_decay * pf)
-    if donate and p.dtype == torch.float32:
-        return p.sub_(upd), mu, nu
-    newp = (pf - upd).to(p.dtype)
-    return (p.copy_(newp) if donate else newp), mu, nu
+def _update_leaf(p, g, mu, nu, scalars, cfg: OptConfig, donate: bool):
+    """``adamw_leaf`` of one leaf.  An operand that is a strided view
+    (the block of a whole tensor that ``sharding.place`` gives a rank, or
+    a gradient cut from a whole one) goes through a contiguous copy, and
+    with ``donate`` its new value is copied back into it."""
+    dense_p, dense_mu, dense_nu = (t.contiguous() for t in (p, mu, nu))
+    new = adamw_leaf(dense_p, g.contiguous(), dense_mu, dense_nu, *scalars,
+                     b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                     weight_decay=cfg.weight_decay, donate=donate)
+    if not donate:
+        return new
+    return tuple(t if t is d else t.copy_(d)
+                 for t, d in zip((p, mu, nu), new))
 
 
 def adamw_update(cfg: OptConfig, grads: Any, state: Dict, params: Any,
@@ -116,11 +113,13 @@ def adamw_update(cfg: OptConfig, grads: Any, state: Dict, params: Any,
     Gradients are clipped to ``cfg.clip_norm`` by their global norm
     (``grad_norm`` where the caller took it, as a step on a mesh does over
     the whole gradients before it updates its shards).
-    With ``donate``, ``params``, ``mu`` and ``nu`` are updated in place
-    and returned, as a JAX step that donates its buffers reuses them: one
-    leaf's temporaries at a time beside the state, where a new tree would
-    hold the state twice (at DLRM-MLPerf's widths 36 GB of it).  The
-    values are the same either way."""
+    Each leaf is one :func:`~repro_torch.kernels.adamw.adamw_leaf`: a
+    launch of the fused kernel on the card (the plain version's bits),
+    the plain version on the CPU.  With ``donate``, ``params``, ``mu``
+    and ``nu`` are updated in place and returned, as a JAX step that
+    donates its buffers reuses them, where a new tree would hold the
+    state twice (at DLRM-MLPerf's widths 36 GB of it).  The values are
+    the same either way."""
     with span("optimizer"):
         step = state["step"] + 1
         gn = global_norm(grads) if grad_norm is None else grad_norm
@@ -130,7 +129,7 @@ def adamw_update(cfg: OptConfig, grads: Any, state: Dict, params: Any,
         bc1 = 1 - cfg.b1 ** step.to(torch.float32)
         bc2 = 1 - cfg.b2 ** step.to(torch.float32)
         out = [
-            _update_leaf(cfg, p, g, m, n, scale, lr, bc1, bc2, donate)
+            _update_leaf(p, g, m, n, (scale, lr, bc1, bc2), cfg, donate)
             for p, g, m, n in zip(leaves(params), leaves(grads),
                                   leaves(state["mu"]), leaves(state["nu"]))
         ]

@@ -62,6 +62,7 @@ from repro_torch.kernels.flash_attention.kernel import (
 from repro_torch.launch import dryrun
 from repro_torch.launch import roofline
 from repro_torch.launch.mesh import HW
+from repro_torch.tree import leaves
 
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -337,8 +338,11 @@ def test_granite_train_at_full_width_on_the_single_mesh():
     assert r["kernels"]["flash_attention_wgmma"]["launches"] == 2 * L * mb
     assert r["kernels"]["flash_attention_backward_wgmma"]["launches"] \
         == L * mb
+    # and the optimizer's fused update, one launch a leaf
+    n_leaves = len(leaves(bundle.abstract_params()))
+    assert r["kernels"]["adamw"]["launches"] == n_leaves
     assert set(r["kernels"]) == {"flash_attention_wgmma",
-                                 "flash_attention_backward_wgmma"}
+                                 "flash_attention_backward_wgmma", "adamw"}
     assert r["model_collectives"] == r["model_collectives_counted"] > 0
     assert r["aten_dot_flops"] == r["flop_counter_total"]
     assert r["collectives"]["by_axis"]["model"]["cross_node"]

@@ -7,6 +7,10 @@ its wrappers take for CPU tensors, the ``torch`` and ``cuda`` backends on
 ``device="cpu"``).  Everything is integer arithmetic, so the tolerance
 is zero: outputs must be bit-identical."""
 
+import importlib
+import pkgutil
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +31,7 @@ from repro.search.scoring import ScoreSpec as RefScoreSpec
 from repro.search.scoring import score_docs as ref_score_docs
 
 from repro_torch.core.postings import PostingDecoder as PortPostingDecoder
+import repro_torch.kernels
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.intersect.kernel import (
     sorted_member_mask,
@@ -321,14 +326,38 @@ def test_torch_join_many_buckets_match_oracle():
 
 
 # ---------------------------------------------------------------- build --
+def _cuda_kernels():
+    """Every ``CudaKernel`` the kernel packages' wrappers bind, by the
+    repository path of its source."""
+    by_source = {}
+    for pkg in pkgutil.iter_modules(repro_torch.kernels.__path__):
+        if pkg.ispkg:
+            mod = importlib.import_module(
+                f"repro_torch.kernels.{pkg.name}.kernel")
+            for k in vars(mod).values():
+                if isinstance(k, cuda_lib.CudaKernel):
+                    by_source.setdefault(k.source, []).append(k)
+    return by_source
+
+
 def test_kernel_sources_and_flags():
     """Every kernel's wrapper names a CUDA source that exists and is built
     for sm_90a."""
     names = {s.name for s in cuda_lib.sources()}
     assert {"varint_decode.cu", "sorted_member_mask.cu"} <= names
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
+    bound = _cuda_kernels()
     for src in cuda_lib.sources():
         text = src.read_text()
         if "__global__" in text:
-            assert "Replaces src/repro/kernels/" in text
+            # the TPU kernel it ports; or, where each wrapper that binds it
+            # says it replaces none, the reference code whose work it does
+            # (a file that exists) and why it was added
+            stands_for = re.search(r"Replaces no TPU kernel: [^(]*\((\S+)\)",
+                                   text)
+            kernels = bound.get(str(src.relative_to(cuda_lib.REPO_ROOT)), [])
+            assert "Replaces src/repro/kernels/" in text or (
+                stands_for and (cuda_lib.REPO_ROOT / stands_for[1]).is_file()
+                and "It is added because" in text and kernels
+                and all(k.replaces.startswith("none") for k in kernels))
             assert "Bound on an H100" in text
